@@ -1,0 +1,447 @@
+"""Ensemble statistics, smoothing-parameter optimization and the smoother
+driver: the linear, single-device part of ``eks_tpu/core.py``.
+
+Semantics kept from the JAX package:
+  * ensemble: median/mean consensus (the median through a compare-exchange
+    network, bit-equal to ``jnp.nanmedian``), confidence-weighted variance
+    ``nanvar/mean_conf`` with ddof = 0, the n_models == 1 fallback
+    ``1/max(conf, 1e-5)``, NaN variance -> ``nan_replacement``.
+  * s init: std of frame-to-frame ensemble-variance diffs over the first
+    2000 frames, rounded to 5 dp, fallback 2.0.
+  * optimizer: the loss uses frames cropped by ``s_frames`` and a CONSTANT
+    diagonal R = time median of the ensemble variances floored at
+    ``min_R_var = 1e-4``, while the final smoother uses full-length
+    time-varying R.
+  * Adam(1.0) on lr-scaled gradients of the NLL w.r.t. log s clipped to
+    ±8, early stop when |loss - prev| < tol*|log(max(prev, 1e-12))| + 1e-6,
+    hard cap 300 iterations, per-lane state that commits only while the lane
+    is active.
+
+The loss runs through the fused NLL (kernel A, paired form) on the card; its
+derivative is forward-mode, from the scalar table's tangent.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Literal
+
+import numpy as np
+import torch
+
+from eks_tpu_torch.ops.fused_nll import fused_nll_paired
+from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
+from eks_tpu_torch.ops.pkalman import _pack_scalars, kalman_smoother_parallel
+from eks_tpu_torch.utils import crop_frames
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["run_kalman_smoother", "optimize_smooth_param"]
+
+_NOT_PORTED = "is not ported to eks_tpu_torch yet (see ROADMAP.md, queue 1)"
+
+
+# --------------------------------------------------------------------------- #
+# NaN-aware statistics with the JAX package's exact semantics
+# --------------------------------------------------------------------------- #
+def _nanmedian_small(a: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``jnp.nanmedian`` over a SMALL axis through an unrolled odd-even
+    transposition network: NaNs become +inf sentinels with an explicit
+    non-NaN count, and the two middle values are averaged as
+    ``0.5 * (lo + hi)`` (``torch.nanmedian`` returns the lower one)."""
+    a = a.movedim(dim, 0)
+    m = a.shape[0]
+    isnan = torch.isnan(a)
+    n = (~isnan).sum(dim=0)
+    inf = torch.tensor(float("inf"), dtype=a.dtype, device=a.device)
+    rows = [torch.where(isnan[i], inf, a[i]) for i in range(m)]
+    for p in range(m):
+        for i in range(p % 2, m - 1, 2):
+            lo = torch.minimum(rows[i], rows[i + 1])
+            rows[i + 1] = torch.maximum(rows[i], rows[i + 1])
+            rows[i] = lo
+    idx_lo = torch.clamp(n - 1, min=0) // 2
+    idx_hi = torch.clamp(n // 2, max=m - 1)
+    sel_lo = sel_hi = torch.zeros_like(rows[0])
+    for i in range(m):
+        sel_lo = torch.where(idx_lo == i, rows[i], sel_lo)
+        sel_hi = torch.where(idx_hi == i, rows[i], sel_hi)
+    med = 0.5 * (sel_lo + sel_hi)
+    return torch.where(n == 0, torch.full_like(med, float("nan")), med)
+
+
+def _nanmedian(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.nanmedian`` over any axis: sort with NaN last, then average the
+    two middle values of the non-NaN ones (midpoint rule)."""
+    isnan = torch.isnan(a)
+    n = (~isnan).sum(dim=dim, keepdim=True)
+    srt = torch.sort(torch.where(isnan, torch.full_like(a, float("inf")), a), dim=dim).values
+    lo = torch.gather(srt, dim, torch.clamp(n - 1, min=0) // 2)
+    hi = torch.gather(srt, dim, torch.clamp(n // 2, max=a.shape[dim] - 1))
+    med = ((lo + hi) * 0.5).squeeze(dim)
+    return torch.where(n.squeeze(dim) == 0, torch.full_like(med, float("nan")), med)
+
+
+#: up to this size an axis counts as small (the ensemble's models): the
+#: median takes the network, sums run one add at a time in index order
+_SMALL_AXIS = 16
+
+
+def _nanmedian_models(a: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    if a.shape[dim] <= _SMALL_AXIS:
+        return _nanmedian_small(a, dim=dim)
+    return _nanmedian(a, dim=dim)
+
+
+def _is_small(a: torch.Tensor, dim) -> bool:
+    return isinstance(dim, int) and a.shape[dim] <= _SMALL_AXIS
+
+
+def _sum(a: torch.Tensor, dim, keepdim: bool = False) -> torch.Tensor:
+    """Sum over ``dim``. Over a small axis the rows are added one at a time
+    in index order, the order of XLA's reduction loop, so sums are
+    bit-equal to the JAX package's (``Tensor.sum`` vectorizes its own way)."""
+    if not _is_small(a, dim):
+        return a.sum(dim=dim, keepdim=keepdim)
+    rows = a.movedim(dim, 0)
+    total = rows[0]
+    for row in rows[1:]:
+        total = total + row
+    return total.unsqueeze(dim) if keepdim else total
+
+
+def _nanmean(a: torch.Tensor, dim, keepdim: bool = False) -> torch.Tensor:
+    """``jnp.nanmean``: NaN-zeroed sum over the non-NaN count."""
+    isnan = torch.isnan(a)
+    total = _sum(torch.where(isnan, torch.zeros_like(a), a), dim, keepdim)
+    return total / (~isnan).sum(dim=dim, keepdim=keepdim).to(a.dtype)
+
+
+def _nanvar(a: torch.Tensor, dim: int, scale: torch.Tensor | None = None) -> torch.Tensor:
+    """``jnp.nanvar`` with ddof = 0 (torch has no nanvar, and ``torch.var``
+    defaults to ddof = 1), divided by ``scale`` if one is given: XLA folds
+    ``nanvar(a) / scale`` into one division by ``count * scale``, and so does
+    this function. Over a small axis the squares are accumulated as
+    XLA's reduction does, one fused multiply-add per row in index order (the
+    float64 product of two float32 values is exact, so adding in float64 and
+    rounding once to float32 reproduces the fused operation), so the result
+    is bit-equal to the JAX package's."""
+    isnan = torch.isnan(a)
+    centered = torch.where(isnan, torch.zeros_like(a), a - _nanmean(a, dim, keepdim=True))
+    count = (~isnan).sum(dim=dim)
+    if _is_small(a, dim):
+        result = torch.zeros_like(centered.select(dim, 0))
+        for row in centered.movedim(dim, 0).double():
+            result = (row * row + result.double()).to(a.dtype)
+    else:
+        result = (centered * centered).sum(dim=dim)
+    empty = count <= 0
+    result = torch.where(empty, torch.full_like(result, float("nan")), result)
+    divisor = torch.where(empty, torch.ones_like(count), count).to(a.dtype)
+    return result / (divisor if scale is None else divisor * scale)
+
+
+def _ensemble_kernel(data_x, data_y, data_lh, n_models, avg_mode, var_mode, nan_rep):
+    """(M, T, K) prediction planes -> (T, K, 5) stats
+    [x, y, var_x, var_y, likelihood]. The mean confidence is the summed
+    likelihood times ``1 / n_models``, the product XLA makes of a division
+    by a constant."""
+    avg_fn = _nanmedian_models if avg_mode == "median" else (lambda a, dim: _nanmean(a, dim))
+    avg_x = avg_fn(data_x, dim=0)
+    avg_y = avg_fn(data_y, dim=0)
+    mean_conf = _sum(data_lh, 0) * (1.0 / n_models)
+    if n_models == 1:
+        single_var = 1.0 / torch.clamp(mean_conf, min=1e-5)
+        var_x = var_y = single_var
+    elif var_mode in ("conf_weighted_var", "confidence_weighted_var"):
+        var_x = _nanvar(data_x, 0, mean_conf)
+        var_y = _nanvar(data_y, 0, mean_conf)
+    else:
+        var_x = _nanvar(data_x, 0)
+        var_y = _nanvar(data_y, 0)
+    var_x = torch.nan_to_num(var_x, nan=nan_rep)
+    var_y = torch.nan_to_num(var_y, nan=nan_rep)
+    return torch.stack([avg_x, avg_y, var_x, var_y, mean_conf], dim=-1)
+
+
+def _device_constant_r(ev_kto: torch.Tensor, min_var: float) -> torch.Tensor:
+    """(K, T, O) variances -> (K, O) constant diagonal R: the time median of
+    the variances floored at 1e-12, floored again at ``min_var``."""
+    floored = torch.clamp(ev_kto, min=1e-12)
+    return torch.clamp(_nanmedian(floored, dim=1), min=min_var)
+
+
+def _device_s_guesses(ev_tko: torch.Tensor) -> torch.Tensor:
+    """Initial s per keypoint from (T, K, O) variances: std of frame-to-frame
+    diffs over the first 2000 frames, rounded to 5 dp."""
+    ev = ev_tko[:2000]
+    diffs = ev[1:] - ev[:-1]
+    dev = diffs - _nanmean(diffs, dim=(0, 2), keepdim=True)
+    std = torch.sqrt(_nanmean(dev * dev, dim=(0, 2)))
+    return torch.round(std * 1e5) / 1e5
+
+
+# --------------------------------------------------------------------------- #
+# the optimizer
+# --------------------------------------------------------------------------- #
+def _joint_masked_adam(loss_and_grad, s_log_init: torch.Tensor, lr: float, tol: float,
+                       safety_cap: int, timings: dict | None = None):
+    """Per-lane Adam on log s with masked carries and the reference stop
+    rule. ``loss_and_grad(s_log) -> (loss, grad)``, both (n_blocks,). The
+    update is optax ``adam(1.0)`` fed ``grad * lr``: b1 = 0.9, b2 = 0.999,
+    eps = 1e-8, eps_root = 0, count incremented before the bias correction.
+    A lane's state commits only while it is active; the loop ends when no
+    lane is (one host sync per iteration). Returns (s_log, last_loss,
+    iters), each (n_blocks,)."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    dev, dt = s_log_init.device, s_log_init.dtype
+    n = s_log_init.shape[0]
+    s_log = s_log_init
+    mu = torch.zeros(n, dtype=dt, device=dev)
+    nu = torch.zeros(n, dtype=dt, device=dev)
+    count = torch.zeros(n, dtype=torch.int32, device=dev)
+    prev_loss = torch.full((n,), float("inf"), dtype=dt, device=dev)
+    iters = torch.zeros(n, dtype=torch.int32, device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    floor = torch.tensor(1e-12, dtype=dt, device=dev)
+    b1_t = torch.tensor(b1, dtype=dt, device=dev)
+    b2_t = torch.tensor(b2, dtype=dt, device=dev)
+    n_iter = 0
+    while True:
+        active = ~done & (iters < safety_cap)
+        if not bool(active.any()):
+            break
+        n_iter += 1
+        loss, grad = loss_and_grad(s_log)
+        g = grad * lr
+        mu_new = (1 - b1) * g + b1 * mu
+        nu_new = (1 - b2) * (g * g) + b2 * nu
+        count_new = count + 1
+        cf = count_new.to(dt)
+        mu_hat = mu_new / (1 - torch.pow(b1_t, cf))
+        nu_hat = nu_new / (1 - torch.pow(b2_t, cf))
+        s_new = s_log + -1.0 * (mu_hat / (torch.sqrt(nu_hat + 0.0) + eps))
+        rel_tol = tol * torch.abs(torch.log(torch.maximum(prev_loss, floor)))
+        stop = torch.isfinite(prev_loss) & (torch.abs(loss - prev_loss) < rel_tol + 1e-6)
+        s_log = torch.where(active, s_new, s_log)
+        mu = torch.where(active, mu_new, mu)
+        nu = torch.where(active, nu_new, nu)
+        count = torch.where(active, count_new, count)
+        prev_loss = torch.where(active, loss, prev_loss)
+        iters = torch.where(active, iters + 1, iters)
+        done = torch.where(active, stop, done)
+    if timings is not None:
+        timings["adam_iters"] = n_iter
+    return s_log, prev_loss, iters
+
+
+def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
+                           lr, s_lo, s_hi, tol, safety_cap, sequential=False,
+                           timings=None):
+    """Tune one log s per block: every iteration evaluates all
+    n_blocks * B_max member filters at once (one paired kernel A launch on
+    the card) and sums the masked member NLLs per block. Non-finite member
+    NLLs count as 1e12 with a zero gradient."""
+    n_blocks, b_max = yB.shape[:2]
+    n_flat = n_blocks * b_max
+    D = m0B.shape[-1]
+
+    def flat(x):
+        return x.reshape((n_flat,) + tuple(x.shape[2:]))
+
+    yF, rF, m0F, S0F, AF, CF = map(flat, (yB, rB, m0B, S0B, AB, CB))
+    maskF = flat(maskB)
+    y_planes = yF.transpose(1, 2).contiguous()
+
+    def member_lls(s_log):
+        s = torch.exp(torch.clamp(s_log, s_lo, s_hi))
+        sQ = (s[:, None, None, None] * QB).reshape(n_flat, D, D)
+        if sequential:
+            return kalman_filter(yF, m0F, S0F, AF, sQ, CF, rF).log_likelihood
+        return _pack_scalars(yF[:, 0], m0F, S0F, AF, sQ, CF, rF)
+
+    def loss_and_grad(s_log):
+        tangent = torch.ones_like(s_log)
+        if sequential:
+            lls, dlls = torch.func.jvp(member_lls, (s_log,), (tangent,))
+        else:
+            table, dtable = torch.func.jvp(member_lls, (s_log,), (tangent,))
+            lls, dlls = fused_nll_paired(table.contiguous(), dtable.contiguous(), y_planes)
+        finite = torch.isfinite(lls)
+        nll = torch.where(finite, -lls, torch.full_like(lls, 1e12))
+        dnll = torch.where(finite, -dlls, torch.zeros_like(dlls))
+        return (
+            (nll * maskF).reshape(n_blocks, b_max).sum(dim=1),
+            (dnll * maskF).reshape(n_blocks, b_max).sum(dim=1),
+        )
+
+    return _joint_masked_adam(loss_and_grad, s_log_init, lr, tol, safety_cap, timings)
+
+
+def _check_supported(h_fn, devices, partition):
+    if h_fn is not None:
+        raise NotImplementedError(f"a nonlinear emission (h_fn) {_NOT_PORTED}")
+    if devices is not None and devices > 1:
+        raise NotImplementedError(f"devices > 1 {_NOT_PORTED}")
+    if partition != "keypoint":
+        raise NotImplementedError(f"partition={partition!r} {_NOT_PORTED}")
+
+
+def optimize_smooth_param(
+    ys: torch.Tensor,  # (K, T, O)
+    m0s: torch.Tensor,  # (K, D)
+    S0s: torch.Tensor,  # (K, D, D)
+    As: torch.Tensor,  # (K, D, D)
+    Cs: torch.Tensor,  # (K, O, D)
+    Qs: torch.Tensor,  # (K, D, D)
+    ensemble_vars: torch.Tensor,  # (T, K, O)
+    blocks: list | None,
+    s_frames: list | None,
+    s_guess_per_k: torch.Tensor,  # (K,)
+    lr: float = 0.25,
+    s_bounds_log: tuple = (-8.0, 8.0),
+    tol: float = 1e-2,
+    safety_cap: int = 300,
+    min_R_var: float = 1e-4,
+    sequential: bool = False,
+    timings: dict | None = None,
+) -> torch.Tensor:
+    """Optimize ``s`` per block; returns per-keypoint s (K,) on the device
+    of ``ys``. Keypoints missing from a partial ``blocks`` list become
+    singleton blocks."""
+    K = ys.shape[0]
+    dev = ys.device
+    if not blocks:
+        blocks = [[k] for k in range(K)]
+    else:
+        listed = {k for b in blocks for k in b}
+        blocks = list(blocks) + [[k] for k in range(K) if k not in listed]
+    logger.debug(f"keypoint block structure for shared s: {blocks}")
+
+    # loss-frame crop, then the time median of the floored variances
+    y_cropped = crop_frames(ys, s_frames, dim=1)
+    r_const = _device_constant_r(
+        crop_frames(ensemble_vars, s_frames, dim=0).transpose(0, 1), float(min_R_var)
+    )
+
+    # pad blocks to a rectangle; padding lanes reuse member 0 with zero mask
+    b_max = max(len(b) for b in blocks)
+    n_blocks = len(blocks)
+    idx = np.zeros((n_blocks, b_max), dtype=np.int64)
+    mask = np.zeros((n_blocks, b_max), dtype=np.float32)
+    for i, b in enumerate(blocks):
+        idx[i, : len(b)] = b
+        idx[i, len(b):] = b[0]
+        mask[i, : len(b)] = 1.0
+    idx_t = torch.as_tensor(idx, device=dev)
+    mask_t = torch.as_tensor(mask, dtype=ys.dtype, device=dev)
+
+    gB = s_guess_per_k.to(ys.dtype)[idx_t]
+    s0 = (gB * mask_t).sum(dim=1) / mask_t.sum(dim=1)
+    s_log_init = torch.log(torch.clamp(s0, 1e-6, 1e3))
+
+    s_lo, s_hi = s_bounds_log
+    s_log_f, last_loss, iters = _optimize_blocks_joint(
+        y_cropped[idx_t], r_const[idx_t], m0s[idx_t], S0s[idx_t], As[idx_t],
+        Qs[idx_t], Cs[idx_t], mask_t, s_log_init,
+        lr=float(lr), s_lo=float(s_lo), s_hi=float(s_hi), tol=float(tol),
+        safety_cap=int(safety_cap), sequential=sequential, timings=timings,
+    )
+    if logger.isEnabledFor(logging.DEBUG):
+        s_host, ll_host, it_host = (x.cpu().numpy() for x in (s_log_f, last_loss, iters))
+        for i, b in enumerate(blocks):
+            logger.debug(
+                f"s-opt block {list(b)}: converged to "
+                f"s={float(np.exp(np.clip(s_host[i], s_lo, s_hi))):.6g} "
+                f"after {int(it_host[i])} iters (NLL {float(ll_host[i]):.6f})"
+            )
+    block_of_k = np.empty(K, dtype=np.int64)
+    for i, b in enumerate(blocks):
+        for k in b:
+            block_of_k[k] = i
+    s_star = torch.exp(torch.clamp(s_log_f, s_lo, s_hi))
+    return s_star[torch.as_tensor(block_of_k, device=dev)]
+
+
+# --------------------------------------------------------------------------- #
+# final smoothing pass
+# --------------------------------------------------------------------------- #
+def _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, sequential=False):
+    """Smoothed means (K, T, D) and covariances (K, T, D, D) of every lane
+    with process noise ``s_k * Q_k`` and time-varying diagonal R ``rs``."""
+    sQ = s_finals[:, None, None] * Qs
+    smoother = kalman_smoother if sequential else kalman_smoother_parallel
+    res = smoother(ys, m0s, S0s, As, sQ, Cs, rs)
+    return res.smoothed_means, res.smoothed_covs
+
+
+def _sync(dev: torch.device):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_kalman_smoother(
+    ys: torch.Tensor,  # (K, T, O)
+    m0s: torch.Tensor,  # (K, D)
+    S0s: torch.Tensor,  # (K, D, D)
+    As: torch.Tensor,  # (K, D, D)
+    Cs: torch.Tensor,  # (K, O, D)
+    Qs: torch.Tensor,  # (K, D, D)
+    ensemble_vars: torch.Tensor,  # (T, K, O)
+    s_frames: list | None = None,
+    smooth_param: float | list | None = None,
+    blocks: list | None = None,
+    lr: float = 0.25,
+    s_bounds_log: tuple = (-8.0, 8.0),
+    tol: float = 1e-2,
+    safety_cap: int = 300,
+    h_fn=None,
+    sequential: bool = False,
+    devices: int | None = None,
+    partition: Literal["keypoint", "time"] = "keypoint",
+    timings: dict | None = None,
+) -> tuple[np.ndarray, torch.Tensor, torch.Tensor]:
+    """Tune ``s`` (unless given) and run the final smoother for K keypoints.
+
+    Linear model per keypoint: ``x_{t+1} = A x_t + w_t``, ``y_t = C x_t +
+    v_t``, ``w ~ N(0, s Q)``, ``v_t ~ N(0, diag(ensemble_vars[t]))``. Every
+    tensor lies on one device, where all the work runs. With ``timings`` (a
+    dict) the device is synchronized between the stages and their seconds
+    are recorded ("optimizer", "final_pass") with the Adam iteration count.
+
+    Returns:
+        s_finals (K,) host array; smoothed means (K, T, D) and covs
+        (K, T, D, D) on the device.
+    """
+    _check_supported(h_fn, devices, partition)
+    K = ys.shape[0]
+    dev, dt = ys.device, ys.dtype
+    if ensemble_vars.shape[0] < 2:
+        raise ValueError("Initial-s heuristic needs at least two frames of ensemble variance.")
+
+    t0 = time.perf_counter()
+    if smooth_param is not None:
+        s_finals = torch.as_tensor(
+            np.broadcast_to(np.asarray(smooth_param, dtype=np.float64), (K,)).copy(),
+            dtype=dt, device=dev,
+        )
+    else:
+        g = _device_s_guesses(ensemble_vars)
+        s_guess = torch.where(torch.isfinite(g) & (g > 0.0), g, torch.full_like(g, 2.0))
+        s_finals = optimize_smooth_param(
+            ys, m0s, S0s, As, Cs, Qs, ensemble_vars, blocks, s_frames, s_guess,
+            lr=lr, s_bounds_log=s_bounds_log, tol=tol, safety_cap=safety_cap,
+            sequential=sequential, timings=timings,
+        )
+    if timings is not None:
+        _sync(dev)
+        timings["optimizer"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rs = torch.clamp(ensemble_vars.transpose(0, 1), min=1e-12).contiguous()  # (K, T, O)
+    ms, Vs = _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, sequential=sequential)
+    if timings is not None:
+        _sync(dev)
+        timings["final_pass"] = time.perf_counter() - t0
+    return s_finals.cpu().numpy().astype(np.float64), ms, Vs

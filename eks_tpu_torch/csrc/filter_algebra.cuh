@@ -1,0 +1,267 @@
+// Filtering-element algebra shared by the prefix-scan kernel (kernel B,
+// prefix_scan.cu) and the fused NLL kernel (kernel A, fused_nll.cu).
+//
+// An element of the parallel Kalman filter (Särkkä & García-Fernández 2021)
+// is (A, b, C, eta, J), stored flat as P = 3D² + 2D values in the plane order
+// of eks_tpu_torch/ops/pkalman.py: A row-major, b, C row-major, eta, J
+// row-major. combine() is ops/pkalman.py::_combine_filter term for term,
+// including Zt = Zᵀ, which equals inv(I + J2 C1) only because C1 and J2 are
+// symmetric. Everything is templated on the scalar type S (float, or Dual
+// for the forward-mode pairing) and on D, and fully unrolled, so an element
+// lives in registers.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace eks {
+
+// (value, tangent) pair: forward-mode derivative along one direction. The
+// device-code counterpart of jax.jvp over the combine and the epilogue.
+struct Dual {
+  float v, d;
+};
+
+__device__ __forceinline__ Dual operator+(Dual a, Dual b) { return {a.v + b.v, a.d + b.d}; }
+__device__ __forceinline__ Dual operator-(Dual a, Dual b) { return {a.v - b.v, a.d - b.d}; }
+__device__ __forceinline__ Dual operator-(Dual a) { return {-a.v, -a.d}; }
+__device__ __forceinline__ Dual operator*(Dual a, Dual b) { return {a.v * b.v, a.d * b.v + a.v * b.d}; }
+__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
+  const float q = a.v / b.v;
+  return {q, (a.d - q * b.d) / b.v};
+}
+__device__ __forceinline__ Dual sqrt_(Dual a) {
+  const float s = sqrtf(a.v);
+  return {s, a.d * (0.5f / s)};
+}
+__device__ __forceinline__ Dual log_(Dual a) { return {logf(a.v), a.d / a.v}; }
+__device__ __forceinline__ float sqrt_(float a) { return sqrtf(a); }
+__device__ __forceinline__ float log_(float a) { return logf(a); }
+
+// scalar traits: constants, and the float planes a scalar occupies in shared
+// memory (W planes of `stride` floats each)
+template <typename S>
+struct Scalar;
+
+template <>
+struct Scalar<float> {
+  static constexpr int W = 1;
+  __device__ static float c(float v) { return v; }
+  __device__ static float make(float v, float) { return v; }
+  __device__ static void put(float* p, int, float s) { p[0] = s; }
+  __device__ static float get(const float* p, int) { return p[0]; }
+  __device__ static float value(float s) { return s; }
+  __device__ static float tangent(float) { return 0.f; }
+};
+
+template <>
+struct Scalar<Dual> {
+  static constexpr int W = 2;
+  __device__ static Dual c(float v) { return {v, 0.f}; }
+  __device__ static Dual make(float v, float d) { return {v, d}; }
+  __device__ static void put(float* p, int stride, Dual s) {
+    p[0] = s.v;
+    p[stride] = s.d;
+  }
+  __device__ static Dual get(const float* p, int stride) { return {p[0], p[stride]}; }
+  __device__ static float value(Dual s) { return s.v; }
+  __device__ static float tangent(Dual s) { return s.d; }
+};
+
+template <typename S, int D>
+struct FilterElem {
+  static constexpr int P = 3 * D * D + 2 * D;
+  S x[P];
+  __device__ S& A(int i, int j) { return x[i * D + j]; }
+  __device__ S& b(int i) { return x[D * D + i]; }
+  __device__ S& C(int i, int j) { return x[D * D + D + i * D + j]; }
+  __device__ S& eta(int i) { return x[2 * D * D + D + i]; }
+  __device__ S& J(int i, int j) { return x[2 * D * D + 2 * D + i * D + j]; }
+};
+
+template <typename S, int D>
+__device__ __forceinline__ FilterElem<S, D> identity() {
+  FilterElem<S, D> e;
+#pragma unroll
+  for (int p = 0; p < FilterElem<S, D>::P; ++p) e.x[p] = Scalar<S>::c(0.f);
+#pragma unroll
+  for (int i = 0; i < D; ++i) e.A(i, i) = Scalar<S>::c(1.f);
+  return e;
+}
+
+// closed-form inverse (adjugate / det), as ops/pkalman.py::_pinv
+template <typename S, int D>
+__device__ __forceinline__ void small_inv(S (&a)[D][D], S (&out)[D][D]) {
+  static_assert(D >= 1 && D <= 3, "closed-form inverse for D <= 3");
+  if constexpr (D == 1) {
+    out[0][0] = Scalar<S>::c(1.f) / a[0][0];
+  } else if constexpr (D == 2) {
+    const S inv = Scalar<S>::c(1.f) / (a[0][0] * a[1][1] - a[0][1] * a[1][0]);
+    out[0][0] = a[1][1] * inv;
+    out[0][1] = -a[0][1] * inv;
+    out[1][0] = -a[1][0] * inv;
+    out[1][1] = a[0][0] * inv;
+  } else {
+    const S c00 = a[1][1] * a[2][2] - a[1][2] * a[2][1];
+    const S c01 = a[1][2] * a[2][0] - a[1][0] * a[2][2];
+    const S c02 = a[1][0] * a[2][1] - a[1][1] * a[2][0];
+    const S inv = Scalar<S>::c(1.f) / (a[0][0] * c00 + a[0][1] * c01 + a[0][2] * c02);
+    const S c10 = a[0][2] * a[2][1] - a[0][1] * a[2][2];
+    const S c11 = a[0][0] * a[2][2] - a[0][2] * a[2][0];
+    const S c12 = a[0][1] * a[2][0] - a[0][0] * a[2][1];
+    const S c20 = a[0][1] * a[1][2] - a[0][2] * a[1][1];
+    const S c21 = a[0][2] * a[1][0] - a[0][0] * a[1][2];
+    const S c22 = a[0][0] * a[1][1] - a[0][1] * a[1][0];
+    out[0][0] = c00 * inv; out[0][1] = c10 * inv; out[0][2] = c20 * inv;
+    out[1][0] = c01 * inv; out[1][1] = c11 * inv; out[1][2] = c21 * inv;
+    out[2][0] = c02 * inv; out[2][1] = c12 * inv; out[2][2] = c22 * inv;
+  }
+}
+
+// e1 precedes e2 in time
+template <typename S, int D>
+__device__ __forceinline__ FilterElem<S, D> combine(FilterElem<S, D> e1, FilterElem<S, D> e2) {
+  S M[D][D], Z[D][D], A2Z[D][D], A1tZt[D][D], T1[D][D], v[D];
+  // Z = inv(I + C1 J2)
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = e1.C(i, 0) * e2.J(0, j);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + e1.C(i, k) * e2.J(k, j);
+      M[i][j] = i == j ? s + Scalar<S>::c(1.f) : s;
+    }
+  small_inv<S, D>(M, Z);
+  // A2Z = A2 Z;  A1tZt = A1ᵀ Zᵀ
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = e2.A(i, 0) * Z[0][j];
+      S t = e1.A(0, i) * Z[j][0];
+#pragma unroll
+      for (int k = 1; k < D; ++k) {
+        s = s + e2.A(i, k) * Z[k][j];
+        t = t + e1.A(k, i) * Z[j][k];
+      }
+      A2Z[i][j] = s;
+      A1tZt[i][j] = t;
+    }
+  FilterElem<S, D> out;
+  // A = A2Z A1
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = A2Z[i][0] * e1.A(0, j);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + A2Z[i][k] * e1.A(k, j);
+      out.A(i, j) = s;
+    }
+  // b = A2Z (b1 + C1 eta2) + b2
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    S s = e1.C(i, 0) * e2.eta(0);
+#pragma unroll
+    for (int k = 1; k < D; ++k) s = s + e1.C(i, k) * e2.eta(k);
+    v[i] = e1.b(i) + s;
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    S s = A2Z[i][0] * v[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) s = s + A2Z[i][k] * v[k];
+    out.b(i) = s + e2.b(i);
+  }
+  // C = (A2Z C1) A2ᵀ + C2
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = A2Z[i][0] * e1.C(0, j);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + A2Z[i][k] * e1.C(k, j);
+      T1[i][j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = T1[i][0] * e2.A(j, 0);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + T1[i][k] * e2.A(j, k);
+      out.C(i, j) = s + e2.C(i, j);
+    }
+  // eta = A1tZt (eta2 - J2 b1) + eta1
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    S s = e2.J(i, 0) * e1.b(0);
+#pragma unroll
+    for (int k = 1; k < D; ++k) s = s + e2.J(i, k) * e1.b(k);
+    v[i] = e2.eta(i) - s;
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    S s = A1tZt[i][0] * v[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) s = s + A1tZt[i][k] * v[k];
+    out.eta(i) = s + e1.eta(i);
+  }
+  // J = (A1tZt J2) A1 + J1
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = A1tZt[i][0] * e2.J(0, j);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + A1tZt[i][k] * e2.J(k, j);
+      T1[i][j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = T1[i][0] * e1.A(0, j);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + T1[i][k] * e1.A(k, j);
+      out.J(i, j) = s + e1.J(i, j);
+    }
+  return out;
+}
+
+// Exclusive prefix of the per-thread chunk totals across the block: a
+// Hillis-Steele sweep of log2(NT) steps in shared memory with the same
+// combine (the left operand is the earlier chunk). `smem` holds
+// Scalar<S>::W * P * NT floats. Thread 0 gets the identity.
+template <typename S, int D, int NT>
+__device__ __forceinline__ FilterElem<S, D> block_exclusive_scan(FilterElem<S, D> total, float* smem) {
+  constexpr int P = FilterElem<S, D>::P;
+  constexpr int STRIDE = P * NT;  // tangent planes follow the value planes
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int p = 0; p < P; ++p) Scalar<S>::put(smem + p * NT + tid, STRIDE, total.x[p]);
+  __syncthreads();
+  for (int shift = 1; shift < NT; shift <<= 1) {
+    FilterElem<S, D> left;
+    const bool has = tid >= shift;
+    if (has) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) left.x[p] = Scalar<S>::get(smem + p * NT + tid - shift, STRIDE);
+    }
+    __syncthreads();
+    if (has) {
+      total = combine<S, D>(left, total);
+#pragma unroll
+      for (int p = 0; p < P; ++p) Scalar<S>::put(smem + p * NT + tid, STRIDE, total.x[p]);
+    }
+    __syncthreads();
+  }
+  FilterElem<S, D> excl = identity<S, D>();
+  if (tid > 0) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) excl.x[p] = Scalar<S>::get(smem + p * NT + tid - 1, STRIDE);
+  }
+  return excl;
+}
+
+}  // namespace eks

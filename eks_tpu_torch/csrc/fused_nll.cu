@@ -1,0 +1,279 @@
+// Kernel A: fused constant-R Kalman filter log-likelihood, plain and paired.
+//
+// Replaces: eks_tpu/ops/pallas_nll.py::_make_fused_kernel (plain and
+// paired=True), the s-optimizer's loss, reached through
+// filter_nll_fused_batched.
+//
+// Per lane (one thread block each) it returns the marginal log-likelihood of
+// a linear Kalman filter with constant diagonal R. The only T-sized input is
+// y (N, O, T); every filtering element is built on the fly from y_t and the
+// lane's scalar table (N, n_scal), whose layout is ops/pkalman.py::
+// _scalar_offsets (46 floats at D = O = 2) and which is staged in shared
+// memory. Each of the NT threads owns one contiguous chunk of time steps:
+//   pass 1   build the chunk's elements and fold them into the chunk total;
+//   phase 2  exclusive prefix of the chunk totals across the block
+//            (filter_algebra.cuh::block_exclusive_scan);
+//   pass 3   re-walk the chunk with the carry as the t-1 filtered posterior:
+//            evaluate each step's predictive moments, the unrolled O x O
+//            innovation Cholesky and the log-density, then absorb the step's
+//            element into the carry;
+// then the per-thread sums reduce across the block in a fixed tree order, so
+// the result is deterministic. Steps at or beyond T belong to no chunk: no
+// padded step is built, and none can add a NaN to the sum.
+//
+// The paired form runs the same build, combine and epilogue on Dual numbers
+// (value, tangent), the table's tangent d(table)/d(log s) supplied by the
+// caller; one launch returns (ll, d ll / d log s) per lane.
+//
+// Bound on the H100: the function reads y once, N * O * T * 4 bytes (1.6 MB
+// at N = 20, O = 2, T = 10,000, about 0.48 us at 3.35 TB/s), and needs one
+// Kalman step per time step, about 130 FP32 operations (about 400 on Dual
+// numbers); so bytes bound the plain form and operations (about 1.2 us at
+// 67 TFLOP/s) the paired one. This kernel does about three times that work
+// (two element builds, two combines and one epilogue per step) and runs each
+// chunk sequentially, so it sits far above the bound. N = 20 blocks fill only
+// 20 of the 132 SMs; spreading a lane over several blocks is left for a later
+// change.
+#include "filter_algebra.cuh"
+
+namespace {
+
+constexpr int NT = 256;
+constexpr float LOG_2PI = 1.8378770664093453f;
+
+template <int D, int O>
+struct Layout {
+  static constexpr int DD = D * D;
+  static constexpr int A_EL = 0;
+  static constexpr int K_C = A_EL + DD;
+  static constexpr int C_EL = K_C + D * O;
+  static constexpr int M_CT = C_EL + DD;
+  static constexpr int J_EL = M_CT + D * O;
+  static constexpr int B_FIRST = J_EL + DD;
+  static constexpr int C_FIRST = B_FIRST + D;
+  static constexpr int A = C_FIRST + DD;
+  static constexpr int Q = A + DD;
+  static constexpr int COBS = Q + DD;
+  static constexpr int R = COBS + O * D;
+  static constexpr int M0 = R + O;
+  static constexpr int S0 = M0 + D;
+  static constexpr int N_SCAL = S0 + DD;
+};
+
+// one step's filtering element (t0: the first step, which assimilates y_0
+// against the prior with no transition)
+template <typename S, int D, int O>
+__device__ __forceinline__ eks::FilterElem<S, D> build(const S* tab, const float (&yv)[O], bool t0) {
+  using Lt = Layout<D, O>;
+  using Sc = eks::Scalar<S>;
+  eks::FilterElem<S, D> e;
+  if (t0) {
+#pragma unroll
+    for (int k = 0; k < D * D; ++k) {
+      e.x[k] = Sc::c(0.f);
+      e.x[D * D + D + k] = tab[Lt::C_FIRST + k];
+      e.x[2 * D * D + 2 * D + k] = Sc::c(0.f);
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      e.b(d) = tab[Lt::B_FIRST + d];
+      e.eta(d) = Sc::c(0.f);
+    }
+    return e;
+  }
+#pragma unroll
+  for (int k = 0; k < D * D; ++k) {
+    e.x[k] = tab[Lt::A_EL + k];
+    e.x[D * D + D + k] = tab[Lt::C_EL + k];
+    e.x[2 * D * D + 2 * D + k] = tab[Lt::J_EL + k];
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    S b = tab[Lt::K_C + d * O] * Sc::c(yv[0]);
+    S n = tab[Lt::M_CT + d * O] * Sc::c(yv[0]);
+#pragma unroll
+    for (int o = 1; o < O; ++o) {
+      b = b + tab[Lt::K_C + d * O + o] * Sc::c(yv[o]);
+      n = n + tab[Lt::M_CT + d * O + o] * Sc::c(yv[o]);
+    }
+    e.b(d) = b;
+    e.eta(d) = n;
+  }
+  return e;
+}
+
+// log N(y_t; C m_pred, C P_pred Cᵀ + R) from the carry before this step (the
+// t-1 filtered posterior; the prior at t = 0)
+template <typename S, int D, int O>
+__device__ __forceinline__ S epilogue(eks::FilterElem<S, D>& prev, const S* tab, const float (&yv)[O],
+                                      bool t0) {
+  using Lt = Layout<D, O>;
+  using Sc = eks::Scalar<S>;
+  S pm[D], pP[D][D];
+  if (t0) {
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      pm[a] = tab[Lt::M0 + a];
+#pragma unroll
+      for (int b = 0; b < D; ++b) pP[a][b] = tab[Lt::S0 + a * D + b];
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      S s = tab[Lt::A + a * D] * prev.b(0);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + tab[Lt::A + a * D + k] * prev.b(k);
+      pm[a] = s;
+    }
+#pragma unroll
+    for (int a = 0; a < D; ++a)
+#pragma unroll
+      for (int b = 0; b < D; ++b) {
+        S s = Sc::c(0.f);
+#pragma unroll
+        for (int k = 0; k < D; ++k)
+#pragma unroll
+          for (int l = 0; l < D; ++l)
+            s = s + tab[Lt::A + a * D + k] * prev.C(k, l) * tab[Lt::A + b * D + l];
+        pP[a][b] = s + tab[Lt::Q + a * D + b];
+      }
+  }
+  // innovation covariance (lower triangle) and residual
+  S Sm[O][O], dv[O];
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+#pragma unroll
+    for (int p = 0; p <= o; ++p) {
+      S s = Sc::c(0.f);
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+#pragma unroll
+        for (int l = 0; l < D; ++l)
+          s = s + tab[Lt::COBS + o * D + k] * pP[k][l] * tab[Lt::COBS + p * D + l];
+      Sm[o][p] = o == p ? s + tab[Lt::R + o] : s;
+    }
+    S s = Sc::c(yv[o]);
+#pragma unroll
+    for (int k = 0; k < D; ++k) s = s - tab[Lt::COBS + o * D + k] * pm[k];
+    dv[o] = s;
+  }
+  // unrolled Cholesky, forward solve, log-determinant
+  S Lc[O][O], z[O];
+  S quad = Sc::c(0.f), logdet = Sc::c(0.f);
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      S s = Sm[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = s - Lc[i][k] * Lc[j][k];
+      Lc[i][j] = i == j ? eks::sqrt_(s) : s / Lc[j][j];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    S s = dv[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - Lc[i][k] * z[k];
+    z[i] = s / Lc[i][i];
+    logdet = logdet + eks::log_(Lc[i][i]);
+    quad = quad + z[i] * z[i];
+  }
+  return Sc::c(-0.5f) * quad - logdet - Sc::c(0.5f * O * LOG_2PI);
+}
+
+template <typename S, int D, int O>
+__global__ void __launch_bounds__(NT) fused_nll_kernel(const float* __restrict__ y,
+                                                       const float* __restrict__ table,
+                                                       const float* __restrict__ dtable,
+                                                       float* __restrict__ out, int N, int T) {
+  using Lt = Layout<D, O>;
+  using Sc = eks::Scalar<S>;
+  using Elem = eks::FilterElem<S, D>;
+  constexpr int W = Sc::W;
+  __shared__ S tab[Lt::N_SCAL];
+  __shared__ float smem[W * Elem::P * NT];
+  __shared__ float red[W * NT];
+
+  const int lane = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int k = tid; k < Lt::N_SCAL; k += NT) {
+    const size_t i = (size_t)lane * Lt::N_SCAL + k;
+    tab[k] = Sc::make(table[i], dtable != nullptr ? dtable[i] : 0.f);
+  }
+  __syncthreads();
+
+  const float* yl = y + (size_t)lane * O * T;
+  const int L = (T + NT - 1) / NT;
+  const int lo = min(tid * L, T);
+  const int hi = min(lo + L, T);
+
+  // pass 1: chunk total
+  Elem carry = eks::identity<S, D>();
+  for (int t = lo; t < hi; ++t) {
+    float yv[O];
+#pragma unroll
+    for (int o = 0; o < O; ++o) yv[o] = yl[(size_t)o * T + t];
+    const Elem e = build<S, D, O>(tab, yv, t == 0);
+    carry = t == lo ? e : eks::combine<S, D>(carry, e);
+  }
+
+  // phase 2: combination of every earlier chunk (the identity for chunk 0)
+  carry = eks::block_exclusive_scan<S, D, NT>(carry, smem);
+
+  // pass 3: carry the posterior through the chunk, summing log-densities
+  S acc = Sc::c(0.f);
+  for (int t = lo; t < hi; ++t) {
+    float yv[O];
+#pragma unroll
+    for (int o = 0; o < O; ++o) yv[o] = yl[(size_t)o * T + t];
+    acc = acc + epilogue<S, D, O>(carry, tab, yv, t == 0);
+    carry = eks::combine<S, D>(carry, build<S, D, O>(tab, yv, t == 0));
+  }
+
+  // fixed-order tree reduction over the block
+  red[tid] = Sc::value(acc);
+  if constexpr (W == 2) red[NT + tid] = Sc::tangent(acc);
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      red[tid] += red[tid + s];
+      if constexpr (W == 2) red[NT + tid] += red[NT + tid + s];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    out[lane] = red[0];
+    if constexpr (W == 2) out[N + lane] = red[NT];
+  }
+}
+
+template <typename S>
+int launch(const float* y, const float* table, const float* dtable, float* out, int N, int T, int D,
+           int O, void* stream) {
+  if (N <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 2 && O == 2) {
+    fused_nll_kernel<S, 2, 2><<<N, NT, 0, s>>>(y, table, dtable, out, N, T);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// y: (N, O, T); table: (N, n_scal); out: (N,). float32, contiguous.
+// Returns the CUDA error of the launch (0 on success); an unsupported (D, O)
+// returns cudaErrorInvalidValue without launching.
+extern "C" int fused_nll_f32(const float* y, const float* table, float* out, int N, int T, int D,
+                             int O, void* stream) {
+  return launch<float>(y, table, nullptr, out, N, T, D, O, stream);
+}
+
+// As fused_nll_f32, with dtable (N, n_scal) the table's tangent; out is
+// (2, N): row 0 the log-likelihoods, row 1 their derivatives.
+extern "C" int fused_nll_paired_f32(const float* y, const float* table, const float* dtable,
+                                    float* out, int N, int T, int D, int O, void* stream) {
+  return launch<eks::Dual>(y, table, dtable, out, N, T, D, O, stream);
+}

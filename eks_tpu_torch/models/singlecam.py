@@ -1,0 +1,238 @@
+"""Single-camera EKS: per-keypoint 2-D random-walk smoothing.
+
+Counterpart of ``eks_tpu/models/singlecam.py``. Model: state = (x, y) with
+``A = C = Q = I_2``, initial covariance from the variance of the centered
+ensemble trajectory, observation noise = per-frame ensemble variance, one
+smoothing scale ``s`` per keypoint (or per block of keypoints).
+
+The whole pipeline runs on one device: the raw (M, T, K) prediction planes
+are uploaded once, the prep (ensemble statistics, centering, KF init), the
+s-optimizer, the final smoother and the output packaging run there, and the
+(T, K, 9) table comes back in one copy.
+
+Output CSV carries 9 labels per keypoint:
+``x, y, likelihood, x_ens_median, y_ens_median, x_ens_var, y_ens_var,
+x_posterior_var, y_posterior_var``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Literal
+
+import numpy as np
+import pandas as pd
+import torch
+
+from eks_tpu_torch.core import _ensemble_kernel, _nanvar, _sync, run_kalman_smoother
+from eks_tpu_torch.marker_array import MarkerArray, input_dfs_to_markerArray
+from eks_tpu_torch.utils import format_data, make_dlc_pandas_index, resolve_device, save_dlc_csv
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "fit_eks_singlecam",
+    "ensemble_kalman_smoother_singlecam",
+    "initialize_kalman_filter",
+]
+
+OUTPUT_LABELS = [
+    "x",
+    "y",
+    "likelihood",
+    "x_ens_median",
+    "y_ens_median",
+    "x_ens_var",
+    "y_ens_var",
+    "x_posterior_var",
+    "y_posterior_var",
+]
+
+
+def fit_eks_singlecam(
+    input_source: str | list,
+    save_file: str,
+    bodypart_list: list | None = None,
+    smooth_param: float | list | None = None,
+    s_frames: list | None = None,
+    blocks: list = [],
+    avg_mode: Literal["mean", "median"] = "median",
+    var_mode: Literal["var", "confidence_weighted_var"] = "confidence_weighted_var",
+    devices: int | None = None,
+    partition: Literal["keypoint", "time"] = "keypoint",
+    device: str | torch.device = "cuda",
+) -> tuple:
+    """Load ensemble CSVs, run the single-camera smoother, save the result.
+
+    Args:
+        input_source: directory or list of prediction CSV paths (one per
+            ensemble seed).
+        save_file: output CSV path.
+        bodypart_list: keypoints to smooth; default = all found in the files.
+        smooth_param: fixed ``s`` (scalar or per-keypoint list) to bypass
+            optimization.
+        s_frames: (start, end) 0-based half-open spans used for the NLL loss
+            only; final smoothing always covers all frames.
+        blocks: groups of keypoint indices sharing one ``s``.
+        avg_mode / var_mode: ensemble consensus and variance modes.
+        devices / partition: multi-device sharding; not ported yet (only
+            None / "keypoint" are accepted).
+        device: where the pipeline runs; "cuda" (the default) raises when
+            no card is visible.
+
+    Returns:
+        (df_smoothed, s_finals, input_dfs_list, bodypart_list)
+    """
+    input_dfs_list, keypoint_names = format_data(input_source)
+    if bodypart_list is None:
+        bodypart_list = keypoint_names
+        logger.info(f"ensemble predictions loaded; keypoints: {bodypart_list}")
+
+    marker_array = input_dfs_to_markerArray([input_dfs_list], bodypart_list, [""])
+    df_smoothed, s_finals = ensemble_kalman_smoother_singlecam(
+        marker_array=marker_array,
+        keypoint_names=bodypart_list,
+        smooth_param=smooth_param,
+        s_frames=s_frames,
+        blocks=blocks,
+        avg_mode=avg_mode,
+        var_mode=var_mode,
+        devices=devices,
+        partition=partition,
+        device=device,
+    )
+
+    save_dir = os.path.dirname(save_file)
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+    save_dlc_csv(df_smoothed, save_file)
+    return df_smoothed, s_finals, input_dfs_list, bodypart_list
+
+
+def ensemble_kalman_smoother_singlecam(
+    marker_array: MarkerArray,
+    keypoint_names: list,
+    smooth_param: float | list | None = None,
+    s_frames: list | None = None,
+    blocks: list = [],
+    avg_mode: Literal["mean", "median"] = "median",
+    var_mode: Literal["var", "confidence_weighted_var"] = "confidence_weighted_var",
+    devices: int | None = None,
+    partition: Literal["keypoint", "time"] = "keypoint",
+    device: str | torch.device = "cuda",
+    timings: dict | None = None,
+) -> tuple:
+    """Array-level single-camera smoother.
+
+    Args:
+        marker_array: (n_models, 1, T, K, 3) with fields [x, y, likelihood].
+        device: where the pipeline runs ("cuda" by default).
+        timings: if a dict, the device is synchronized between stages and
+            their seconds are recorded ("prep", "optimizer", "final_pass",
+            "package"), with the optimizer's Adam iteration count.
+
+    Returns:
+        (markers_df, s_finals) — DataFrame with 9 labels per keypoint.
+    """
+    final_np, s_finals = _singlecam_smooth_table(
+        marker_array, smooth_param, s_frames, blocks, avg_mode, var_mode,
+        devices, partition, device, timings,
+    )
+    n_frames, n_keypoints = final_np.shape[:2]
+    markers_df = pd.DataFrame(
+        final_np.reshape(n_frames, n_keypoints * len(OUTPUT_LABELS)),
+        columns=make_dlc_pandas_index(keypoint_names, labels=OUTPUT_LABELS),
+    )
+    return markers_df, s_finals
+
+
+def _singlecam_smooth_table(
+    marker_array: MarkerArray,
+    smooth_param=None,
+    s_frames=None,
+    blocks=[],
+    avg_mode="median",
+    var_mode="confidence_weighted_var",
+    devices=None,
+    partition="keypoint",
+    device="cuda",
+    timings=None,
+) -> tuple:
+    """The singlecam pipeline up to the pandas table: returns
+    ``(final_np (T, K, 9) in OUTPUT_LABELS order, s_finals)``."""
+    dev = resolve_device(device)
+    n_models, _, _, n_keypoints, _ = marker_array.shape
+
+    t0 = time.perf_counter()
+    arr = torch.as_tensor(
+        np.ascontiguousarray(marker_array.array[:, 0], dtype=np.float32), device=dev
+    )  # (M, T, K, 3)
+    stats, ys, means, S0s = _prep_singlecam(
+        arr[..., 0], arr[..., 1], arr[..., 2], n_models, avg_mode, var_mode
+    )
+    eye = torch.eye(2, dtype=torch.float32, device=dev).expand(n_keypoints, 2, 2).contiguous()
+    m0s = torch.zeros((n_keypoints, 2), dtype=torch.float32, device=dev)
+    if timings is not None:
+        _sync(dev)
+        timings["prep"] = time.perf_counter() - t0
+
+    s_finals, ms, Vs = run_kalman_smoother(
+        ys=ys, m0s=m0s, S0s=S0s, As=eye, Cs=eye, Qs=eye,
+        ensemble_vars=stats[..., 2:4],  # (T, K, 2)
+        s_frames=s_frames, smooth_param=smooth_param, blocks=blocks,
+        devices=devices, partition=partition, timings=timings,
+    )
+
+    t0 = time.perf_counter()
+    final_np = _package_singlecam_full(stats, means, ms, Vs, eye).cpu().numpy()
+    if timings is not None:
+        timings["package"] = time.perf_counter() - t0
+    return final_np, s_finals
+
+
+def _package_singlecam_full(stats, means, ms, Vs, Cs) -> torch.Tensor:
+    """The (T, K, 9) output table in OUTPUT_LABELS order: reprojected
+    smoothed positions y = C m plus the centering means, the ensemble
+    statistics, and the posterior variances diag(C V Cᵀ)."""
+    y_m = torch.einsum("kij,ktj->kti", Cs, ms)  # (K, T, 2)
+    y_v = torch.einsum("kij,ktjl,kml->ktim", Cs, Vs, Cs)  # (K, T, 2, 2)
+    smoothed = y_m.transpose(0, 1) + means[None]  # (T, K, 2)
+    postvar = torch.stack([y_v[..., 0, 0], y_v[..., 1, 1]], dim=-1).transpose(0, 1)
+    return torch.cat(
+        [smoothed, stats[..., 4:5], stats[..., 0:2], stats[..., 2:4], postvar], dim=-1
+    )
+
+
+def _prep_singlecam(data_x, data_y, data_lh, n_models, avg_mode, var_mode):
+    """Ensemble stats + centering (quantile 100: every frame) + KF init from
+    the raw (M, T, K) planes; returns (stats (T, K, 5), ys (K, T, 2),
+    means (K, 2), S0s (K, 2, 2)). Centering uses the plain mean over frames
+    (not a NaN-aware one), as the JAX package does."""
+    stats = _ensemble_kernel(data_x, data_y, data_lh, n_models, avg_mode, var_mode, 1000.0)
+    preds = stats[..., :2]
+    means = preds.mean(dim=0)  # (K, 2)
+    centered = preds - means
+    ys = centered.transpose(0, 1).contiguous()  # (K, T, 2)
+    var_xy = _nanvar(centered, 0)  # (K, 2)
+    S0s = torch.diag_embed(var_xy)
+    return stats, ys, means, S0s
+
+
+def initialize_kalman_filter(emA_centered_preds: MarkerArray, device: str | torch.device = "cuda") -> tuple:
+    """Random-walk init from a centered MarkerArray: m0 = 0,
+    S0 = diag(nanvar of the centered predictions), A = C = Q = I_2."""
+    dev = resolve_device(device)
+    _, _, _, n_keypoints, _ = emA_centered_preds.shape
+    centered = emA_centered_preds.slice_fields("x", "y").array[0, 0]  # (T, K, 2)
+    var_xy = np.nanvar(centered, axis=0)
+    S0s = np.zeros((n_keypoints, 2, 2))
+    S0s[:, 0, 0] = var_xy[:, 0]
+    S0s[:, 1, 1] = var_xy[:, 1]
+    eye = np.tile(np.eye(2), (n_keypoints, 1, 1))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    return t(np.zeros((n_keypoints, 2))), t(S0s), t(eye), t(eye), t(eye)

@@ -1,0 +1,155 @@
+"""Kernel A: the fused constant-R filter NLL of the s-optimizer.
+
+Replaces the Pallas kernel ``eks_tpu/ops/pallas_nll.py`` ``_make_fused_kernel``
+(plain and ``paired=True``), reached in the JAX package through
+``filter_nll_fused_batched``. Per lane it returns the marginal log-likelihood
+of a linear Kalman filter with constant diagonal R, building every filtering
+element on the fly from the observations and a per-lane scalar table, so the
+only T-sized input is y. The paired form also returns d ll / d(log s) in the
+same launch, from the table's tangent: the forward-mode pairing of the JAX
+package, without reverse-mode autograd through the kernel.
+
+The CUDA source is ``eks_tpu_torch/csrc/fused_nll.cu``. The table's layout
+(``_scalar_offsets``, ``_pack_scalars``) lives in ``ops/pkalman.py`` beside
+``_table_planes``, which expands it into the element planes the kernel
+builds. The plain PyTorch version here scans those planes with the plain
+associative scan and evaluates the epilogue of ``ops/pkalman.py``: it is
+the staged plane NLL of the JAX package. Its paired form is
+``torch.func.jvp`` of the plain version. The wrappers take the plain version
+only for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from eks_tpu_torch.ops import cuda_build
+from eks_tpu_torch.ops.fused_filter import filter_prefix_plain
+from eks_tpu_torch.ops.pkalman import (
+    _pack_scalars,
+    _plane_nll_post,
+    _plane_split_moments,
+    _table_dims,
+    _table_planes,
+    _unpack_scalars,
+)
+
+__all__ = [
+    "LAUNCHES",
+    "PAIRED_LAUNCHES",
+    "filter_nll_fused_batched",
+    "fused_nll",
+    "fused_nll_paired",
+]
+
+#: launches of the plain and of the paired kernel since import (or since a
+#: caller last reset them)
+LAUNCHES = 0
+PAIRED_LAUNCHES = 0
+
+#: (D, O) pairs the CUDA kernel is instantiated for
+_CUDA_SHAPES = ((2, 2),)
+
+
+# --------------------------------------------------------------------------- #
+# plain versions
+# --------------------------------------------------------------------------- #
+def _fused_nll_plain(table: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel A: (N,) log-likelihoods."""
+    O = y.shape[1]
+    D = _table_dims(table.shape[1], O)
+    out = filter_prefix_plain(_table_planes(table, y, D))
+    m_pl, P_pl = _plane_split_moments(out, D)
+    return _plane_nll_post(m_pl, P_pl, y.transpose(1, 2), *_unpack_scalars(table, D, O))
+
+
+def _fused_nll_paired_plain(table, dtable, y):
+    """Plain paired version: (ll, d ll) along the table tangent ``dtable``."""
+    return torch.func.jvp(lambda tab: _fused_nll_plain(tab, y), (table,), (dtable,))
+
+
+# --------------------------------------------------------------------------- #
+# kernel wrappers
+# --------------------------------------------------------------------------- #
+def _lib(paired: bool):
+    lib = cuda_build.load("fused_nll")
+    fn = lib.fused_nll_paired_f32 if paired else lib.fused_nll_f32
+    if fn.argtypes is None:
+        n_ptr = 4 if paired else 3  # y, table[, dtable], out
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, x: torch.Tensor, shape: tuple):
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_nll: {name} must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_nll: {name} must be float32, got {x.dtype}")
+    if tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"fused_nll: {name} must be contiguous {shape}, got {tuple(x.shape)}")
+
+
+def _launch(table, dtable, y) -> torch.Tensor:
+    N, O, T = y.shape
+    D = _table_dims(table.shape[1], O)
+    if (D, O) not in _CUDA_SHAPES:
+        raise NotImplementedError(f"fused_nll kernel is built for (D, O) in {_CUDA_SHAPES}, got {(D, O)}")
+    _check("y", y, (N, O, T))
+    _check("table", table, (N, table.shape[1]))
+    if dtable is not None:
+        _check("dtable", dtable, tuple(table.shape))
+    if y.device != table.device or (dtable is not None and dtable.device != y.device):
+        raise ValueError("fused_nll: y and the tables must be on one device")
+    out = torch.empty((2 if dtable is not None else 1, N), dtype=torch.float32, device=y.device)
+    if N == 0:
+        return out
+    if T == 0:
+        return out.zero_()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if dtable is None:
+            rc = _lib(False)(y.data_ptr(), table.data_ptr(), out.data_ptr(), N, T, D, O, stream)
+        else:
+            rc = _lib(True)(
+                y.data_ptr(), table.data_ptr(), dtable.data_ptr(), out.data_ptr(),
+                N, T, D, O, stream,
+            )
+    if rc != 0:
+        raise RuntimeError(f"fused_nll kernel launch failed with CUDA error {rc}")
+    return out
+
+
+def fused_nll(table: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Log-likelihoods (N,) of N constant-R filters from their scalar tables
+    (N, n_scal) and observation planes y (N, O, T)."""
+    global LAUNCHES
+    if y.device.type == "cpu":
+        return _fused_nll_plain(table, y)
+    if y.device.type != "cuda":
+        raise RuntimeError(f"no fused NLL for device {y.device}")
+    out = _launch(table, None, y)
+    LAUNCHES += 1
+    return out[0]
+
+
+def fused_nll_paired(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor):
+    """(ll (N,), d ll (N,)): the log-likelihoods and their derivative along
+    the table tangent ``dtable`` (N, n_scal), in one launch on the card."""
+    global PAIRED_LAUNCHES
+    if y.device.type == "cpu":
+        return _fused_nll_paired_plain(table, dtable, y)
+    if y.device.type != "cuda":
+        raise RuntimeError(f"no fused NLL for device {y.device}")
+    out = _launch(table, dtable, y)
+    PAIRED_LAUNCHES += 1
+    return out[0], out[1]
+
+
+def filter_nll_fused_batched(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
+    """Marginal log-likelihoods (N,) of N constant-diagonal-R linear filters:
+    ys (N, T, O), parameters with a leading N, r (N, O)."""
+    table = _pack_scalars(ys[:, 0], m0, S0, A, Q, C, r)
+    return fused_nll(table.contiguous(), ys.transpose(1, 2).contiguous())

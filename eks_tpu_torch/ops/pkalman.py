@@ -1,0 +1,539 @@
+"""Parallel-prefix (associative-scan) Kalman filter and RTS smoother.
+
+Counterpart of the linear half of ``eks_tpu/ops/pkalman.py``. The linear
+Gaussian filter and smoother are associative operators (Särkkä &
+García-Fernández, *Temporal Parallelization of Bayesian Smoothers*, IEEE TAC
+2021), evaluated with a log-depth scan over the time axis.
+
+Layout: scan elements are carried as stacked scalar planes, one (..., T)
+row per matrix entry, in a (..., P, T) tensor. The filtering element
+``(A, b, C, eta, J)`` has P = 3D² + 2D planes (A row-major, then b, C, eta,
+J); the smoothing element ``(E, g, L)`` has 2D² + D. Every combine is
+elementwise work over the time axis with the D x D algebra unrolled in
+Python, the same formulas the CUDA kernels unroll in registers
+(``eks_tpu_torch/csrc/filter_algebra.cuh``).
+
+The forward filter's prefix scan goes through ``fused_filter.filter_prefix``
+(the CUDA kernel on the card, the plain scan on the CPU). The reverse RTS
+scan is plain PyTorch on every device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from eks_tpu_torch.ops.kalman import FilterResult, SmootherResult, _as_time_varying
+from eks_tpu_torch.ops.linalg import mvn_logpdf, psd_solve
+
+__all__ = ["associative_scan", "kalman_filter_parallel", "kalman_smoother_parallel"]
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+# --------------------------------------------------------------------------- #
+# log-depth associative scan over the last axis
+# --------------------------------------------------------------------------- #
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    n_odd = odd.shape[-1]
+    both = torch.stack([even[..., :n_odd], odd], dim=-1).flatten(-2)
+    if even.shape[-1] > n_odd:
+        both = torch.cat([both, even[..., n_odd:]], dim=-1)
+    return both
+
+
+def _scan(fn, x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[-1]
+    if n < 2:
+        return x
+    odd = _scan(fn, fn(x[..., 0:-1:2], x[..., 1::2]))
+    if n % 2 == 0:
+        even = fn(odd[..., :-1], x[..., 2::2])
+    else:
+        even = fn(odd, x[..., 2::2])
+    return _interleave(torch.cat([x[..., :1], even], dim=-1), odd)
+
+
+def associative_scan(fn, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive scan of the associative ``fn`` over the last axis of ``x``
+    in O(log T) depth, with the same association order as
+    ``jax.lax.associative_scan``. ``reverse=True`` scans the flipped
+    sequence, so ``fn``'s first argument is the element later in time."""
+    if reverse:
+        return _scan(fn, x.flip(-1)).flip(-1)
+    return _scan(fn, x)
+
+
+# --------------------------------------------------------------------------- #
+# plane matrix algebra (nested lists of (..., T) tensors)
+# --------------------------------------------------------------------------- #
+def _mat_planes(x, off, d):
+    return [[x[..., off + i * d + j, :] for j in range(d)] for i in range(d)]
+
+
+def _vec_planes(x, off, d):
+    return [x[..., off + i, :] for i in range(d)]
+
+
+def _pmatmul(a, b):
+    return [
+        [sum(a[i][k] * b[k][j] for k in range(len(b))) for j in range(len(b[0]))]
+        for i in range(len(a))
+    ]
+
+
+def _pmatvec(a, x):
+    return [sum(a[i][k] * x[k] for k in range(len(x))) for i in range(len(a))]
+
+
+def _pt(a):
+    return [[a[j][i] for j in range(len(a))] for i in range(len(a[0]))]
+
+
+def _padd(a, b):
+    return [[a[i][j] + b[i][j] for j in range(len(a[0]))] for i in range(len(a))]
+
+
+def _pvadd(x, y):
+    return [x[i] + y[i] for i in range(len(x))]
+
+
+def _pvsub(x, y):
+    return [x[i] - y[i] for i in range(len(x))]
+
+
+def _peye_plus(a):
+    return [
+        [a[i][j] + 1.0 if i == j else a[i][j] for j in range(len(a[0]))]
+        for i in range(len(a))
+    ]
+
+
+def _pinv(a):
+    """Closed-form inverse of a D <= 3 plane matrix (adjugate / det)."""
+    d = len(a)
+    if d == 1:
+        return [[1.0 / a[0][0]]]
+    if d == 2:
+        (a00, a01), (a10, a11) = a
+        inv = 1.0 / (a00 * a11 - a01 * a10)
+        return [[a11 * inv, -a01 * inv], [-a10 * inv, a00 * inv]]
+    if d == 3:
+        (a00, a01, a02), (a10, a11, a12), (a20, a21, a22) = a
+        c00 = a11 * a22 - a12 * a21
+        c01 = a12 * a20 - a10 * a22
+        c02 = a10 * a21 - a11 * a20
+        inv = 1.0 / (a00 * c00 + a01 * c01 + a02 * c02)
+        c10 = a02 * a21 - a01 * a22
+        c11 = a00 * a22 - a02 * a20
+        c12 = a01 * a20 - a00 * a21
+        c20 = a01 * a12 - a02 * a11
+        c21 = a02 * a10 - a00 * a12
+        c22 = a00 * a11 - a01 * a10
+        return [
+            [c00 * inv, c10 * inv, c20 * inv],
+            [c01 * inv, c11 * inv, c21 * inv],
+            [c02 * inv, c12 * inv, c22 * inv],
+        ]
+    raise NotImplementedError(f"plane inverse only implemented for D<=3, got {d}")
+
+
+def _flat(*blocks) -> torch.Tensor:
+    """Nested plane lists -> one stacked (..., P, T) tensor, in order."""
+    rows = []
+    for blk in blocks:
+        for entry in blk:
+            rows.extend(entry if isinstance(entry, list) else [entry])
+    return torch.stack(rows, dim=-2)
+
+
+# --------------------------------------------------------------------------- #
+# filtering elements
+# --------------------------------------------------------------------------- #
+_FILTER_D = {3 * d * d + 2 * d: d for d in range(1, 9)}
+
+
+def filter_state_dim(n_planes: int) -> int:
+    """State dimension D of a filtering-element table with ``n_planes``."""
+    if n_planes not in _FILTER_D:
+        raise ValueError(f"{n_planes} planes is not a filtering element (3D²+2D)")
+    return _FILTER_D[n_planes]
+
+
+def _filter_parts(x, D):
+    dd = D * D
+    return (
+        _mat_planes(x, 0, D),
+        _vec_planes(x, dd, D),
+        _mat_planes(x, dd + D, D),
+        _vec_planes(x, 2 * dd + D, D),
+        _mat_planes(x, 2 * dd + 2 * D, D),
+    )
+
+
+def _combine_filter(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Associative combination of filtering elements; x1 precedes x2 in
+    time. ``Zt = Zᵀ`` equals inv(I + J2 C1) because C1 and J2 are
+    symmetric."""
+    D = filter_state_dim(x1.shape[-2])
+    A1, b1, C1, n1, J1 = _filter_parts(x1, D)
+    A2, b2, C2, n2, J2 = _filter_parts(x2, D)
+    Z = _pinv(_peye_plus(_pmatmul(C1, J2)))
+    Zt = _pt(Z)
+    A2Z = _pmatmul(A2, Z)
+    A = _pmatmul(A2Z, A1)
+    b = _pvadd(_pmatvec(A2Z, _pvadd(b1, _pmatvec(C1, n2))), b2)
+    C = _padd(_pmatmul(_pmatmul(A2Z, C1), _pt(A2)), C2)
+    A1tZt = _pmatmul(_pt(A1), Zt)
+    eta = _pvadd(_pmatvec(A1tZt, _pvsub(n2, _pmatvec(J2, b1))), n1)
+    J = _padd(_pmatmul(_pmatmul(A1tZt, J2), A1), J1)
+    return _flat(A, b, C, eta, J)
+
+
+def _aos_planes(*leaves) -> torch.Tensor:
+    """(N, T, D[, D]) leaves -> (N, P, T) planes, leaf entries row-major."""
+    N, T = leaves[0].shape[:2]
+    return torch.cat([x.reshape(N, T, -1) for x in leaves], dim=-1).transpose(1, 2).contiguous()
+
+
+def _set_first(row: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """Replace time step 0 of an (N, T) plane with the (N,) ``first``."""
+    return torch.cat([first[:, None].to(row.dtype), row[:, 1:]], dim=1)
+
+
+# --------------------------------------------------------------------------- #
+# constant-R elements from a per-lane scalar table: every time-invariant
+# quantity of the filter, the operand of kernel A (ops/fused_nll.py)
+# --------------------------------------------------------------------------- #
+def _scalar_offsets(D: int, O: int) -> tuple[dict, int]:
+    """Layout of the flat per-lane scalar vector. Row-major blocks; the same
+    layout as ``eks_tpu/ops/pallas_nll.py`` (46 floats at D = O = 2)."""
+    dd = D * D
+    offs, n = {}, 0
+    for name, size in (
+        ("A_el", dd),      # (I - K C) A
+        ("K_c", D * O),    # steady gain: b_t = K_c y_t
+        ("C_el", dd),      # (I - K C) Q
+        ("M_cT", D * O),   # (S⁻¹ C A)ᵀ: eta_t = M_cᵀ y_t
+        ("J_el", dd),      # (C A)ᵀ S⁻¹ C A
+        ("b_first", D),    # t=0 posterior mean (assimilates y_0 vs the prior)
+        ("C_first", dd),   # t=0 posterior covariance
+        ("A", dd),         # epilogue: transition
+        ("Q", dd),         # epilogue: process noise (already s-scaled)
+        ("Cobs", O * D),   # epilogue: emission
+        ("r", O),          # epilogue: constant diagonal observation noise
+        ("m0", D),         # epilogue: prior mean (t=0 predictive)
+        ("S0", dd),        # epilogue: prior covariance
+    ):
+        offs[name] = n
+        n += size
+    return offs, n
+
+
+def _table_dims(n_scal: int, O: int) -> int:
+    """State dimension D of an (N, n_scal) table for O observations."""
+    for D in range(1, 9):
+        if _scalar_offsets(D, O)[1] == n_scal:
+            return D
+    raise ValueError(f"a {n_scal}-entry scalar table fits no D for O={O}")
+
+
+def _pack_scalars(y0, m0, S0, A, Q, C, r) -> torch.Tensor:
+    """(N, n_scal) scalar tables, one row per lane: y0 (N, O), m0 (N, D),
+    S0/A/Q (N, D, D), C (N, O, D), r (N, O)."""
+    D = m0.shape[-1]
+    eye = torch.eye(D, dtype=y0.dtype, device=y0.device)
+    Ct = C.transpose(-1, -2)
+    CQ = C @ Q
+    CA = C @ A
+    S_c = CQ @ Ct + torch.diag_embed(r)
+    K_c = psd_solve(S_c, CQ).transpose(-1, -2)  # (N, D, O)
+    IKC = eye - K_c @ C
+    M_c = psd_solve(S_c, CA)  # (N, O, D)
+    A_el = IKC @ A
+    C_el = IKC @ Q
+    J_el = CA.transpose(-1, -2) @ M_c
+    S_0 = C @ S0 @ Ct + torch.diag_embed(r)
+    K_0 = psd_solve(S_0, C @ S0).transpose(-1, -2)
+    b_first = m0 + (K_0 @ (y0 - (C @ m0[..., None])[..., 0])[..., None])[..., 0]
+    C_first = (eye - K_0 @ C) @ S0
+    N = y0.shape[0]
+    return torch.cat([
+        x.reshape(N, -1) for x in (
+            A_el, K_c, C_el, M_c.transpose(-1, -2), J_el, b_first, C_first,
+            A, Q, C, r, m0, S0,
+        )
+    ], dim=-1)
+
+
+def _unpack_scalars(table: torch.Tensor, D: int, O: int):
+    """The raw (m0, S0, A, Q, C, r) blocks of an (N, n_scal) table; they ride
+    verbatim, so values and tangents both round-trip exactly."""
+    offs, _ = _scalar_offsets(D, O)
+    N = table.shape[0]
+
+    def block(name, *shape):
+        n = math.prod(shape)
+        return table[:, offs[name]:offs[name] + n].reshape(N, *shape)
+
+    return (
+        block("m0", D), block("S0", D, D), block("A", D, D),
+        block("Q", D, D), block("Cobs", O, D), block("r", O),
+    )
+
+
+def _table_planes(table: torch.Tensor, y: torch.Tensor, D: int) -> torch.Tensor:
+    """(N, P, T) filtering-element planes built from the scalar table and the
+    observation planes y (N, O, T), row for row what kernel A builds: every
+    element matrix is time-invariant, b and eta are O-term combinations of
+    the observation columns, and t = 0 assimilates y_0 against the prior."""
+    O = y.shape[1]
+    offs, _ = _scalar_offsets(D, O)
+    T = y.shape[-1]
+
+    def W(name, k):
+        return table[:, offs[name] + k, None]
+
+    def const(name, k, first):
+        return _set_first(W(name, k).expand(-1, T), first)
+
+    zero = torch.zeros_like(table[:, 0])
+    rows = [const("A_el", k, zero) for k in range(D * D)]
+    for d in range(D):  # b = K_c y_t | b_first
+        b = sum(W("K_c", d * O + o) * y[:, o] for o in range(O))
+        rows.append(_set_first(b, table[:, offs["b_first"] + d]))
+    rows += [const("C_el", k, table[:, offs["C_first"] + k]) for k in range(D * D)]
+    for d in range(D):  # eta = M_cᵀ y_t, zero at t=0
+        e = sum(W("M_cT", d * O + o) * y[:, o] for o in range(O))
+        rows.append(_set_first(e, zero))
+    rows += [const("J_el", k, zero) for k in range(D * D)]
+    return torch.stack(rows, dim=1)
+
+
+def _plane_nll_pre(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
+    """Constant-diagonal-R filtering elements as (N, P, T) planes: the
+    per-lane scalar table expanded over time."""
+    table = _pack_scalars(ys[:, 0], m0, S0, A, Q, C, r)
+    return _table_planes(table, ys.transpose(1, 2), m0.shape[-1])
+
+
+def _make_filter_elements(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
+    """Per-step filtering elements as (N, P, T) planes. ``r`` is the
+    diagonal observation noise, (N, O) constant or (N, T, O) time-varying;
+    the time-varying branch solves each step's innovation covariance."""
+    if r.ndim == 2:
+        return _plane_nll_pre(ys, m0, S0, A, Q, C, r)
+    D = m0.shape[-1]
+    eye = torch.eye(D, dtype=ys.dtype, device=ys.device)
+    Ct = C.transpose(-1, -2)
+    CQ = C @ Q  # (N, O, D)
+    CA = C @ A
+    S = (CQ @ Ct)[:, None] + torch.diag_embed(r)  # (N, T, O, O)
+    K = psd_solve(S, CQ[:, None].expand(*S.shape[:2], *CQ.shape[1:])).transpose(-1, -2)
+    IKC = eye - K @ C[:, None]  # (N, T, D, D)
+    A_el = IKC @ A[:, None]
+    b_el = (K @ ys[..., None])[..., 0]
+    C_el = IKC @ Q[:, None]
+    CAt = CA.transpose(-1, -2)[:, None]
+    eta_el = (CAt @ psd_solve(S, ys)[..., None])[..., 0]
+    J_el = CAt @ psd_solve(S, CA[:, None].expand(*S.shape[:2], *CA.shape[1:]))
+
+    # first element: update the prior (m0, S0) with y_0, no transition
+    S_0 = C @ S0 @ Ct + torch.diag_embed(r[:, 0])
+    K_0 = psd_solve(S_0, C @ S0).transpose(-1, -2)
+    b_first = m0 + (K_0 @ (ys[:, 0] - (C @ m0[..., None])[..., 0])[..., None])[..., 0]
+    C_first = (eye - K_0 @ C) @ S0
+    zero = torch.zeros_like
+    A_el = torch.cat([zero(A_el[:, :1]), A_el[:, 1:]], dim=1)
+    b_el = torch.cat([b_first[:, None], b_el[:, 1:]], dim=1)
+    C_el = torch.cat([C_first[:, None], C_el[:, 1:]], dim=1)
+    eta_el = torch.cat([zero(eta_el[:, :1]), eta_el[:, 1:]], dim=1)
+    J_el = torch.cat([zero(J_el[:, :1]), J_el[:, 1:]], dim=1)
+    return _aos_planes(A_el, b_el, C_el, eta_el, J_el)
+
+
+def _run_filter_prefix(planes: torch.Tensor):
+    """Prefix-combine (N, P, T) filtering elements -> filtered means
+    (N, T, D) and covariances (N, T, D, D)."""
+    from eks_tpu_torch.ops.fused_filter import filter_prefix
+
+    D = filter_state_dim(planes.shape[1])
+    out = filter_prefix(planes)
+    dd = D * D
+    N, _, T = out.shape
+    ms = out[:, dd:dd + D].transpose(1, 2)
+    Ps = out[:, dd + D:2 * dd + D].transpose(1, 2).reshape(N, T, D, D)
+    return ms, Ps
+
+
+def _predictive_moments(ms, Ps, m0, S0, A, Q):
+    """One-step-ahead predictive moments aligned with observations: t = 0
+    uses the prior, t >= 1 predicts from the t-1 filtered moments."""
+    At = A.transpose(-1, -2)[:, None]
+    pm = (ms[:, :-1, None, :] @ At)[:, :, 0]
+    pP = A[:, None] @ Ps[:, :-1] @ At + Q[:, None]
+    return (
+        torch.cat([m0[:, None], pm], dim=1),
+        torch.cat([S0[:, None], pP], dim=1),
+    )
+
+
+def kalman_filter_parallel(ys, m0, S0, A, Q, C, r_diag, compute_ll: bool = True) -> FilterResult:
+    """O(log T)-depth linear Kalman filter over N lanes: ys (N, T, O), every
+    parameter with a leading N, ``r_diag`` (N, O) or (N, T, O). With
+    ``compute_ll`` the exact per-step marginal log-likelihood is summed
+    into (N,)."""
+    ms, Ps = _run_filter_prefix(_make_filter_elements(ys, m0, S0, A, Q, C, r_diag))
+    if not compute_ll:
+        return FilterResult(None, ms, Ps)
+    r = _as_time_varying(r_diag, ys.shape[1])
+    pred_m, pred_P = _predictive_moments(ms, Ps, m0, S0, A, Q)
+    Cb = C[:, None]
+    S = Cb @ pred_P @ Cb.transpose(-1, -2) + torch.diag_embed(r)
+    ll = mvn_logpdf(ys, (Cb @ pred_m[..., None])[..., 0], S).sum(dim=1)
+    return FilterResult(ll, ms, Ps)
+
+
+# --------------------------------------------------------------------------- #
+# plane-native constant-R filter NLL (the s-optimizer's loss)
+# --------------------------------------------------------------------------- #
+def _plane_split_moments(out: torch.Tensor, D: int):
+    """Filtered-moment planes out of a scanned (N, P, T) table."""
+    dd = D * D
+    return _vec_planes(out, dd, D), _mat_planes(out, dd + D, D)
+
+
+def _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q):
+    """Predictive moments from filtered-moment planes: A m_{t-1} and
+    A P_{t-1} Aᵀ + Q for t >= 1, the prior (m0, S0) at t = 0. Parameters are
+    (N, ...) tensors; planes are (N, T)."""
+    D = len(m_pl)
+
+    def col(x):
+        return x[:, None]
+
+    def shifted(p, first):
+        return torch.cat([first[:, None], p[:, :-1]], dim=1)
+
+    m_prev = [shifted(m_pl[i], m0[:, i]) for i in range(D)]
+    P_prev = [[shifted(P_pl[i][j], S0[:, i, j]) for j in range(D)] for i in range(D)]
+    pred_m = [
+        _set_first(sum(col(A[:, i, j]) * m_prev[j] for j in range(D)), m0[:, i])
+        for i in range(D)
+    ]
+    pred_P = [
+        [
+            _set_first(
+                sum(
+                    col(A[:, i, k]) * P_prev[k][l] * col(A[:, j, l])
+                    for k in range(D)
+                    for l in range(D)
+                )
+                + col(Q[:, i, j]),
+                S0[:, i, j],
+            )
+            for j in range(D)
+        ]
+        for i in range(D)
+    ]
+    return pred_m, pred_P
+
+
+def _plane_innovation_ll(pred_m, pred_P, ys, C, r) -> torch.Tensor:
+    """Sum over time of the Gaussian log-density of the innovations, from
+    predictive-moment planes; ys (N, T, O), C (N, O, D), r (N, O)."""
+    O = ys.shape[-1]
+    D = len(pred_m)
+
+    def col(x):
+        return x[:, None]
+
+    S = [
+        [
+            sum(
+                col(C[:, i, k]) * pred_P[k][l] * col(C[:, j, l])
+                for k in range(D)
+                for l in range(D)
+            )
+            + (col(r[:, i]) if i == j else 0.0)
+            for j in range(O)
+        ]
+        for i in range(O)
+    ]
+    d = [ys[..., i] - sum(col(C[:, i, j]) * pred_m[j] for j in range(D)) for i in range(O)]
+    L = [[None] * O for _ in range(O)]
+    for i in range(O):
+        for j in range(i + 1):
+            s = S[i][j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = torch.sqrt(s) if i == j else s / L[j][j]
+    z = [None] * O
+    logdet = 0.0
+    for i in range(O):
+        s = d[i]
+        for k in range(i):
+            s = s - L[i][k] * z[k]
+        z[i] = s / L[i][i]
+        logdet = logdet + torch.log(L[i][i])
+    quad = sum(zi * zi for zi in z)
+    return (-0.5 * quad - logdet - 0.5 * O * _LOG_2PI).sum(dim=1)
+
+
+def _plane_nll_post(m_pl, P_pl, ys, m0, S0, A, Q, C, r) -> torch.Tensor:
+    """Predictive moments + Gaussian log-density from filtered planes."""
+    pred_m, pred_P = _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q)
+    return _plane_innovation_ll(pred_m, pred_P, ys, C, r)
+
+
+# --------------------------------------------------------------------------- #
+# RTS smoothing elements and the reverse scan
+# --------------------------------------------------------------------------- #
+_SMOOTHER_D = {2 * d * d + d: d for d in range(1, 9)}
+
+
+def _combine_smoother(later: torch.Tensor, earlier: torch.Tensor) -> torch.Tensor:
+    """Associative combination of smoothing elements under a reverse scan:
+    the first argument is the element later in time; the earlier element's
+    affine map ``x -> E_e x + g_e`` is applied to the later suffix."""
+    D = _SMOOTHER_D[later.shape[-2]]
+    dd = D * D
+    El, gl, Ll = _mat_planes(later, 0, D), _vec_planes(later, dd, D), _mat_planes(later, dd + D, D)
+    Ee, ge, Le = _mat_planes(earlier, 0, D), _vec_planes(earlier, dd, D), _mat_planes(earlier, dd + D, D)
+    E = _pmatmul(Ee, El)
+    g = _pvadd(_pmatvec(Ee, gl), ge)
+    L = _padd(_pmatmul(_pmatmul(Ee, Ll), _pt(Ee)), Le)
+    return _flat(E, g, L)
+
+
+def _make_smoother_elements(ms, Ps, A, Q) -> torch.Tensor:
+    """RTS smoothing elements (N, 2D²+D, T) from filtered moments; the final
+    element carries the filtered terminal moments."""
+    Ab, At = A[:, None], A.transpose(-1, -2)[:, None]
+    P_pred = Ab @ Ps @ At + Q[:, None]
+    E = psd_solve(P_pred, Ab @ Ps).transpose(-1, -2)
+    g = ms - (E @ (Ab @ ms[..., None]))[..., 0]
+    L = Ps - E @ P_pred @ E.transpose(-1, -2)
+    E = torch.cat([E[:, :-1], torch.zeros_like(E[:, -1:])], dim=1)
+    g = torch.cat([g[:, :-1], ms[:, -1:]], dim=1)
+    L = torch.cat([L[:, :-1], Ps[:, -1:]], dim=1)
+    return _aos_planes(E, g, L)
+
+
+def _rts_from_filtered(ms, Ps, A, Q):
+    """Backward RTS pass as a reverse associative scan over the filtered
+    moments. Returns smoothed means (N, T, D) and covariances (N, T, D, D)."""
+    D = ms.shape[-1]
+    dd = D * D
+    out = associative_scan(_combine_smoother, _make_smoother_elements(ms, Ps, A, Q), reverse=True)
+    N, _, T = out.shape
+    return out[:, dd:dd + D].transpose(1, 2), out[:, dd + D:].transpose(1, 2).reshape(N, T, D, D)
+
+
+def kalman_smoother_parallel(ys, m0, S0, A, Q, C, r_diag) -> SmootherResult:
+    """O(log T)-depth linear RTS smoother over N lanes (filter prefix scan +
+    reverse associative scan). The filter log-likelihood is not computed."""
+    fr = kalman_filter_parallel(ys, m0, S0, A, Q, C, r_diag, compute_ll=False)
+    sm, sP = _rts_from_filtered(fr.filtered_means, fr.filtered_covs, A, Q)
+    return SmootherResult(None, fr.filtered_means, fr.filtered_covs, sm, sP)

@@ -1,0 +1,145 @@
+"""Kernel B of the PyTorch port (eks_tpu_torch/ops/fused_filter.py) and the
+parallel filter and smoother around it (ops/pkalman.py): the plain prefix
+scan against the JAX package's Pallas prefix-scan kernel (interpret mode)
+and against the port's float64 sequential filter; the element builders and
+the parallel smoother against their JAX counterparts. The CUDA kernel runs
+only on the card (chip_smoke.py phase 3)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import vmap
+
+from eks_tpu.ops import pkalman as jax_pk
+from eks_tpu.ops.pallas_filter import filter_prefix_pallas
+from eks_tpu_torch.convert import params_from_numpy
+from eks_tpu_torch.ops import fused_filter, pkalman
+from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
+from tests.test_torch_fused_nll import _FakeCuda
+
+# float32 prefix combinations of a few hundred elements in two association
+# orders (Pallas: 128 sequential chunks + a log sweep; here: a log-depth
+# tree), relative to the largest entry of each compared table
+RTOL = 2e-5
+
+
+def _lanes(rng, N, T, O=2, D=2):
+    ys = (rng.normal(size=(N, T, O)).cumsum(axis=1) * 0.1).astype(np.float32)
+    m0 = (rng.normal(size=(N, D)) * 0.3).astype(np.float32)
+    S0 = np.tile(np.eye(D, dtype=np.float32) * 1.3, (N, 1, 1))
+    A = np.tile(np.eye(D, dtype=np.float32), (N, 1, 1))
+    Q = np.tile(np.eye(D, dtype=np.float32) * 0.7, (N, 1, 1))
+    C = (np.tile(np.eye(O, D), (N, 1, 1)) + 0.05 * rng.normal(size=(N, O, D))).astype(np.float32)
+    r_tv = (np.abs(rng.normal(size=(N, T, O))) * 0.5 + 0.2).astype(np.float32)
+    return ys, m0, S0, A, Q, C, r_tv
+
+
+def _close(got, want, rtol=RTOL):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=rtol, atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("T", [256, 300, 97])
+def test_plain_scan_matches_pallas_prefix_kernel(T):
+    """Identical elements (built by the JAX package) through the Pallas
+    prefix kernel and through the port's plain scan: aligned (256) and
+    unaligned T."""
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(T), 1, T)
+    elems = jax_pk._make_filter_elements(*(jnp.asarray(x[0]) for x in (ys, m0, S0, A, Q, C, r)))
+    ms_j, Ps_j = filter_prefix_pallas(elems, interpret=True)
+    planes = pkalman._aos_planes(*(torch.tensor(np.asarray(leaf))[None] for leaf in elems))
+    out = fused_filter.filter_prefix(planes)
+    dd = 4
+    _close(out[0, dd:dd + 2].T.numpy(), ms_j)
+    _close(out[0, dd + 2:2 * dd + 2].T.reshape(T, 2, 2).numpy(), Ps_j)
+
+
+def test_plain_scan_matches_float64_sequential_filter():
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(1), 3, 173)
+    params = params_from_numpy(m0, S0, A, Q, C, r)
+    y_t = torch.as_tensor(ys)
+    ms, Ps = pkalman._run_filter_prefix(pkalman._make_filter_elements(y_t, *params))
+    seq = kalman_filter(y_t.double(), *(p.double() for p in params))
+    _close(ms.numpy(), seq.filtered_means.numpy())
+    _close(Ps.numpy(), seq.filtered_covs.numpy())
+
+
+@pytest.mark.parametrize("time_varying", [True, False])
+def test_filter_elements_match_jax(time_varying):
+    """The element builder, both branches (constant R: the optimizer's
+    table; time-varying R: the final pass's per-step solve)."""
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(2), 3, 64)
+    if not time_varying:
+        r = r[:, 0]
+    e = vmap(jax_pk._make_filter_elements)(*(jnp.asarray(x) for x in (ys, m0, S0, A, Q, C, r)))
+    want = np.asarray(pkalman._aos_planes(*(torch.tensor(np.asarray(leaf)) for leaf in e)))
+    got = pkalman._make_filter_elements(torch.as_tensor(ys), *params_from_numpy(m0, S0, A, Q, C, r))
+    _close(got.numpy(), want, rtol=1e-5)
+
+
+def test_parallel_filter_and_smoother_match_jax():
+    """The port's parallel filter and smoother (plain scans on the CPU)
+    against the JAX package's sequential filter and smoother, and against
+    the port's own float64 sequential oracle."""
+    from eks_tpu.ops.kalman import kalman_smoother as jax_kalman_smoother
+
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(4), 3, 150)
+    jr = vmap(lambda y, m, s, a, q, c, rr: jax_kalman_smoother(y, m, s, a, q, C=c, r_diag=rr))(
+        *(jnp.asarray(x) for x in (ys, m0, S0, A, Q, C, r))
+    )
+    params = params_from_numpy(m0, S0, A, Q, C, r)
+    res = pkalman.kalman_smoother_parallel(torch.as_tensor(ys), *params)
+    _close(res.filtered_means.numpy(), jr.filtered_means)
+    _close(res.smoothed_means.numpy(), jr.smoothed_means)
+    _close(res.smoothed_covs.numpy(), jr.smoothed_covs)
+    fr = pkalman.kalman_filter_parallel(torch.as_tensor(ys), *params)
+    np.testing.assert_allclose(fr.log_likelihood.numpy(), np.asarray(jr.log_likelihood), rtol=RTOL)
+    seq = kalman_smoother(torch.as_tensor(ys).double(), *(p.double() for p in params))
+    _close(res.smoothed_means.numpy(), seq.smoothed_means.numpy())
+    _close(res.smoothed_covs.numpy(), seq.smoothed_covs.numpy())
+
+
+@pytest.mark.parametrize("T", [1, 2, 7, 64])
+def test_associative_scan_matches_sequential_fold(T):
+    """The log-depth scan is an inclusive prefix, forward and reverse, for a
+    non-commutative combine (2x2 matrix products carried as planes), up to
+    float64 reassociation."""
+    rng = np.random.default_rng(T)
+    x = torch.as_tensor(rng.normal(size=(3, 4, T)))
+
+    def matmul(a, b):  # planes of 2x2 matrices, a applied first
+        return pkalman._flat(pkalman._pmatmul(pkalman._mat_planes(b, 0, 2), pkalman._mat_planes(a, 0, 2)))
+
+    fwd = pkalman.associative_scan(matmul, x)
+    rev = pkalman.associative_scan(matmul, x, reverse=True)
+    acc_f, acc_r = x[..., 0], x[..., T - 1]
+    np.testing.assert_allclose(fwd[..., 0], acc_f)
+    for t in range(1, T):
+        acc_f = matmul(acc_f[..., None], x[..., t:t + 1])[..., 0]
+        np.testing.assert_allclose(fwd[..., t], acc_f, rtol=1e-10)
+    for t in range(T - 2, -1, -1):
+        acc_r = matmul(acc_r[..., None], x[..., t:t + 1])[..., 0]
+        np.testing.assert_allclose(rev[..., t], acc_r, rtol=1e-10)
+
+
+def test_kernel_b_wrapper_refuses_cuda_without_a_card():
+    """A CUDA request reaches the kernel path and fails there; it never
+    silently returns the plain version's answer."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible; chip_smoke.py runs the kernel")
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(0), 2, 16)
+    planes = pkalman._make_filter_elements(torch.as_tensor(ys), *params_from_numpy(m0, S0, A, Q, C, r))
+    before = fused_filter.LAUNCHES
+    with pytest.raises((RuntimeError, AssertionError)):
+        fused_filter.filter_prefix(_FakeCuda(planes))
+    assert fused_filter.LAUNCHES == before
+    with pytest.raises(ValueError):
+        fused_filter._filter_prefix_cuda(planes)  # a CPU tensor is never launched
+    with pytest.raises(RuntimeError):
+        fused_filter.filter_prefix(planes.to("meta"))  # nor is any other device
+    with pytest.raises(ValueError):
+        fused_filter.filter_prefix(torch.zeros(2, 7, 16))  # not 3D²+2D planes
+    for P in (5, 33, 56):  # D = 1, 3, 4: the kernel is built for D = 2 only
+        with pytest.raises(NotImplementedError):
+            fused_filter.filter_prefix(_FakeCuda(torch.zeros(2, P, 16)))
