@@ -1,8 +1,9 @@
 """Carry the JAX package's operands across to the port.
 
 The smoother has no learned weights: what its kernels consume are the
-state-space parameters (m0, S0, A, Q, C, r) and, for the fused NLL, the
-per-lane scalar table. These helpers turn numpy copies of either into the
+state-space parameters (m0, S0, A, Q, C, r) and, for the fused NLLs, the
+per-lane scalar tables (constant R: ``_scalar_offsets``; time-varying R:
+``_scalar_offsets_tv``). These helpers turn numpy copies of either into the
 port's float32 tensors, so that a test can feed both packages identical
 operands.
 """
@@ -12,7 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "scalar_table_from_numpy"]
+__all__ = [
+    "params_from_numpy",
+    "scalar_table_from_numpy",
+    "tv_planes_from_numpy",
+    "tv_scalar_table_from_numpy",
+]
 
 
 def _tensor(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -22,7 +28,8 @@ def _tensor(a, device, dtype=torch.float32) -> torch.Tensor:
 def params_from_numpy(m0, S0, A, Q, C, r, device: str | torch.device = "cpu",
                       dtype: torch.dtype = torch.float32) -> tuple:
     """Batched state-space parameters as tensors: m0 (N, D), S0/A/Q
-    (N, D, D), C (N, O, D), r (N, O) or (N, T, O)."""
+    (N, D, D), C (N, O, D), r (N, O) constant or (N, T, O) time-varying (the
+    pupil family's D = 3, O = 8 included)."""
     return tuple(_tensor(a, device, dtype) for a in (m0, S0, A, Q, C, r))
 
 
@@ -34,3 +41,28 @@ def scalar_table_from_numpy(scal, device: str | torch.device = "cpu") -> torch.T
     if scal.ndim != 2:
         raise ValueError(f"expected an (N, n_scal) table, got shape {scal.shape}")
     return _tensor(scal, device)
+
+
+def tv_scalar_table_from_numpy(scal, O: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """An (N, n_scal) time-varying-R scalar table for O observations, in the
+    layout of ``ops/pkalman.py::_scalar_offsets_tv`` (the same as the JAX
+    package's ``_pack_scalars_tv``: 84 floats at D = 3, O = 8), as a
+    contiguous float32 tensor."""
+    from eks_tpu_torch.ops.pkalman import _scalar_offsets_tv, _table_dims
+
+    scal = np.asarray(scal)
+    if scal.ndim != 2:
+        raise ValueError(f"expected an (N, n_scal) table, got shape {scal.shape}")
+    _table_dims(scal.shape[1], O, _scalar_offsets_tv)  # raises if the width fits no D
+    return _tensor(scal, device)
+
+
+def tv_planes_from_numpy(ys, r, device: str | torch.device = "cpu") -> torch.Tensor:
+    """Observations ys and noise variances r, both (N, T, O), as the
+    (N, 2O, T) float32 planes the time-varying-R NLL reads: the y planes,
+    then the r planes."""
+    ys, r = np.asarray(ys), np.asarray(r)
+    if ys.ndim != 3 or ys.shape != r.shape:
+        raise ValueError(f"expected ys and r of one (N, T, O) shape, got {ys.shape} and {r.shape}")
+    planes = np.concatenate([ys.transpose(0, 2, 1), r.transpose(0, 2, 1)], axis=1)
+    return _tensor(np.ascontiguousarray(planes), device)

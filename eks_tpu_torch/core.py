@@ -15,7 +15,8 @@ Semantics kept from the JAX package:
   * Adam(1.0) on lr-scaled gradients of the NLL w.r.t. log s clipped to
     ±8, early stop when |loss - prev| < tol*|log(max(prev, 1e-12))| + 1e-6,
     hard cap 300 iterations, per-lane state that commits only while the lane
-    is active.
+    is active. The pupil family runs the same loop on its two sigmoid-space
+    parameters per session, as Adam(lr) on the raw gradient.
 
 The loss runs through the fused NLL (kernel A, paired form) on the card; its
 derivative is forward-mode, from the scalar table's tangent.
@@ -30,6 +31,7 @@ from typing import Literal
 import numpy as np
 import torch
 
+from eks_tpu_torch.marker_array import MarkerArray
 from eks_tpu_torch.ops.fused_nll import fused_nll_paired
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
 from eks_tpu_torch.ops.pkalman import _pack_scalars, kalman_smoother_parallel
@@ -37,7 +39,7 @@ from eks_tpu_torch.utils import crop_frames
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["run_kalman_smoother", "optimize_smooth_param"]
+__all__ = ["ensemble", "run_kalman_smoother", "optimize_smooth_param"]
 
 _NOT_PORTED = "is not ported to eks_tpu_torch yet (see ROADMAP.md, queue 1)"
 
@@ -165,6 +167,30 @@ def _ensemble_kernel(data_x, data_y, data_lh, n_models, avg_mode, var_mode, nan_
     return torch.stack([avg_x, avg_y, var_x, var_y, mean_conf], dim=-1)
 
 
+def ensemble(
+    marker_array: MarkerArray,
+    avg_mode: Literal["mean", "median"] = "median",
+    var_mode: Literal["var", "confidence_weighted_var"] = "confidence_weighted_var",
+    nan_replacement: float = 1000.0,
+) -> MarkerArray:
+    """Ensemble consensus and variance over the models axis, on the host.
+
+    Input fields ``[x, y, likelihood]`` with shape (M, C, T, K, 3); output is
+    a (1, C, T, K, 5) float32 MarkerArray with fields
+    ``[x, y, var_x, var_y, likelihood]``, likelihood being the mean model
+    confidence. For the families whose prep stays in host numpy."""
+    planes = torch.as_tensor(np.ascontiguousarray(
+        marker_array.slice_fields("x", "y", "likelihood").array, dtype=np.float32
+    ))
+    stats = _ensemble_kernel(
+        planes[..., 0], planes[..., 1], planes[..., 2], marker_array.shape[0],
+        avg_mode, var_mode, float(nan_replacement),
+    )
+    return MarkerArray(
+        stats.numpy()[None, ...], data_fields=["x", "y", "var_x", "var_y", "likelihood"]
+    )
+
+
 def _device_constant_r(ev_kto: torch.Tensor, min_var: float) -> torch.Tensor:
     """(K, T, O) variances -> (K, O) constant diagonal R: the time median of
     the variances floored at 1e-12, floored again at ``min_var``."""
@@ -185,21 +211,28 @@ def _device_s_guesses(ev_tko: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # the optimizer
 # --------------------------------------------------------------------------- #
-def _joint_masked_adam(loss_and_grad, s_log_init: torch.Tensor, lr: float, tol: float,
-                       safety_cap: int, timings: dict | None = None):
-    """Per-lane Adam on log s with masked carries and the reference stop
-    rule. ``loss_and_grad(s_log) -> (loss, grad)``, both (n_blocks,). The
-    update is optax ``adam(1.0)`` fed ``grad * lr``: b1 = 0.9, b2 = 0.999,
-    eps = 1e-8, eps_root = 0, count incremented before the bias correction.
-    A lane's state commits only while it is active; the loop ends when no
-    lane is (one host sync per iteration). Returns (s_log, last_loss,
-    iters), each (n_blocks,)."""
+def _joint_masked_adam(loss_and_grad, init: torch.Tensor, lr: float, tol: float,
+                       safety_cap: int, timings: dict | None = None,
+                       scale_gradient: bool = True):
+    """Per-lane Adam with masked carries and the reference stop rule, on a
+    parameter ``init`` of shape (n_lanes,) or (n_lanes, n_params).
+    ``loss_and_grad(param) -> (loss (n_lanes,), grad like param)``. The
+    update is optax's Adam: b1 = 0.9, b2 = 0.999, eps = 1e-8, eps_root = 0,
+    count incremented before the bias correction. With ``scale_gradient``
+    it is ``adam(1.0)`` fed ``grad * lr`` (the s-optimizer), without it
+    ``adam(lr)`` on the raw gradient (the pupil optimizer); the two differ
+    through eps. A lane stops when |loss - prev| < tol * |log(max(prev,
+    1e-12))| + 1e-6 or at ``safety_cap`` iterations; its state commits only
+    while it is active, and the loop ends when no lane is (one host sync per
+    iteration). Returns (param, last_loss (n_lanes,), iters (n_lanes,))."""
     b1, b2, eps = 0.9, 0.999, 1e-8
-    dev, dt = s_log_init.device, s_log_init.dtype
-    n = s_log_init.shape[0]
-    s_log = s_log_init
-    mu = torch.zeros(n, dtype=dt, device=dev)
-    nu = torch.zeros(n, dtype=dt, device=dev)
+    step = 1.0 if scale_gradient else lr
+    dev, dt = init.device, init.dtype
+    n = init.shape[0]
+    per_lane = (n,) + (1,) * (init.ndim - 1)  # lane vectors against the parameter
+    s_log = init
+    mu = torch.zeros_like(init)
+    nu = torch.zeros_like(init)
     count = torch.zeros(n, dtype=torch.int32, device=dev)
     prev_loss = torch.full((n,), float("inf"), dtype=dt, device=dev)
     iters = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -214,19 +247,20 @@ def _joint_masked_adam(loss_and_grad, s_log_init: torch.Tensor, lr: float, tol: 
             break
         n_iter += 1
         loss, grad = loss_and_grad(s_log)
-        g = grad * lr
+        g = grad * lr if scale_gradient else grad
         mu_new = (1 - b1) * g + b1 * mu
         nu_new = (1 - b2) * (g * g) + b2 * nu
         count_new = count + 1
-        cf = count_new.to(dt)
+        cf = count_new.to(dt).reshape(per_lane)
         mu_hat = mu_new / (1 - torch.pow(b1_t, cf))
         nu_hat = nu_new / (1 - torch.pow(b2_t, cf))
-        s_new = s_log + -1.0 * (mu_hat / (torch.sqrt(nu_hat + 0.0) + eps))
+        s_new = s_log + -step * (mu_hat / (torch.sqrt(nu_hat + 0.0) + eps))
         rel_tol = tol * torch.abs(torch.log(torch.maximum(prev_loss, floor)))
         stop = torch.isfinite(prev_loss) & (torch.abs(loss - prev_loss) < rel_tol + 1e-6)
-        s_log = torch.where(active, s_new, s_log)
-        mu = torch.where(active, mu_new, mu)
-        nu = torch.where(active, nu_new, nu)
+        active_p = active.reshape(per_lane)
+        s_log = torch.where(active_p, s_new, s_log)
+        mu = torch.where(active_p, mu_new, mu)
+        nu = torch.where(active_p, nu_new, nu)
         count = torch.where(active, count_new, count)
         prev_loss = torch.where(active, loss, prev_loss)
         iters = torch.where(active, iters + 1, iters)

@@ -1,5 +1,7 @@
 // Filtering-element algebra shared by the prefix-scan kernel (kernel B,
-// prefix_scan.cu) and the fused NLL kernel (kernel A, fused_nll.cu).
+// prefix_scan.cu) and the fused NLL kernels (kernel A, fused_nll.cu, and
+// kernel C, fused_nll_tv.cu), and the innovation log-density the two fused
+// kernels end each step with.
 //
 // An element of the parallel Kalman filter (Särkkä & García-Fernández 2021)
 // is (A, b, C, eta, J), stored flat as P = 3D² + 2D values in the plane order
@@ -29,6 +31,9 @@ __device__ __forceinline__ Dual operator/(Dual a, Dual b) {
   const float q = a.v / b.v;
   return {q, (a.d - q * b.d) / b.v};
 }
+// a plain float has a zero tangent (an observation or its noise variance)
+__device__ __forceinline__ Dual operator+(Dual a, float b) { return {a.v + b, a.d}; }
+__device__ __forceinline__ Dual operator*(Dual a, float b) { return {a.v * b, a.d * b}; }
 __device__ __forceinline__ Dual sqrt_(Dual a) {
   const float s = sqrtf(a.v);
   return {s, a.d * (0.5f / s)};
@@ -262,6 +267,101 @@ __device__ __forceinline__ FilterElem<S, D> block_exclusive_scan(FilterElem<S, D
     for (int p = 0; p < P; ++p) excl.x[p] = Scalar<S>::get(smem + p * NT + tid - 1, STRIDE);
   }
   return excl;
+}
+
+constexpr float LOG_2PI = 1.8378770664093453f;
+
+// log N(y_t; C m_pred, C P_pred Cᵀ + diag(r)) from the carry before step t
+// (the t-1 filtered posterior; the prior at t = 0): predict with (A, Q), then
+// the O x O innovation Cholesky, built and consumed row by row (the forward
+// substitution and the log-determinant need row i only while it is built),
+// as ops/pkalman.py::_plane_nll_post. A, Q, Cobs, m0 and S0 point at the
+// row-major blocks of the lane's table; rv is the step's diagonal noise, a
+// table entry (S) or a plain float.
+template <typename S, typename R, int D, int O>
+__device__ __forceinline__ S innovation_logpdf(FilterElem<S, D>& prev, const S* A, const S* Q,
+                                               const S* Cobs, const S* m0, const S* S0,
+                                               const R (&rv)[O], const float (&yv)[O], bool t0) {
+  using Sc = Scalar<S>;
+  S pm[D], pP[D][D];
+  if (t0) {
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      pm[a] = m0[a];
+#pragma unroll
+      for (int b = 0; b < D; ++b) pP[a][b] = S0[a * D + b];
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      S s = A[a * D] * prev.b(0);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + A[a * D + k] * prev.b(k);
+      pm[a] = s;
+    }
+#pragma unroll
+    for (int a = 0; a < D; ++a)
+#pragma unroll
+      for (int b = 0; b < D; ++b) {
+        S s = Sc::c(0.f);
+#pragma unroll
+        for (int k = 0; k < D; ++k)
+#pragma unroll
+          for (int l = 0; l < D; ++l) s = s + A[a * D + k] * prev.C(k, l) * A[b * D + l];
+        pP[a][b] = s + Q[a * D + b];
+      }
+  }
+  S Lc[O][O], z[O];
+  S quad = Sc::c(0.f), logdet = Sc::c(0.f);
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    // row i of the innovation covariance, reduced to row i of its factor
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      S s = Sc::c(0.f);
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+#pragma unroll
+        for (int l = 0; l < D; ++l) s = s + Cobs[i * D + k] * pP[k][l] * Cobs[j * D + l];
+      if (i == j) s = s + rv[i];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = s - Lc[i][k] * Lc[j][k];
+      Lc[i][j] = i == j ? sqrt_(s) : s / Lc[j][j];
+    }
+    // residual, forward substitution, log-determinant
+    S s = Sc::c(yv[i]);
+#pragma unroll
+    for (int k = 0; k < D; ++k) s = s - Cobs[i * D + k] * pm[k];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - Lc[i][k] * z[k];
+    z[i] = s / Lc[i][i];
+    logdet = logdet + log_(Lc[i][i]);
+    quad = quad + z[i] * z[i];
+  }
+  return Sc::c(-0.5f) * quad - logdet - Sc::c(0.5f * O * LOG_2PI);
+}
+
+// Sum of the per-thread accumulators over the block in a fixed tree order
+// (deterministic); thread 0 writes the lane's value to out[lane] and, for
+// Dual, its tangent to out[N + lane]. `red` holds Scalar<S>::W * NT floats.
+template <typename S, int NT>
+__device__ __forceinline__ void block_sum_to(S acc, float* red, float* out, int lane, int N) {
+  constexpr int W = Scalar<S>::W;
+  const int tid = threadIdx.x;
+  red[tid] = Scalar<S>::value(acc);
+  if constexpr (W == 2) red[NT + tid] = Scalar<S>::tangent(acc);
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      red[tid] += red[tid + s];
+      if constexpr (W == 2) red[NT + tid] += red[NT + tid + s];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    out[lane] = red[0];
+    if constexpr (W == 2) out[N + lane] = red[NT];
+  }
 }
 
 }  // namespace eks

@@ -39,7 +39,6 @@
 namespace {
 
 constexpr int NT = 256;
-constexpr float LOG_2PI = 1.8378770664093453f;
 
 template <int D, int O>
 struct Layout {
@@ -102,86 +101,6 @@ __device__ __forceinline__ eks::FilterElem<S, D> build(const S* tab, const float
   return e;
 }
 
-// log N(y_t; C m_pred, C P_pred Cᵀ + R) from the carry before this step (the
-// t-1 filtered posterior; the prior at t = 0)
-template <typename S, int D, int O>
-__device__ __forceinline__ S epilogue(eks::FilterElem<S, D>& prev, const S* tab, const float (&yv)[O],
-                                      bool t0) {
-  using Lt = Layout<D, O>;
-  using Sc = eks::Scalar<S>;
-  S pm[D], pP[D][D];
-  if (t0) {
-#pragma unroll
-    for (int a = 0; a < D; ++a) {
-      pm[a] = tab[Lt::M0 + a];
-#pragma unroll
-      for (int b = 0; b < D; ++b) pP[a][b] = tab[Lt::S0 + a * D + b];
-    }
-  } else {
-#pragma unroll
-    for (int a = 0; a < D; ++a) {
-      S s = tab[Lt::A + a * D] * prev.b(0);
-#pragma unroll
-      for (int k = 1; k < D; ++k) s = s + tab[Lt::A + a * D + k] * prev.b(k);
-      pm[a] = s;
-    }
-#pragma unroll
-    for (int a = 0; a < D; ++a)
-#pragma unroll
-      for (int b = 0; b < D; ++b) {
-        S s = Sc::c(0.f);
-#pragma unroll
-        for (int k = 0; k < D; ++k)
-#pragma unroll
-          for (int l = 0; l < D; ++l)
-            s = s + tab[Lt::A + a * D + k] * prev.C(k, l) * tab[Lt::A + b * D + l];
-        pP[a][b] = s + tab[Lt::Q + a * D + b];
-      }
-  }
-  // innovation covariance (lower triangle) and residual
-  S Sm[O][O], dv[O];
-#pragma unroll
-  for (int o = 0; o < O; ++o) {
-#pragma unroll
-    for (int p = 0; p <= o; ++p) {
-      S s = Sc::c(0.f);
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-#pragma unroll
-        for (int l = 0; l < D; ++l)
-          s = s + tab[Lt::COBS + o * D + k] * pP[k][l] * tab[Lt::COBS + p * D + l];
-      Sm[o][p] = o == p ? s + tab[Lt::R + o] : s;
-    }
-    S s = Sc::c(yv[o]);
-#pragma unroll
-    for (int k = 0; k < D; ++k) s = s - tab[Lt::COBS + o * D + k] * pm[k];
-    dv[o] = s;
-  }
-  // unrolled Cholesky, forward solve, log-determinant
-  S Lc[O][O], z[O];
-  S quad = Sc::c(0.f), logdet = Sc::c(0.f);
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      S s = Sm[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) s = s - Lc[i][k] * Lc[j][k];
-      Lc[i][j] = i == j ? eks::sqrt_(s) : s / Lc[j][j];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    S s = dv[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s = s - Lc[i][k] * z[k];
-    z[i] = s / Lc[i][i];
-    logdet = logdet + eks::log_(Lc[i][i]);
-    quad = quad + z[i] * z[i];
-  }
-  return Sc::c(-0.5f) * quad - logdet - Sc::c(0.5f * O * LOG_2PI);
-}
-
 template <typename S, int D, int O>
 __global__ void __launch_bounds__(NT) fused_nll_kernel(const float* __restrict__ y,
                                                        const float* __restrict__ table,
@@ -222,30 +141,21 @@ __global__ void __launch_bounds__(NT) fused_nll_kernel(const float* __restrict__
   carry = eks::block_exclusive_scan<S, D, NT>(carry, smem);
 
   // pass 3: carry the posterior through the chunk, summing log-densities
+  S rv[O];
+#pragma unroll
+  for (int o = 0; o < O; ++o) rv[o] = tab[Lt::R + o];
   S acc = Sc::c(0.f);
   for (int t = lo; t < hi; ++t) {
     float yv[O];
 #pragma unroll
     for (int o = 0; o < O; ++o) yv[o] = yl[(size_t)o * T + t];
-    acc = acc + epilogue<S, D, O>(carry, tab, yv, t == 0);
+    acc = acc + eks::innovation_logpdf<S, S, D, O>(carry, tab + Lt::A, tab + Lt::Q, tab + Lt::COBS,
+                                                   tab + Lt::M0, tab + Lt::S0, rv, yv, t == 0);
     carry = eks::combine<S, D>(carry, build<S, D, O>(tab, yv, t == 0));
   }
 
   // fixed-order tree reduction over the block
-  red[tid] = Sc::value(acc);
-  if constexpr (W == 2) red[NT + tid] = Sc::tangent(acc);
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      red[tid] += red[tid + s];
-      if constexpr (W == 2) red[NT + tid] += red[NT + tid + s];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    out[lane] = red[0];
-    if constexpr (W == 2) out[N + lane] = red[NT];
-  }
+  eks::block_sum_to<S, NT>(acc, red, out, lane, N);
 }
 
 template <typename S>

@@ -5,8 +5,9 @@
 // pkalman.kalman_filter_parallel, the forward filter of the final smoothing
 // pass).
 //
-// Input and output are (N, P, T) float32 planes, P = 3D² + 2D (16 at D = 2),
-// one lane per thread block. Each of the NT threads owns one contiguous chunk
+// Input and output are (N, P, T) float32 planes, P = 3D² + 2D (16 at D = 2,
+// the singlecam family's; 33 at D = 3, the pupil family's), one lane per
+// thread block. Each of the NT threads owns one contiguous chunk
 // of ceil(T / NT) time steps:
 //   pass 1   the thread folds its chunk sequentially, writing the
 //            within-chunk inclusive prefixes to the output;
@@ -25,7 +26,9 @@
 // one float per plane, so a warp's loads are not coalesced, and the
 // partials are written and read back once more in pass 3. N = 20 blocks fill
 // only 20 of the 132 SMs; spreading a lane over several blocks is left for a
-// later change.
+// later change. At D = 3 an element is 33 floats and one combine holds three
+// of them, so the compiler reaches the 255-register limit and spills a few
+// words; the pupil family gives the kernel one lane (or one per session).
 #include "filter_algebra.cuh"
 
 namespace {
@@ -81,9 +84,14 @@ extern "C" int prefix_scan_filter_f32(const float* in, float* out, int N, int T,
                                       void* stream) {
   if (N <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // only the singlecam path's D = 2 is instantiated; D = 1 and 3 come from the
-  // same template once a path needs them
-  if (D != 2) return (int)cudaErrorInvalidValue;
-  prefix_scan_filter_kernel<2><<<N, NT, 0, s>>>(in, out, T);
+  // D = 2 (singlecam) and D = 3 (pupil) are instantiated; D = 1 comes from
+  // the same template once a path needs it
+  if (D == 2) {
+    prefix_scan_filter_kernel<2><<<N, NT, 0, s>>>(in, out, T);
+  } else if (D == 3) {
+    prefix_scan_filter_kernel<3><<<N, NT, 0, s>>>(in, out, T);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,7 @@ _BUILD = _PKG / "_build"
 KERNEL_SOURCES = {
     "prefix_scan": "prefix_scan.cu",
     "fused_nll": "fused_nll.cu",
+    "fused_nll_tv": "fused_nll_tv.cu",
 }
 _HEADERS = ("filter_algebra.cuh",)
 _NVCC_FLAGS = (

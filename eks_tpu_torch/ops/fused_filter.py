@@ -19,13 +19,16 @@ import torch
 from eks_tpu_torch.ops import cuda_build
 from eks_tpu_torch.ops.pkalman import _combine_filter, associative_scan, filter_state_dim
 
-__all__ = ["LAUNCHES", "filter_prefix", "filter_prefix_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_D", "filter_prefix", "filter_prefix_plain"]
 
-#: kernel launches since import (or since a caller last reset it)
+#: kernel launches since import (or since a caller last reset it), in all
+#: and by the state dimension of the instance launched
 LAUNCHES = 0
+LAUNCHES_BY_D = {2: 0, 3: 0}
 
-#: state dimensions the CUDA kernel is instantiated for (the singlecam path's)
-_CUDA_D = (2,)
+#: state dimensions the CUDA kernel is instantiated for (the singlecam
+#: path's and the pupil path's)
+_CUDA_D = (2, 3)
 
 
 def filter_prefix_plain(planes: torch.Tensor) -> torch.Tensor:
@@ -69,6 +72,7 @@ def _filter_prefix_cuda(planes: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"prefix_scan kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_D[D] += 1
     return out
 
 

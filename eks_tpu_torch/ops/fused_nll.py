@@ -1,4 +1,6 @@
-"""Kernel A: the fused constant-R filter NLL of the s-optimizer.
+"""Kernels A and C: the fused filter NLLs of the optimizers.
+
+Kernel A: constant diagonal R (the s-optimizer's loss).
 
 Replaces the Pallas kernel ``eks_tpu/ops/pallas_nll.py`` ``_make_fused_kernel``
 (plain and ``paired=True``), reached in the JAX package through
@@ -17,6 +19,17 @@ associative scan and evaluates the epilogue of ``ops/pkalman.py``: it is
 the staged plane NLL of the JAX package. Its paired form is
 ``torch.func.jvp`` of the plain version. The wrappers take the plain version
 only for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
+
+Kernel C: time-varying diagonal R (the pupil optimizer's loss). Replaces
+``eks_tpu/ops/pallas_nll.py`` ``_make_fused_kernel_tv`` (plain and paired),
+reached there through ``filter_nll_fused_tv_batched``. Its T-sized input is
+one (N, 2O, T) tensor, the y planes followed by the r planes; each step's
+element is built in the information form from those and the lane's
+time-varying-R table (``_scalar_offsets_tv``, ``_pack_scalars_tv`` and
+``_table_planes_tv`` in ``ops/pkalman.py``). The CUDA source is
+``eks_tpu_torch/csrc/fused_nll_tv.cu``; the plain version is the staged
+time-varying-R plane NLL (``pkalman._table_nll_tv``) over the plain scan, and
+the paired wrapper takes a table tangent only, as kernel A's does.
 """
 
 from __future__ import annotations
@@ -29,9 +42,12 @@ from eks_tpu_torch.ops import cuda_build
 from eks_tpu_torch.ops.fused_filter import filter_prefix_plain
 from eks_tpu_torch.ops.pkalman import (
     _pack_scalars,
+    _pack_scalars_tv,
     _plane_nll_post,
     _plane_split_moments,
+    _scalar_offsets_tv,
     _table_dims,
+    _table_nll_tv,
     _table_planes,
     _unpack_scalars,
 )
@@ -39,18 +55,26 @@ from eks_tpu_torch.ops.pkalman import (
 __all__ = [
     "LAUNCHES",
     "PAIRED_LAUNCHES",
+    "TV_LAUNCHES",
+    "TV_PAIRED_LAUNCHES",
     "filter_nll_fused_batched",
+    "filter_nll_fused_tv_batched",
     "fused_nll",
     "fused_nll_paired",
+    "fused_nll_tv",
+    "fused_nll_tv_paired",
 ]
 
-#: launches of the plain and of the paired kernel since import (or since a
-#: caller last reset them)
+#: launches of the plain and of the paired form of kernel A and of kernel C
+#: since import (or since a caller last reset them)
 LAUNCHES = 0
 PAIRED_LAUNCHES = 0
+TV_LAUNCHES = 0
+TV_PAIRED_LAUNCHES = 0
 
-#: (D, O) pairs the CUDA kernel is instantiated for
+#: (D, O) pairs the CUDA kernels are instantiated for
 _CUDA_SHAPES = ((2, 2),)
+_CUDA_SHAPES_TV = ((3, 8),)
 
 
 # --------------------------------------------------------------------------- #
@@ -70,14 +94,24 @@ def _fused_nll_paired_plain(table, dtable, y):
     return torch.func.jvp(lambda tab: _fused_nll_plain(tab, y), (table,), (dtable,))
 
 
+def _fused_nll_tv_plain(table: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel C: (N,) log-likelihoods."""
+    return _table_nll_tv(table, yr, filter_prefix_plain)
+
+
+def _fused_nll_tv_paired_plain(table, dtable, yr):
+    """Plain paired version of kernel C: (ll, d ll) along ``dtable``."""
+    return torch.func.jvp(lambda tab: _fused_nll_tv_plain(tab, yr), (table,), (dtable,))
+
+
 # --------------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------------- #
-def _lib(paired: bool):
-    lib = cuda_build.load("fused_nll")
-    fn = lib.fused_nll_paired_f32 if paired else lib.fused_nll_f32
+def _lib(paired: bool, tv: bool):
+    name = "fused_nll_tv" if tv else "fused_nll"
+    fn = getattr(cuda_build.load(name), name + ("_paired_f32" if paired else "_f32"))
     if fn.argtypes is None:
-        n_ptr = 4 if paired else 3  # y, table[, dtable], out
+        n_ptr = 4 if paired else 3  # y (or yr), table[, dtable], out
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -92,12 +126,23 @@ def _check(name: str, x: torch.Tensor, shape: tuple):
         raise ValueError(f"fused_nll: {name} must be contiguous {shape}, got {tuple(x.shape)}")
 
 
-def _launch(table, dtable, y) -> torch.Tensor:
-    N, O, T = y.shape
-    D = _table_dims(table.shape[1], O)
-    if (D, O) not in _CUDA_SHAPES:
-        raise NotImplementedError(f"fused_nll kernel is built for (D, O) in {_CUDA_SHAPES}, got {(D, O)}")
-    _check("y", y, (N, O, T))
+def _launch(table, dtable, y, tv: bool = False) -> torch.Tensor:
+    """Launch kernel A on (table, y (N, O, T)) or, with ``tv``, kernel C on
+    (table, yr (N, 2O, T)); returns the (1, N) or, paired, (2, N) output."""
+    N, rows, T = y.shape
+    if tv:
+        if rows % 2:
+            raise ValueError(f"fused_nll: yr must hold O y planes and O r planes, got {rows} planes")
+        O = rows // 2
+        D, shapes = _table_dims(table.shape[1], O, _scalar_offsets_tv), _CUDA_SHAPES_TV
+    else:
+        O = rows
+        D, shapes = _table_dims(table.shape[1], O), _CUDA_SHAPES
+    if (D, O) not in shapes:
+        raise NotImplementedError(
+            f"fused_nll{'_tv' if tv else ''} kernel is built for (D, O) in {shapes}, got {(D, O)}"
+        )
+    _check("y", y, (N, rows, T))
     _check("table", table, (N, table.shape[1]))
     if dtable is not None:
         _check("dtable", dtable, tuple(table.shape))
@@ -111,9 +156,9 @@ def _launch(table, dtable, y) -> torch.Tensor:
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         if dtable is None:
-            rc = _lib(False)(y.data_ptr(), table.data_ptr(), out.data_ptr(), N, T, D, O, stream)
+            rc = _lib(False, tv)(y.data_ptr(), table.data_ptr(), out.data_ptr(), N, T, D, O, stream)
         else:
-            rc = _lib(True)(
+            rc = _lib(True, tv)(
                 y.data_ptr(), table.data_ptr(), dtable.data_ptr(), out.data_ptr(),
                 N, T, D, O, stream,
             )
@@ -153,3 +198,39 @@ def filter_nll_fused_batched(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
     ys (N, T, O), parameters with a leading N, r (N, O)."""
     table = _pack_scalars(ys[:, 0], m0, S0, A, Q, C, r)
     return fused_nll(table.contiguous(), ys.transpose(1, 2).contiguous())
+
+
+def fused_nll_tv(table: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
+    """Log-likelihoods (N,) of N time-varying-R filters from their tables
+    (N, n_scal_tv) and the planes yr (N, 2O, T): y rows, then r rows."""
+    global TV_LAUNCHES
+    if yr.device.type == "cpu":
+        return _fused_nll_tv_plain(table, yr)
+    if yr.device.type != "cuda":
+        raise RuntimeError(f"no fused NLL for device {yr.device}")
+    out = _launch(table, None, yr, tv=True)
+    TV_LAUNCHES += 1
+    return out[0]
+
+
+def fused_nll_tv_paired(table: torch.Tensor, dtable: torch.Tensor, yr: torch.Tensor):
+    """(ll (N,), d ll (N,)) of N time-varying-R filters: the log-likelihoods
+    and their derivative along the table tangent ``dtable``, in one launch
+    on the card."""
+    global TV_PAIRED_LAUNCHES
+    if yr.device.type == "cpu":
+        return _fused_nll_tv_paired_plain(table, dtable, yr)
+    if yr.device.type != "cuda":
+        raise RuntimeError(f"no fused NLL for device {yr.device}")
+    out = _launch(table, dtable, yr, tv=True)
+    TV_PAIRED_LAUNCHES += 1
+    return out[0], out[1]
+
+
+def filter_nll_fused_tv_batched(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
+    """Marginal log-likelihoods (N,) of N linear filters with time-varying
+    diagonal R: ys and r (N, T, O), parameters with a leading N. Needs Q and
+    S0 invertible (information form)."""
+    table = _pack_scalars_tv(m0, S0, A, Q, C)
+    yr = torch.cat([ys.transpose(1, 2), r.transpose(1, 2)], dim=1)
+    return fused_nll_tv(table.contiguous(), yr.contiguous())

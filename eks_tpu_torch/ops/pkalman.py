@@ -25,9 +25,14 @@ import math
 import torch
 
 from eks_tpu_torch.ops.kalman import FilterResult, SmootherResult, _as_time_varying
-from eks_tpu_torch.ops.linalg import mvn_logpdf, psd_solve
+from eks_tpu_torch.ops.linalg import mvn_logpdf, psd_solve, small_inv
 
-__all__ = ["associative_scan", "kalman_filter_parallel", "kalman_smoother_parallel"]
+__all__ = [
+    "associative_scan",
+    "filter_nll_parallel_planes_tv",
+    "kalman_filter_parallel",
+    "kalman_smoother_parallel",
+]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -231,12 +236,23 @@ def _scalar_offsets(D: int, O: int) -> tuple[dict, int]:
     return offs, n
 
 
-def _table_dims(n_scal: int, O: int) -> int:
-    """State dimension D of an (N, n_scal) table for O observations."""
+def _table_dims(n_scal: int, O: int, offsets=_scalar_offsets) -> int:
+    """State dimension D of an (N, n_scal) table for O observations, in the
+    layout ``offsets`` (the constant-R one, or ``_scalar_offsets_tv``)."""
     for D in range(1, 9):
-        if _scalar_offsets(D, O)[1] == n_scal:
+        if offsets(D, O)[1] == n_scal:
             return D
     raise ValueError(f"a {n_scal}-entry scalar table fits no D for O={O}")
+
+
+def _table_blocks(table: torch.Tensor, offs: dict, *named_shapes) -> tuple:
+    """The (N, *shape) blocks of an (N, n_scal) table at ``offs[name]``, one
+    per (name, shape) pair."""
+    N = table.shape[0]
+    return tuple(
+        table[:, offs[name]:offs[name] + math.prod(shape)].reshape(N, *shape)
+        for name, shape in named_shapes
+    )
 
 
 def _pack_scalars(y0, m0, S0, A, Q, C, r) -> torch.Tensor:
@@ -270,16 +286,9 @@ def _pack_scalars(y0, m0, S0, A, Q, C, r) -> torch.Tensor:
 def _unpack_scalars(table: torch.Tensor, D: int, O: int):
     """The raw (m0, S0, A, Q, C, r) blocks of an (N, n_scal) table; they ride
     verbatim, so values and tangents both round-trip exactly."""
-    offs, _ = _scalar_offsets(D, O)
-    N = table.shape[0]
-
-    def block(name, *shape):
-        n = math.prod(shape)
-        return table[:, offs[name]:offs[name] + n].reshape(N, *shape)
-
-    return (
-        block("m0", D), block("S0", D, D), block("A", D, D),
-        block("Q", D, D), block("Cobs", O, D), block("r", O),
+    return _table_blocks(
+        table, _scalar_offsets(D, O)[0], ("m0", (D,)), ("S0", (D, D)), ("A", (D, D)),
+        ("Q", (D, D)), ("Cobs", (O, D)), ("r", (O,)),
     )
 
 
@@ -316,6 +325,118 @@ def _plane_nll_pre(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
     per-lane scalar table expanded over time."""
     table = _pack_scalars(ys[:, 0], m0, S0, A, Q, C, r)
     return _table_planes(table, ys.transpose(1, 2), m0.shape[-1])
+
+
+# --------------------------------------------------------------------------- #
+# time-varying-R elements from a per-lane scalar table: the operand of
+# kernel C (ops/fused_nll.py), the pupil optimizer's loss
+# --------------------------------------------------------------------------- #
+def _scalar_offsets_tv(D: int, O: int) -> tuple[dict, int]:
+    """Layout of the time-varying-R scalar vector; the same layout as
+    ``eks_tpu/ops/pallas_nll.py`` (84 floats at D = 3, O = 8). R_t changes
+    every step, so the element matrices are built per step in the
+    information form from these time-invariant pieces."""
+    dd = D * D
+    offs, n = {}, 0
+    for name, size in (
+        ("Qi", dd),       # Q⁻¹
+        ("QiA", dd),      # Q⁻¹ A
+        ("S0i", dd),      # S0⁻¹ (the t=0 element)
+        ("S0i_m0", D),    # S0⁻¹ m0
+        ("A", dd),        # element eta and J, epilogue transition
+        ("Q", dd),        # epilogue: process noise (already s-scaled)
+        ("Cobs", O * D),  # emission (element build and epilogue)
+        ("m0", D),        # epilogue: prior mean
+        ("S0", dd),       # epilogue: prior covariance
+    ):
+        offs[name] = n
+        n += size
+    return offs, n
+
+
+def _prior_information(m0, S0):
+    """(S0⁻¹, S0⁻¹ m0): the part of the table that depends on the prior only,
+    so an optimizer over A and Q computes it once."""
+    S0i = small_inv(S0)
+    return S0i, (S0i @ m0[..., None])[..., 0]
+
+
+def _pack_scalars_tv(m0, S0, A, Q, C, prior=None) -> torch.Tensor:
+    """(N, n_scal) time-varying-R tables, one row per lane: m0 (N, D),
+    S0/A/Q (N, D, D), C (N, O, D). ``prior`` is ``_prior_information(m0,
+    S0)`` where the caller already holds it. Needs Q and S0 invertible."""
+    S0i, S0i_m0 = _prior_information(m0, S0) if prior is None else prior
+    Qi = small_inv(Q)
+    N = m0.shape[0]
+    return torch.cat([
+        x.reshape(N, -1) for x in (Qi, Qi @ A, S0i, S0i_m0, A, Q, C, m0, S0)
+    ], dim=-1)
+
+
+def _unpack_scalars_tv(table: torch.Tensor, D: int, O: int):
+    """The raw (m0, S0, A, Q, C) blocks of an (N, n_scal) time-varying-R
+    table; they ride verbatim, so tangents round-trip exactly."""
+    return _table_blocks(
+        table, _scalar_offsets_tv(D, O)[0], ("m0", (D,)), ("S0", (D, D)), ("A", (D, D)),
+        ("Q", (D, D)), ("Cobs", (O, D)),
+    )
+
+
+def _table_planes_tv(table: torch.Tensor, y: torch.Tensor, r: torch.Tensor, D: int) -> torch.Tensor:
+    """(N, P, T) filtering-element planes from the time-varying-R table, the
+    observation planes y and the noise planes r (both (N, O, T)), row for row
+    what kernel C builds. With diagonal R the O x O innovation solve of the
+    covariance form collapses to one D x D inverse per step:
+        W_t = Cᵀ R_t⁻¹ C,  v_t = Cᵀ R_t⁻¹ y_t,  M_t = (Q⁻¹ + W_t)⁻¹,
+        A_el = M_t Q⁻¹ A,  b = M_t v_t,  C_el = M_t,
+        eta = Aᵀ (v_t - W_t M_t v_t),  J = Aᵀ (W_t - W_t M_t W_t) A.
+    t = 0 assimilates y_0 against the prior: the same update with S0⁻¹ in
+    the place of Q⁻¹ and S0⁻¹ m0 added to v, and A_el, eta and J zero; one
+    inverse serves both cases by selecting the prior information there."""
+    O = y.shape[1]
+    offs, _ = _scalar_offsets_tv(D, O)
+    t0 = torch.arange(y.shape[-1], device=y.device) == 0
+    zero = torch.zeros((), dtype=table.dtype, device=table.device)
+
+    def W(name, k):
+        return table[:, offs[name] + k, None]
+
+    def unless_t0(x):
+        return torch.where(t0, zero, x)
+
+    rng = range(D)
+    Cm = [[W("Cobs", o * D + a) for a in rng] for o in range(O)]
+    ri = [1.0 / r[:, o] for o in range(O)]
+    Wt = [[sum(Cm[o][a] * Cm[o][b] * ri[o] for o in range(O)) for b in rng] for a in rng]
+    v = [sum(Cm[o][a] * ri[o] * y[:, o] for o in range(O)) for a in rng]
+    M = _pinv([
+        [Wt[a][b] + torch.where(t0, W("S0i", a * D + b), W("Qi", a * D + b)) for b in rng]
+        for a in rng
+    ])
+    v_eff = [v[a] + torch.where(t0, W("S0i_m0", a), zero) for a in rng]
+    b_el = _pmatvec(M, v_eff)
+    w = _pvsub(v, _pmatvec(Wt, b_el))
+    WMW = _pmatmul(Wt, _pmatmul(M, Wt))
+    A = [[W("A", i * D + j) for j in rng] for i in rng]
+    QiA = [[W("QiA", i * D + j) for j in rng] for i in rng]
+    A_el = [[unless_t0(x) for x in row] for row in _pmatmul(M, QiA)]
+    eta = [unless_t0(x) for x in _pmatvec(_pt(A), w)]
+    J = [
+        [
+            unless_t0(sum(A[k][i] * (Wt[k][l] - WMW[k][l]) * A[l][j] for k in rng for l in rng))
+            for j in rng
+        ]
+        for i in rng
+    ]
+    return _flat(A_el, b_el, M, eta, J)
+
+
+def _plane_nll_pre_tv(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
+    """Time-varying-diagonal-R filtering elements as (N, P, T) planes, in
+    the information form: the per-lane table expanded over time. ys and r
+    are (N, T, O); C is the (N, O, D) emission."""
+    table = _pack_scalars_tv(m0, S0, A, Q, C)
+    return _table_planes_tv(table, ys.transpose(1, 2), r.transpose(1, 2), m0.shape[-1])
 
 
 def _make_filter_elements(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
@@ -396,7 +517,7 @@ def kalman_filter_parallel(ys, m0, S0, A, Q, C, r_diag, compute_ll: bool = True)
 
 
 # --------------------------------------------------------------------------- #
-# plane-native constant-R filter NLL (the s-optimizer's loss)
+# plane-native filter NLL (the optimizers' losses)
 # --------------------------------------------------------------------------- #
 def _plane_split_moments(out: torch.Tensor, D: int):
     """Filtered-moment planes out of a scanned (N, P, T) table."""
@@ -442,7 +563,8 @@ def _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q):
 
 def _plane_innovation_ll(pred_m, pred_P, ys, C, r) -> torch.Tensor:
     """Sum over time of the Gaussian log-density of the innovations, from
-    predictive-moment planes; ys (N, T, O), C (N, O, D), r (N, O)."""
+    predictive-moment planes; ys (N, T, O), C (N, O, D), r (N, O) constant
+    or (N, T, O) time-varying."""
     O = ys.shape[-1]
     D = len(pred_m)
 
@@ -456,7 +578,7 @@ def _plane_innovation_ll(pred_m, pred_P, ys, C, r) -> torch.Tensor:
                 for k in range(D)
                 for l in range(D)
             )
-            + (col(r[:, i]) if i == j else 0.0)
+            + ((col(r[:, i]) if r.ndim == 2 else r[..., i]) if i == j else 0.0)
             for j in range(O)
         ]
         for i in range(O)
@@ -485,6 +607,31 @@ def _plane_nll_post(m_pl, P_pl, ys, m0, S0, A, Q, C, r) -> torch.Tensor:
     """Predictive moments + Gaussian log-density from filtered planes."""
     pred_m, pred_P = _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q)
     return _plane_innovation_ll(pred_m, pred_P, ys, C, r)
+
+
+def _table_nll_tv(table: torch.Tensor, yr: torch.Tensor, prefix) -> torch.Tensor:
+    """The staged time-varying-R plane NLL from a table and the (N, 2O, T)
+    planes yr (y rows, then r rows): element planes, the prefix scan
+    ``prefix`` over them, predictive moments and log-densities. (N,)."""
+    O = yr.shape[1] // 2
+    D = _table_dims(table.shape[1], O, _scalar_offsets_tv)
+    y, r = yr[:, :O], yr[:, O:]
+    m_pl, P_pl = _plane_split_moments(prefix(_table_planes_tv(table, y, r, D)), D)
+    m0, S0, A, Q, C = _unpack_scalars_tv(table, D, O)
+    return _plane_nll_post(m_pl, P_pl, y.transpose(1, 2), m0, S0, A, Q, C, r.transpose(1, 2))
+
+
+def filter_nll_parallel_planes_tv(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
+    """Marginal log-likelihoods (N,) of N linear filters with time-varying
+    diagonal R, staged in scalar planes: ys and r (N, T, O), parameters with
+    a leading N. The elements are built in the information form
+    (``_table_planes_tv``) and scanned by ``fused_filter.filter_prefix``
+    (kernel B on the card, the plain scan on the CPU)."""
+    from eks_tpu_torch.ops.fused_filter import filter_prefix
+
+    yr = torch.cat([ys.transpose(1, 2), r.transpose(1, 2)], dim=1)
+    table = _pack_scalars_tv(m0, S0, A, Q, C)
+    return _table_nll_tv(table, yr, lambda planes: filter_prefix(planes.contiguous()))
 
 
 # --------------------------------------------------------------------------- #

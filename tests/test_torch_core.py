@@ -24,7 +24,7 @@ def _spd(rng, *batch, d):
 # --------------------------------------------------------------------------- #
 # linalg and the sequential oracle
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("d", [1, 2, 3, 6])
+@pytest.mark.parametrize("d", [1, 2, 3, 6, 8])
 def test_linalg_matches_jax(d):
     """psd_solve (vector and matrix right-hand sides), small_inv and
     mvn_logpdf in float32; the JAX package solves through LAPACK on the CPU

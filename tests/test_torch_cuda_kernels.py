@@ -1,7 +1,7 @@
-"""Kernels A and B of the PyTorch port on the card, against their plain
-versions on the same inputs, at the edge shapes the headline run of
-chip_smoke.py does not reach: a single step, fewer steps than threads, time
-axes one either side of a multiple of the block.
+"""Kernels A, B and C of the PyTorch port on the card, against their plain
+versions on the same inputs, at the edge shapes the full-width runs of
+chip_smoke.py do not reach: a single step, a single lane, fewer steps than
+threads, time axes one either side of a multiple of the block.
 
 The kernels have no CPU mode, so every test here needs a CUDA card and
 ``nvcc``; on a machine without them each one skips. On the card (where JAX is
@@ -77,9 +77,55 @@ def test_kernel_a_matches_plain(dev, N, T):
     assert torch.equal(fused_nll.fused_nll(table, y), ll)
 
 
-@pytest.mark.parametrize("T", [1, 7, 255, 257, 300])
-def test_kernel_b_matches_plain(dev, T):
-    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(3, T, 2, 2, seed=T))
+def _nll_tv_operands(dev, N, T):
+    """Kernel C's operands at the pupil family's D = 3, O = 8: the table and
+    its tangent along log s (s scaling Q), and the y-then-r planes."""
+    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, 8, 3))
+    s_log = torch.linspace(-1.0, 1.0, N, device=dev)
+
+    def pack(sl):
+        return pkalman._pack_scalars_tv(m0, S0, 0.95 * A, torch.exp(sl)[:, None, None] * Q, C)
+
+    table, dtable = torch.func.jvp(pack, (s_log,), (torch.ones_like(s_log),))
+    yr = torch.cat([ys.transpose(1, 2), r_tv.transpose(1, 2)], dim=1)
+    return table.contiguous(), dtable.contiguous(), yr.contiguous()
+
+
+@pytest.mark.parametrize("N,T", [(1, 1), (1, 5), (3, 255), (2, 257), (1, 300), (16, 1000)])
+def test_kernel_c_matches_plain(dev, N, T):
+    table, dtable, yr = _nll_tv_operands(dev, N, T)
+    before = (fused_nll.TV_LAUNCHES, fused_nll.TV_PAIRED_LAUNCHES)
+    ll = fused_nll.fused_nll_tv(table, yr)
+    ll_p, dll_p = fused_nll.fused_nll_tv_paired(table, dtable, yr)
+    torch.cuda.synchronize()
+    assert (fused_nll.TV_LAUNCHES, fused_nll.TV_PAIRED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = fused_nll._fused_nll_tv_plain(table, yr)
+    want_p, want_dp = fused_nll._fused_nll_tv_paired_plain(table, dtable, yr)
+    _close(ll, want)
+    _close(ll_p, want_p)
+    _close(dll_p, want_dp)
+    assert torch.equal(fused_nll.fused_nll_tv(table, yr), ll)
+
+
+def test_kernel_c_clipped_noise_stays_in_step_with_plain(dev):
+    """Noise variances clipped at 1e-12, as the pupil path clips an ensemble
+    variance of zero, put 1/r = 1e12 into the information-form elements. The
+    kernel and its plain version are finite on the same lanes and agree
+    there; the optimizer maps a non-finite value to 1e12."""
+    table, dtable, yr = _nll_tv_operands(dev, 4, 300)
+    yr[2:, 8::3, 50::60] = 1e-12
+    ll, dll = fused_nll.fused_nll_tv_paired(table, dtable, yr)
+    want, want_d = fused_nll._fused_nll_tv_paired_plain(table, dtable, yr)
+    finite = torch.isfinite(want) & torch.isfinite(want_d)
+    assert torch.equal(torch.isfinite(ll) & torch.isfinite(dll), finite) and bool(finite[:2].all())
+    _close(ll[finite], want[finite])
+    _close(dll[finite], want_d[finite])
+
+
+@pytest.mark.parametrize("T,O,D", [(1, 2, 2), (7, 2, 2), (255, 2, 2), (257, 2, 2), (300, 2, 2),
+                                   (1, 8, 3), (7, 8, 3), (257, 8, 3), (300, 8, 3)])
+def test_kernel_b_matches_plain(dev, T, O, D):
+    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(3, T, O, D, seed=T))
     planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
     before = fused_filter.LAUNCHES
     out = fused_filter.filter_prefix(planes)
@@ -96,6 +142,16 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_nll.fused_nll(table, y.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError):
         fused_nll.fused_nll_paired(table, dtable[:1], y)
+    table, dtable, yr = _nll_tv_operands(dev, 2, 16)
+    with pytest.raises(TypeError):
+        fused_nll.fused_nll_tv(table.double(), yr.double())
+    with pytest.raises(ValueError):
+        fused_nll.fused_nll_tv(table, yr[:, :15].contiguous())  # not O y planes and O r planes
+    with pytest.raises(ValueError):
+        fused_nll.fused_nll_tv_paired(table, dtable[:1], yr)
+    with pytest.raises(NotImplementedError):  # built for (D, O) = (3, 8) only
+        fused_nll.fused_nll_tv(torch.zeros(2, pkalman._scalar_offsets_tv(2, 2)[1], device=dev),
+                               torch.ones(2, 4, 16, device=dev))
     planes = torch.zeros(2, 16, 8, device=dev)
     with pytest.raises(TypeError):
         fused_filter.filter_prefix(planes.double())

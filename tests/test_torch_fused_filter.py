@@ -55,8 +55,23 @@ def test_plain_scan_matches_pallas_prefix_kernel(T):
     _close(out[0, dd + 2:2 * dd + 2].T.reshape(T, 2, 2).numpy(), Ps_j)
 
 
-def test_plain_scan_matches_float64_sequential_filter():
-    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(1), 3, 173)
+@pytest.mark.parametrize("T", [97])
+def test_plain_scan_matches_pallas_prefix_kernel_at_d3(T):
+    """The pupil family's shape (D = 3, O = 8: 33 planes) through the Pallas
+    prefix kernel and through the port's plain scan."""
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(T), 1, T, O=8, D=3)
+    elems = jax_pk._make_filter_elements(*(jnp.asarray(x[0]) for x in (ys, m0, S0, 0.95 * A, Q, C, r)))
+    ms_j, Ps_j = filter_prefix_pallas(elems, interpret=True)
+    planes = pkalman._aos_planes(*(torch.tensor(np.asarray(leaf))[None] for leaf in elems))
+    assert planes.shape == (1, 33, T)
+    out = fused_filter.filter_prefix(planes)
+    _close(out[0, 9:12].T.numpy(), ms_j)
+    _close(out[0, 12:21].T.reshape(T, 3, 3).numpy(), Ps_j)
+
+
+@pytest.mark.parametrize("O,D", [(2, 2), (8, 3)])
+def test_plain_scan_matches_float64_sequential_filter(O, D):
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(1), 3, 173, O=O, D=D)
     params = params_from_numpy(m0, S0, A, Q, C, r)
     y_t = torch.as_tensor(ys)
     ms, Ps = pkalman._run_filter_prefix(pkalman._make_filter_elements(y_t, *params))
@@ -65,11 +80,12 @@ def test_plain_scan_matches_float64_sequential_filter():
     _close(Ps.numpy(), seq.filtered_covs.numpy())
 
 
-@pytest.mark.parametrize("time_varying", [True, False])
-def test_filter_elements_match_jax(time_varying):
+@pytest.mark.parametrize("time_varying,O,D", [(True, 2, 2), (False, 2, 2), (True, 8, 3)])
+def test_filter_elements_match_jax(time_varying, O, D):
     """The element builder, both branches (constant R: the optimizer's
-    table; time-varying R: the final pass's per-step solve)."""
-    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(2), 3, 64)
+    table; time-varying R: the final pass's per-step solve, an 8 x 8 one in
+    the pupil family)."""
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(2), 3, 64, O=O, D=D)
     if not time_varying:
         r = r[:, 0]
     e = vmap(jax_pk._make_filter_elements)(*(jnp.asarray(x) for x in (ys, m0, S0, A, Q, C, r)))
@@ -140,6 +156,9 @@ def test_kernel_b_wrapper_refuses_cuda_without_a_card():
         fused_filter.filter_prefix(planes.to("meta"))  # nor is any other device
     with pytest.raises(ValueError):
         fused_filter.filter_prefix(torch.zeros(2, 7, 16))  # not 3D²+2D planes
-    for P in (5, 33, 56):  # D = 1, 3, 4: the kernel is built for D = 2 only
+    for P in (5, 56):  # D = 1, 4: the kernel is built for D = 2 and 3 only
         with pytest.raises(NotImplementedError):
             fused_filter.filter_prefix(_FakeCuda(torch.zeros(2, P, 16)))
+    with pytest.raises((RuntimeError, AssertionError)):  # D = 3 goes on to the card
+        fused_filter.filter_prefix(_FakeCuda(torch.zeros(2, 33, 16)))
+    assert fused_filter.LAUNCHES == before and fused_filter.LAUNCHES_BY_D[3] == 0
