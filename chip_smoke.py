@@ -11,7 +11,8 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      plain PyTorch version at the headline shapes, and times both;
   3. holds kernel B (the filter prefix scan) against its plain version on
      the final pass's time-varying-R elements, at D = 2 (singlecam: 20
-     lanes) and at D = 3 (pupil: 1 and 8 lanes), and times both;
+     lanes) and at D = 3 (pupil: 1 and 8 lanes), and times both; the
+     smoother instance too, on the same pupil final pass's elements;
   4. runs ``fit_eks_singlecam`` on the bundled ``data/singlecam`` session
      with s = 2.0 and compares it with the committed golden at atol 1e-4;
   5. runs ``ensemble_kalman_smoother_singlecam`` with auto-tuned s on the
@@ -30,7 +31,27 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      checks its final pass against the float64 sequential smoother, and
      profiles a repeat capped at 200 Adam iterations;
   9. runs ``ensemble_kalman_smoother_ibl_pupil_sessions`` on eight such
-     sessions and holds their parameters against solo runs.
+     sessions and holds their parameters against solo runs;
+ 11. holds the other instances of the scan kernel against their plain
+     versions: the smoother algebra (the backward RTS pass) at D = 2 (20
+     lanes) and D = 3 (10 lanes: the two- and the six-camera final pass's
+     elements), the float filter scan at D = 3 on those two final passes'
+     elements, and the paired lane-batched filter scan at D = 3 (10 lanes,
+     the six-camera optimizer's), at 10,000 steps, timing the smoother
+     kernel against the plain reverse scan on the same operands;
+ 12. holds kernel A at (D, O) = (3, 4), plain and paired, against its plain
+     version on the two-camera optimizer's operands;
+ 13. runs the mirrored family (fixed s; auto s with variance inflation) and
+     the paw family through the bundled files against the committed goldens;
+ 14. runs ``ensemble_kalman_smoother_multicam`` with auto-tuned s on a
+     two-camera session (10,000 frames x 10 keypoints x 2 cameras x 5 seeds,
+     seed 0), counting launches, checks its final pass against the float64
+     sequential smoother, and profiles a repeat of it;
+ 15. runs the same recipe at six cameras (12 observations), where the
+     optimizer's loss is the staged plane NLL over the paired lane-batched
+     scan, checks its final pass against the float64 sequential smoother,
+     holds its s against a CPU run of the plain path on the same operands,
+     both capped at a few Adam iterations, and profiles a capped repeat.
 
 Each phase prints one JSON line; any failure raises, so the exit code is not
 0. The last lines are the main paths' launch counts, the card's name and
@@ -44,6 +65,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -53,6 +75,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # headline workload (the JAX package's bench.py: T, K, SEEDS and make_session)
 T_HEAD, K_HEAD, SEEDS_HEAD = 10_000, 20, 5
+
+# multi-camera workload (the JAX package's bench.py::bench_multicam): 10,000
+# frames x 10 keypoints x 5 seeds, two cameras; and the same at six cameras
+# (12 observations: beyond the fused NLL). Adam iterations of the capped
+# six-camera runs that are held against the CPU's plain path
+T_MC, K_MC, SEEDS_MC, CAMS_MC, CAMS_MC_WIDE, CAP_MC_WIDE = 10_000, 10, 5, 2, 6, 10
 
 # pupil workload (the JAX package's bench.py: bench_pupil and
 # bench_pupil_sessions): 10,000 frames x 5 seeds, 8 sessions; how many of the
@@ -87,6 +115,22 @@ RTOL_NLL_TV = 1e-5
 # kernel B at D = 3 on the pupil final pass's elements: 3.0e-6 measured, with
 # the kernel 1.8e-6 and the plain version 2.2e-6 from the float64 scan
 RTOL_SCAN_D3 = 1e-5
+# the smoother and the paired instances of the scan, per entry against
+# 1 + |plain|: same two association orders, same reason
+RTOL_SCAN_NEW = 1e-5
+# d ll / d log s on the multi-camera optimizers' operands, per lane against
+# 1 + |the float64 plain value|, by the number of cameras: there |ll| is 1e6
+# (two cameras) to 2e7 (six) and the derivative about -1e3, a sum of 10,000
+# terms that cancel, so float32 leaves it 1e-2 to 4e-1 absolute from the
+# float64 value whichever way it is computed. On an H100 the kernels' gaps
+# from float64 were 7.5e-5 at two cameras and 3.7e-4 at six, the plain
+# float32 version's 1.0e-4 and 3.7e-4; the limits sit four and under three
+# times above the kernels'. Besides, a kernel may be at most DLL_GAP_FACTOR
+# times as far from float64 as the plain float32 version is on the same
+# operands, and as far from the plain float32 version as the limit. The value
+# itself is held to RTOL_NLL / RTOL_NLL_TV against the plain float32 version
+RTOL_DLL_MC = {2: 3e-4, 6: 1e-3}
+DLL_GAP_FACTOR = 2.0
 
 
 def emit(obj) -> None:
@@ -131,15 +175,22 @@ def kf_step_ops(D, O, dual):
     return _ops(mul, add, div, sqrt=O, log=O, dual=dual)
 
 
-def combine_ops(D):
+def combine_ops(D, dual=False):
     """One filtering-element combine: eight D x D products, four matvecs,
     the closed-form D x D inverse (D = 2 or 3) and the sums."""
     inv_mul, inv_add = {2: (6, 1), 3: (30, 11)}[D]
     return _ops(
         mul=8 * D ** 3 + 4 * D * D + inv_mul,
         add=8 * D * D * (D - 1) + 4 * D * (D - 1) + D + inv_add + 4 * D + 2 * D * D,
-        div=1,
+        div=1, dual=dual,
     )
+
+
+def smoother_combine_ops(D, dual=False):
+    """One smoothing-element combine: E_e E_l, E_e g_l + g_e,
+    (E_e L_l) E_eᵀ + L_e."""
+    return _ops(mul=3 * D ** 3 + D * D, add=3 * D * D * (D - 1) + D * (D - 1) + D + D * D,
+                div=0, dual=dual)
 
 
 def nll_ops(N, T, D, O, dual):
@@ -170,11 +221,31 @@ def time_cuda(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_profile(torch, prof, wall_s, iters):
+    """What ran on the card under a device-only profile: busy seconds, the
+    idle share against the unprofiled wall ``wall_s`` of the same work, the
+    operations in all and per Adam iteration, and the six longest."""
+    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    n_ops = sum(e.count for e in on_device)
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "device_busy_s": busy_s,
+        "device_idle_share": 1.0 - busy_s / wall_s if busy_s else None,
+        "device_ops": n_ops, "device_ops_per_adam_iter": n_ops / iters if iters else None,
+        "top": [{"name": e.key[:80], "count": e.count, "ms": e.self_device_time_total / 1e3} for e in top],
+    }
+
+
 def ptxas_summary(report: str) -> list:
-    """The kernels' register and spill lines from nvcc's -Xptxas -v output."""
+    """The kernels' register and spill lines from nvcc's -Xptxas -v output,
+    each instance's under its (mangled) template name."""
     keep = []
     for line in report.splitlines():
-        if "Used" in line and "registers" in line or "spill" in line:
+        entry = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernelI\w+?)Ev", line)
+        if entry:
+            keep.append(entry.group(1))
+        elif "Used" in line and "registers" in line or "spill" in line:
             keep.append(line.strip().replace("ptxas info    : ", ""))
     return keep
 
@@ -202,6 +273,18 @@ def make_session(np, rng):
     arr = np.zeros((SEEDS, 1, T, K, 3), dtype=np.float32)
     arr[..., :2] = truth + rng.normal(size=(SEEDS, 1, T, K, 2)).astype(np.float32) * 0.5
     arr[..., 2] = rng.uniform(0.7, 1.0, size=(SEEDS, 1, T, K)).astype(np.float32)
+    return arr
+
+
+def make_multicam_session(np, rng, cams):
+    """Synthetic multi-camera ensemble session (the recipe of the JAX
+    package's bench.py::bench_multicam): a random walk per camera and
+    coordinate, plus per-seed jitter."""
+    T, K, M = T_MC, K_MC, SEEDS_MC
+    base = rng.normal(size=(1, cams, T, K, 2)).cumsum(axis=2) * 0.3 + 50
+    arr = np.zeros((M, cams, T, K, 3), dtype=np.float32)
+    arr[..., :2] = base + rng.normal(size=(M, cams, T, K, 2)) * 0.3
+    arr[..., 2] = rng.uniform(0.8, 1.0, size=(M, cams, T, K))
     return arr
 
 
@@ -256,7 +339,8 @@ def main() -> int:
 
         import eks_tpu_torch
         from eks_tpu_torch.marker_array import MarkerArray
-        from eks_tpu_torch.models import ibl_pupil
+        from eks_tpu_torch.core import run_kalman_smoother
+        from eks_tpu_torch.models import ibl_pupil, multicam
         from eks_tpu_torch.ops import cuda_build, fused_filter, fused_nll, pkalman
         from eks_tpu_torch.ops.kalman import kalman_smoother
     except ImportError as exc:
@@ -269,7 +353,8 @@ def main() -> int:
         fused_nll.LAUNCHES = fused_nll.PAIRED_LAUNCHES = 0
         fused_nll.TV_LAUNCHES = fused_nll.TV_PAIRED_LAUNCHES = 0
         fused_filter.LAUNCHES = 0
-        fused_filter.LAUNCHES_BY_D.update({2: 0, 3: 0})
+        for key in fused_filter.LAUNCHES_BY_INSTANCE:
+            fused_filter.LAUNCHES_BY_INSTANCE[key] = 0
 
     def read_counts():
         return {
@@ -277,9 +362,63 @@ def main() -> int:
             "fused_nll_paired": fused_nll.PAIRED_LAUNCHES,
             "fused_nll_tv": fused_nll.TV_LAUNCHES,
             "fused_nll_tv_paired": fused_nll.TV_PAIRED_LAUNCHES,
-            "prefix_scan_filter": fused_filter.LAUNCHES_BY_D[2],
-            "prefix_scan_filter_d3": fused_filter.LAUNCHES_BY_D[3],
+            "prefix_scan_filter": fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 2)],
+            "prefix_scan_filter_d3": fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 3)],
+            "prefix_scan_smoother": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", False, 2)],
+            "prefix_scan_smoother_d3": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", False, 3)],
+            "prefix_scan_filter_paired_d3": fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 3)],
         }
+
+    def scan_check(kind, planes, tangents=None):
+        """One instance against its plain version (and both against the
+        float64 plain version) on these operands, with times and bound."""
+        paired = tangents is not None
+        n_l, n_p, n_t = planes.shape
+        if kind == "smoother":
+            d = pkalman.smoother_state_dim(n_p)
+            plain, wrapper, wrapper_p = (fused_filter.smoother_suffix_plain, fused_filter.smoother_suffix,
+                                         fused_filter.smoother_suffix_paired)
+            ops = n_l * (n_t - 1) * smoother_combine_ops(d, dual=paired)
+        else:
+            d = pkalman.filter_state_dim(n_p)
+            plain, wrapper, wrapper_p = (fused_filter.filter_prefix_plain, fused_filter.filter_prefix,
+                                         fused_filter.filter_prefix_paired)
+            ops = n_l * (n_t - 1) * combine_ops(d, dual=paired)
+        if paired:
+            def run_k():
+                return torch.cat(wrapper_p(planes, tangents), dim=1)
+
+            def run_p(x=planes, dx=tangents):
+                return torch.cat(torch.func.jvp(plain, (x,), (dx,)), dim=1)
+
+            out_64 = run_p(planes.double(), tangents.double())
+        else:
+            def run_k():
+                return wrapper(planes)
+
+            def run_p():
+                return plain(planes)
+
+            out_64 = plain(planes.double())
+        out_k, out_p = run_k(), run_p()
+        torch.cuda.synchronize()
+        e_abs, e_rel = rel_err(out_k, out_p)
+        bound = bound_ms(2 * out_k.numel() * 4, ops)
+        return {
+            "kind": kind, "paired": paired, "D": d, "lanes": n_l, "planes": out_k.shape[1], "T": n_t,
+            "max_abs_err": e_abs, "rel_err": e_rel,
+            "rel_err_kernel_vs_f64_plain": rel_err(out_k.double(), out_64)[1],
+            "rel_err_plain_vs_f64_plain": rel_err(out_p.double(), out_64)[1],
+            "ms": time_cuda(torch, run_k, 50), "plain_ms": time_cuda(torch, run_p, 3),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "ok": e_rel <= RTOL_SCAN_NEW and bool(torch.isfinite(out_k).all()),
+        }
+
+    def dll_ok(cams, kernel_vs_64, plain_vs_64, kernel_vs_plain):
+        """The derivative's three relative gaps against the limits stated at
+        RTOL_DLL_MC."""
+        return (kernel_vs_64 <= RTOL_DLL_MC[cams] and kernel_vs_plain <= RTOL_DLL_MC[cams]
+                and kernel_vs_64 <= DLL_GAP_FACTOR * plain_vs_64)
 
     # ---------------------------------------------------------------- 1 ---
     print(card, flush=True)
@@ -379,7 +518,7 @@ def main() -> int:
             np.stack(cols[5]), ibl_pupil.PUPIL_C, cols[8], cols[9], cols[10],
         )
 
-    b3 = {}
+    b3, sm_pupil = {}, {}
     for n in (1, N_SESSIONS):
         y_p, r_p, m0_p, S0_p, C_p, dv, xv, yv = pupil_operands(n)
         s_start = torch.tensor([0.99, 0.98], device=dev).expand(n, 2)
@@ -400,10 +539,16 @@ def main() -> int:
             "bound_ms": bound3[0], "bound_by": bound3[1],
             "ok": r3 <= RTOL_SCAN_D3 and bool(torch.isfinite(out_k).all()),
         }
+        # and the smoother instance on the same final pass's elements
+        fr_p = pkalman.kalman_filter_parallel(y_p, m0_p, S0_p, A_p, Q_p, C_p.expand(n, 8, 3), r_p,
+                                              compute_ll=False)
+        sm_pupil[n] = scan_check(
+            "smoother", pkalman._make_smoother_elements(fr_p.filtered_means, fr_p.filtered_covs, A_p, Q_p))
     emit({"phase": "kernel_B_d3", "P": 33, "T": T_PUPIL, "rtol": RTOL_SCAN_D3,
           "lanes": {str(n): v for n, v in b3.items()},
-          "launches": {"prefix_scan_filter_d3": fused_filter.LAUNCHES_BY_D[3]}})
-    if not all(v["ok"] for v in b3.values()):
+          "smoother_lanes": {str(n): v for n, v in sm_pupil.items()},
+          "launches": {"prefix_scan_filter_d3": fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 3)]}})
+    if not all(v["ok"] for v in list(b3.values()) + list(sm_pupil.values())):
         raise AssertionError("kernel B at D = 3 disagrees with its plain version")
 
     # ---------------------------------------------------------------- 4 ---
@@ -471,8 +616,8 @@ def main() -> int:
     })
     if not finite or df.shape != (T_HEAD, K_HEAD * 9):
         raise AssertionError("headline output is not finite or has the wrong shape")
-    if launches["fused_nll_paired"] <= 0 or launches["prefix_scan_filter"] <= 0:
-        raise AssertionError(f"the main path did not run through both kernels: {launches}")
+    if min(launches["fused_nll_paired"], launches["prefix_scan_filter"], launches["prefix_scan_smoother"]) <= 0:
+        raise AssertionError(f"the main path did not run through its three kernels: {launches}")
     if seq_gap > 1e-2:
         raise AssertionError(f"final pass is {seq_gap} from the float64 sequential smoother")
 
@@ -488,16 +633,9 @@ def main() -> int:
         eks_tpu_torch.ensemble_kalman_smoother_singlecam(ma, kps, device="cuda")
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_device)
-    n_device_ops = sum(e.count for e in on_device)
-    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
     emit({
         "phase": "headline_profile", "profiled_wall_s": prof_wall, "unprofiled_wall_s": wall,
-        "device_busy_s": busy_us / 1e6,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall if busy_us else None,
-        "device_ops": n_device_ops, "device_ops_per_adam_iter": n_device_ops / iters if iters else None,
-        "top": [{"name": e.key[:80], "count": e.count, "ms": e.self_device_time_total / 1e3} for e in top],
+        **device_profile(torch, prof, wall, iters),
     })
 
     # ---------------------------------------------------------------- 6 ---
@@ -657,8 +795,9 @@ def main() -> int:
     })
     if not finite or df.shape != (T_PUPIL, 4 * 9):
         raise AssertionError("pupil output is not finite or has the wrong shape")
-    if launches_pupil["fused_nll_tv_paired"] <= 0 or launches_pupil["prefix_scan_filter_d3"] <= 0:
-        raise AssertionError(f"the pupil path did not run through both kernels: {launches_pupil}")
+    if min(launches_pupil["fused_nll_tv_paired"], launches_pupil["prefix_scan_filter_d3"],
+           launches_pupil["prefix_scan_smoother_d3"]) <= 0:
+        raise AssertionError(f"the pupil path did not run through its three kernels: {launches_pupil}")
     if seq_gap > 1e-2:
         raise AssertionError(f"pupil final pass is {seq_gap} from the float64 sequential smoother")
 
@@ -684,17 +823,10 @@ def main() -> int:
         t0 = time.perf_counter()
         capped()
         prof_wall = time.perf_counter() - t0
-    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_device)
-    n_device_ops = sum(e.count for e in on_device)
-    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
     emit({
         "phase": "pupil_profile", "adam_iters": cap, "profiled_wall_s": prof_wall,
         "unprofiled_wall_s": capped_wall, "unprofiled_optimizer_s": tm_c.get("optimizer"),
-        "device_busy_s": busy_us / 1e6,
-        "device_idle_share": 1.0 - busy_us / 1e6 / capped_wall if busy_us else None,
-        "device_ops": n_device_ops, "device_ops_per_adam_iter": n_device_ops / cap,
-        "top": [{"name": e.key[:80], "count": e.count, "ms": e.self_device_time_total / 1e3} for e in top],
+        **device_profile(torch, prof, capped_wall, cap),
     })
 
     # ---------------------------------------------------------------- 9 ---
@@ -729,16 +861,307 @@ def main() -> int:
     })
     if not finite_s:
         raise AssertionError("a session's output is not finite or has the wrong shape")
-    if launches_sessions["fused_nll_tv_paired"] <= 0 or launches_sessions["prefix_scan_filter_d3"] <= 0:
-        raise AssertionError(f"the sessions path did not run through both kernels: {launches_sessions}")
+    if min(launches_sessions["fused_nll_tv_paired"], launches_sessions["prefix_scan_filter_d3"],
+           launches_sessions["prefix_scan_smoother_d3"]) <= 0:
+        raise AssertionError(f"the sessions path did not run through its three kernels: {launches_sessions}")
     if max(s_gaps.values()) > 5e-4:
         raise AssertionError(f"sessions parameters differ from the solo runs: {s_gaps}")
+
+    # --------------------------------------------------------------- 11 ---
+    # the other instances of the scan kernel. Operands: the headline lanes of
+    # phase 2 (D = 2), and the multi-camera sessions' own prep (D = 3)
+    mc_arr = {c: make_multicam_session(np, np.random.default_rng(0), c) for c in (CAMS_MC, CAMS_MC_WIDE)}
+    mc_names = [f"kp{i}" for i in range(K_MC)]
+
+    def mc_prep(c):
+        """(stats, ys, evars, m0s, S0s, As, Qs, Cs, means) of the c-camera
+        session, on the card."""
+        t = torch.as_tensor(mc_arr[c], device=dev)
+        return multicam._prep_multicam_linear(
+            t[..., 0], t[..., 1], t[..., 2], SEEDS_MC, "median", "confidence_weighted_var", 3, 50.0)
+
+    def mc_optimizer_operands(c):
+        """The c-camera optimizer's first iteration: scalar table, its
+        tangent in log s, the observation planes, and the starting log s."""
+        from eks_tpu_torch.core import _device_constant_r, _device_s_guesses
+
+        _, ys_c, ev_c, m0_c, S0_c, A_c, Q_c, C_c, _ = mc_prep(c)
+        g = _device_s_guesses(ev_c.transpose(0, 1))
+        sl0 = torch.log(torch.clamp(torch.where(torch.isfinite(g) & (g > 0), g, torch.full_like(g, 2.0)), 1e-6, 1e3))
+        r_c = _device_constant_r(ev_c, 1e-4)
+
+        def pack_c(sl):
+            return pkalman._pack_scalars(ys_c[:, 0], m0_c, S0_c, A_c, torch.exp(sl)[:, None, None] * Q_c, C_c, r_c)
+
+        tab, dtab = torch.func.jvp(pack_c, (sl0,), (torch.ones_like(sl0),))
+        return tab.contiguous(), dtab.contiguous(), ys_c.transpose(1, 2).contiguous(), sl0, pack_c
+
+    # smoother at D = 2: the headline final pass's shape (20 lanes)
+    fr2 = pkalman.kalman_filter_parallel(ys_t, m0_t, S0_t, A_t, Q_t, C_t, rtv_t, compute_ll=False)
+    sm2 = scan_check("smoother", pkalman._make_smoother_elements(fr2.filtered_means, fr2.filtered_covs, A_t, Q_t))
+    # smoother at D = 3: the two-camera final pass's shape (10 lanes)
+    _, ys_m, ev_m, m0_m, S0_m, A_m, Q_m, C_m, _ = mc_prep(CAMS_MC)
+    tab_m, dtab_m, y_m_pl, sl0_m, pack_m = mc_optimizer_operands(CAMS_MC)
+    sQ_m = torch.exp(sl0_m)[:, None, None] * Q_m
+    fr3 = pkalman.kalman_filter_parallel(ys_m, m0_m, S0_m, A_m, sQ_m, C_m, torch.clamp(ev_m, min=1e-12),
+                                         compute_ll=False)
+    sm3 = scan_check("smoother", pkalman._make_smoother_elements(fr3.filtered_means, fr3.filtered_covs, A_m, sQ_m))
+    # the float filter scan at D = 3 on the multi-camera final passes' own
+    # elements (10 lanes; 4 and 12 observations), and the smoother on the
+    # six-camera ones
+    ff3 = scan_check("filter", pkalman._make_filter_elements(
+        ys_m, m0_m, S0_m, A_m, sQ_m, C_m, torch.clamp(ev_m, min=1e-12)))
+    _, ys_w, ev_w, m0_w, S0_w, A_w, Q_w, C_w, _ = mc_prep(CAMS_MC_WIDE)
+    # paired lane-batched filter scan at D = 3: the six-camera optimizer's
+    # element planes and their tangent in log s (10 lanes)
+    tab_w, dtab_w, y_w_pl, sl0_w, _ = mc_optimizer_operands(CAMS_MC_WIDE)
+    sQ_w = torch.exp(sl0_w)[:, None, None] * Q_w
+    r_w = torch.clamp(ev_w, min=1e-12)
+    ff3_w = scan_check("filter", pkalman._make_filter_elements(ys_w, m0_w, S0_w, A_w, sQ_w, C_w, r_w))
+    fr3_w = pkalman.kalman_filter_parallel(ys_w, m0_w, S0_w, A_w, sQ_w, C_w, r_w, compute_ll=False)
+    sm3_w = scan_check("smoother", pkalman._make_smoother_elements(
+        fr3_w.filtered_means, fr3_w.filtered_covs, A_w, sQ_w))
+    rows_w, drows_w = torch.func.jvp(lambda tab: pkalman._table_planes(tab, y_w_pl, 3), (tab_w,), (dtab_w,))
+    fp3 = scan_check("filter", rows_w.contiguous(), drows_w.contiguous())
+    # and the staged loss around it against the same on the plain scan
+    sll_k, sdll_k = pkalman._staged_nll_paired(tab_w, dtab_w, y_w_pl)
+    sll_p, sdll_p = fused_nll._fused_nll_paired_plain(tab_w, dtab_w, y_w_pl)
+    _, sdll_64 = fused_nll._fused_nll_paired_plain(tab_w.double(), dtab_w.double(), y_w_pl.double())
+    torch.cuda.synchronize()
+    staged = {
+        "ll_rtol": RTOL_NLL_TV, "dll_rtol": RTOL_DLL_MC[CAMS_MC_WIDE], "dll_gap_factor": DLL_GAP_FACTOR,
+        "ll_rel_err": rel_err(sll_k, sll_p)[1], "dll_rel_err": rel_err(sdll_k, sdll_p)[1],
+        "dll_rel_err_kernel_vs_f64_plain": rel_err(sdll_k.double(), sdll_64)[1],
+        "dll_rel_err_plain_vs_f64_plain": rel_err(sdll_p.double(), sdll_64)[1],
+        "ms": time_cuda(torch, lambda: pkalman._staged_nll_paired(tab_w, dtab_w, y_w_pl), 5),
+    }
+    staged["ok"] = (staged["ll_rel_err"] <= RTOL_NLL_TV
+                    and dll_ok(CAMS_MC_WIDE, staged["dll_rel_err_kernel_vs_f64_plain"],
+                               staged["dll_rel_err_plain_vs_f64_plain"], staged["dll_rel_err"])
+                    and bool(torch.isfinite(sdll_k).all()))
+    scans = {"smoother_d2": sm2, "smoother_d3": sm3, "filter_d3_two_cameras": ff3,
+             "filter_d3_six_cameras": ff3_w, "smoother_d3_six_cameras": sm3_w, "filter_paired_d3": fp3}
+    emit({"phase": "scan_instances", "rtol": RTOL_SCAN_NEW, **scans, "staged_nll_paired_o12": staged,
+          "smoother_kernel_vs_plain_reverse_scan": {
+              "d2_kernel_ms": sm2["ms"], "d2_plain_ms": sm2["plain_ms"],
+              "d3_kernel_ms": sm3["ms"], "d3_plain_ms": sm3["plain_ms"]}})
+    if not (all(v["ok"] for v in scans.values()) and staged["ok"]):
+        raise AssertionError("a scan instance disagrees with its plain version")
+
+    # --------------------------------------------------------------- 12 ---
+    # kernel A at (D, O) = (3, 4): the two-camera optimizer's first iteration
+    all_k = fused_nll.fused_nll(tab_m, y_m_pl)
+    all_p = fused_nll._fused_nll_plain(tab_m, y_m_pl)
+    apl_k, adl_k = fused_nll.fused_nll_paired(tab_m, dtab_m, y_m_pl)
+    apl_p, adl_p = fused_nll._fused_nll_paired_plain(tab_m, dtab_m, y_m_pl)
+    torch.cuda.synchronize()
+    ea_ll, ra_ll = rel_err(all_k, all_p)
+    ea_pll, ra_pll = rel_err(apl_k, apl_p)
+    ea_dll, ra_dll = rel_err(adl_k, adl_p)
+    ll_64, dll_64 = fused_nll._fused_nll_paired_plain(tab_m.double(), dtab_m.double(), y_m_pl.double())
+    in_bytes_m = (y_m_pl.numel() + tab_m.numel()) * 4
+    b_a3 = bound_ms(in_bytes_m + K_MC * 4, nll_ops(K_MC, T_MC, 3, 4, False))
+    b_a3p = bound_ms(in_bytes_m + tab_m.numel() * 4 + 2 * K_MC * 4, nll_ops(K_MC, T_MC, 3, 4, True))
+    a3 = {
+        "ll_max_abs_err": ea_ll, "ll_rel_err": ra_ll,
+        "ll_rel_err_kernel_vs_f64_plain": rel_err(all_k.double(), ll_64)[1],
+        "ll_rel_err_plain_vs_f64_plain": rel_err(all_p.double(), ll_64)[1],
+        "paired_ll_max_abs_err": ea_pll, "paired_ll_rel_err": ra_pll,
+        "paired_dll_max_abs_err": ea_dll, "paired_dll_rel_err": ra_dll,
+        "dll_rtol": RTOL_DLL_MC[CAMS_MC], "dll_gap_factor": DLL_GAP_FACTOR,
+        "paired_dll_rel_err_kernel_vs_f64_plain": rel_err(adl_k.double(), dll_64)[1],
+        "paired_dll_rel_err_plain_vs_f64_plain": rel_err(adl_p.double(), dll_64)[1],
+        "ms": time_cuda(torch, lambda: fused_nll.fused_nll(tab_m, y_m_pl), 50),
+        "plain_ms": time_cuda(torch, lambda: fused_nll._fused_nll_plain(tab_m, y_m_pl), 3),
+        "paired_ms": time_cuda(torch, lambda: fused_nll.fused_nll_paired(tab_m, dtab_m, y_m_pl), 50),
+        "paired_plain_ms": time_cuda(torch, lambda: fused_nll._fused_nll_paired_plain(tab_m, dtab_m, y_m_pl), 3),
+        "pack_jvp_ms": time_cuda(torch, lambda: torch.func.jvp(pack_m, (sl0_m,), (torch.ones_like(sl0_m),)), 20),
+        "bound_ms": b_a3[0], "bound_by": b_a3[1], "paired_bound_ms": b_a3p[0], "paired_bound_by": b_a3p[1],
+    }
+    a3["ok"] = (max(ra_ll, ra_pll) <= RTOL_NLL
+                and dll_ok(CAMS_MC, a3["paired_dll_rel_err_kernel_vs_f64_plain"],
+                           a3["paired_dll_rel_err_plain_vs_f64_plain"], ra_dll)
+                and bool(torch.isfinite(adl_k).all()))
+    emit({"phase": "kernel_A_d3", "N": K_MC, "T": T_MC, "D": 3, "O": 4, "rtol": RTOL_NLL, **a3})
+    if not a3["ok"]:
+        raise AssertionError("kernel A at (3, 4) disagrees with its plain version")
+
+    # --------------------------------------------------------------- 13 ---
+    # the mirrored and paw families through the bundled files, against the
+    # committed goldens at the reference's contract
+    def golden_gap(df_got, name):
+        ref_g = pd.read_csv(os.path.join(REPO, "tests", "integration", "golden", f"{name}.csv"),
+                            header=[0, 1, 2], index_col=0)
+        same = [tuple(map(str, c)) for c in df_got.columns] == [tuple(map(str, c)) for c in ref_g.columns]
+        if df_got.shape != ref_g.shape:
+            return math.inf, same
+        return float(np.abs(df_got.to_numpy() - ref_g.to_numpy()).max()), same
+
+    golden_res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw in (("mirrored_fixed", dict(smooth_param=3.0)), ("mirrored_auto_inflate", dict(inflate_vars=True))):
+            t0 = time.perf_counter()
+            df, s_g, _, _ = eks_tpu_torch.fit_eks_mirrored_multicam(
+                os.path.join(REPO, "data", "mirrored"), os.path.join(tmp, name + ".csv"),
+                camera_names=["top", "bot"], device="cuda", **kw)
+            gap, same_cols = golden_gap(df, name)
+            golden_res[name] = {"max_abs_err": gap, "columns_match": same_cols, "s": [float(x) for x in s_g],
+                                "wall_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        dfs_paw, s_g, _, _ = eks_tpu_torch.fit_eks_multicam_ibl_paw(
+            os.path.join(REPO, "data", "paw"), os.path.join(tmp, "paw"), var_mode="var", device="cuda")
+        for df, name in zip(dfs_paw, ("paw_left", "paw_right")):
+            gap, same_cols = golden_gap(df, name)
+            golden_res[name] = {"max_abs_err": gap, "columns_match": same_cols, "s": [float(x) for x in s_g],
+                                "wall_s": time.perf_counter() - t0}
+    emit({"phase": "golden_multicam", "atol": 1e-4, "goldens": golden_res})
+    for name, res in golden_res.items():
+        if not (res["columns_match"] and res["max_abs_err"] <= 1e-4):
+            raise AssertionError(f"{name} golden mismatch: {res}")
+
+    # --------------------------------------------------------------- 14 ---
+    def mc_run(c):
+        """The c-camera session through the entry point, counts read around
+        it: (camera_dfs, s_finals, wall, timings, launches)."""
+        reset_counts()
+        tm = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dfs_c, s_c, _ = eks_tpu_torch.ensemble_kalman_smoother_multicam(
+            MarkerArray(mc_arr[c], data_fields=fields), mc_names, [f"cam{i}" for i in range(c)],
+            n_latent=3, device="cuda", timings=tm)
+        return dfs_c, s_c, time.perf_counter() - t0, tm, read_counts()
+
+    def mc_seq_gap(c, dfs_c, s_c):
+        """The c-camera run's x and y columns against the float64 sequential
+        smoother at the same s, from the same prep: (largest gap, the
+        sequential smoother's seconds)."""
+        _, ys_c, ev_c, m0_c, S0_c, A_c, Q_c, C_c, means_c = mc_prep(c)
+        d64 = dict(dtype=torch.float64, device="cpu")
+        s64 = torch.as_tensor(s_c, **d64)
+        t0 = time.perf_counter()
+        ref = kalman_smoother(ys_c.to(**d64), m0_c.to(**d64), S0_c.to(**d64), A_c.to(**d64),
+                              s64[:, None, None] * Q_c.to(**d64), C_c.to(**d64),
+                              torch.clamp(ev_c, min=1e-12).to(**d64))
+        ref_s = time.perf_counter() - t0
+        y_ref = torch.einsum("koj,ktj->kto", C_c.to(**d64), ref.smoothed_means)  # (K, T, 2C)
+        gap = 0.0
+        for i, d in enumerate(dfs_c):
+            got_xy = d.to_numpy().reshape(T_MC, K_MC, 9)[..., :2]
+            ref_xy = y_ref[:, :, 2 * i:2 * i + 2].transpose(0, 1) + means_c[i].to(**d64)[None]
+            gap = max(gap, float(np.abs(got_xy - ref_xy.numpy()).max()))
+        return gap, ref_s
+
+    mc_run(CAMS_MC)  # warm-up at the same shapes
+    dfs_mc, s_mc, wall_mc, tm_mc, launches_mc = mc_run(CAMS_MC)
+    iters_mc = tm_mc.get("adam_iters", 0)
+    finite = all(np.isfinite(d.to_numpy()).all() and d.shape == (T_MC, K_MC * 9) for d in dfs_mc) \
+        and bool(np.isfinite(s_mc).all())
+
+    seq_gap, ref_s = mc_seq_gap(CAMS_MC, dfs_mc, s_mc)
+    emit({
+        "phase": "multicam_auto_s", "frames": T_MC, "keypoints": K_MC, "cameras": CAMS_MC, "seeds": SEEDS_MC,
+        "wall_s": wall_mc, "prep_s": tm_mc.get("prep"), "optimizer_s": tm_mc.get("optimizer"),
+        "final_pass_s": tm_mc.get("final_pass"), "package_s": tm_mc.get("package"),
+        "adam_iters": iters_mc,
+        "us_per_adam_iter": tm_mc["optimizer"] / iters_mc * 1e6 if iters_mc else None,
+        "s_min": float(np.min(s_mc)), "s_median": float(np.median(s_mc)), "s_max": float(np.max(s_mc)),
+        "finite": bool(finite), "launches": launches_mc, "max_abs_err_vs_f64_sequential": seq_gap,
+        "f64_sequential_s": ref_s, "card": card,
+    })
+    if not finite:
+        raise AssertionError("two-camera output is not finite or has the wrong shape")
+    if min(launches_mc["fused_nll_paired"], launches_mc["prefix_scan_filter_d3"],
+           launches_mc["prefix_scan_smoother_d3"]) <= 0 or launches_mc["prefix_scan_filter_paired_d3"] != 0:
+        raise AssertionError(f"the two-camera path did not run through its three kernels: {launches_mc}")
+    if seq_gap > 1e-2:
+        raise AssertionError(f"two-camera final pass is {seq_gap} from the float64 sequential smoother")
+
+    # -------------------------------------------------------------- 14b ---
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mc_run(CAMS_MC)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    emit({
+        "phase": "multicam_profile", "profiled_wall_s": prof_wall, "unprofiled_wall_s": wall_mc,
+        **device_profile(torch, prof, wall_mc, iters_mc),
+    })
+
+    # --------------------------------------------------------------- 15 ---
+    # six cameras: 12 observations, beyond the fused NLL, so the optimizer's
+    # loss is the staged plane NLL over the paired lane-batched scan
+    # first the same optimizer on the card and, through its plain versions,
+    # on the CPU, from one prep, both capped at a few iterations (the plain
+    # paired path costs seconds per iteration at this size); it also warms
+    # the card up for the timed run
+    ops_w = (ys_w, m0_w, S0_w, A_w, C_w, Q_w, ev_w.transpose(0, 1))
+    s_card, _, _ = run_kalman_smoother(*ops_w, safety_cap=CAP_MC_WIDE)
+    t0 = time.perf_counter()
+    s_cpu, _, _ = run_kalman_smoother(*(x.cpu() for x in ops_w), safety_cap=CAP_MC_WIDE)
+    cpu_s = time.perf_counter() - t0
+    s_rel_gap = float(np.max(np.abs(s_card - s_cpu) / np.abs(s_cpu)))
+    dfs_w, s_w, wall_w, tm_w, launches_w = mc_run(CAMS_MC_WIDE)
+    iters_w = tm_w.get("adam_iters", 0)
+    finite_w = all(np.isfinite(d.to_numpy()).all() and d.shape == (T_MC, K_MC * 9) for d in dfs_w) \
+        and bool(np.isfinite(s_w).all())
+    seq_gap_w, ref_s_w = mc_seq_gap(CAMS_MC_WIDE, dfs_w, s_w)
+    emit({
+        "phase": "multicam_six_cameras_auto_s", "frames": T_MC, "keypoints": K_MC, "cameras": CAMS_MC_WIDE,
+        "seeds": SEEDS_MC, "wall_s": wall_w, "prep_s": tm_w.get("prep"), "optimizer_s": tm_w.get("optimizer"),
+        "final_pass_s": tm_w.get("final_pass"), "package_s": tm_w.get("package"),
+        "adam_iters": iters_w,
+        "us_per_adam_iter": tm_w["optimizer"] / iters_w * 1e6 if iters_w else None,
+        "s_min": float(np.min(s_w)), "s_median": float(np.median(s_w)), "s_max": float(np.max(s_w)),
+        "finite": bool(finite_w), "launches": launches_w,
+        "max_abs_err_vs_f64_sequential": seq_gap_w, "f64_sequential_s": ref_s_w,
+        "capped_iters": CAP_MC_WIDE, "s_rel_gap_card_vs_cpu_plain_capped": s_rel_gap, "s_rtol": 5e-4,
+        "cpu_plain_capped_s": cpu_s, "card": card,
+    })
+    if not finite_w:
+        raise AssertionError("six-camera output is not finite or has the wrong shape")
+    if launches_w["prefix_scan_filter_paired_d3"] != iters_w or iters_w <= 0 or launches_w["fused_nll_paired"] != 0:
+        raise AssertionError(f"the six-camera optimizer did not take one paired scan per iteration: {launches_w}")
+    if min(launches_w["prefix_scan_filter_d3"], launches_w["prefix_scan_smoother_d3"]) <= 0:
+        raise AssertionError(f"the six-camera final pass did not run through both scans: {launches_w}")
+    if seq_gap_w > 1e-2:
+        raise AssertionError(f"six-camera final pass is {seq_gap_w} from the float64 sequential smoother")
+    if s_rel_gap > 5e-4:
+        raise AssertionError(f"six-camera s on the card is {s_rel_gap} from the CPU's plain path")
+
+    # -------------------------------------------------------------- 15b ---
+    # where a six-camera iteration's time goes: the optimizer and final pass
+    # on the same operands capped at a few iterations, once plain and once
+    # under the profiler (device activity only)
+    def capped_w():
+        tm_c = {}
+        run_kalman_smoother(*ops_w, safety_cap=CAP_MC_WIDE, timings=tm_c)
+        torch.cuda.synchronize()
+        return tm_c
+
+    t0 = time.perf_counter()
+    tm_cw = capped_w()
+    capped_wall_w = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        capped_w()
+        prof_wall = time.perf_counter() - t0
+    emit({
+        "phase": "multicam_six_cameras_profile", "adam_iters": tm_cw.get("adam_iters"),
+        "profiled_wall_s": prof_wall, "unprofiled_wall_s": capped_wall_w,
+        "unprofiled_optimizer_s": tm_cw.get("optimizer"),
+        **device_profile(torch, prof, capped_wall_w, tm_cw.get("adam_iters")),
+    })
 
     # --------------------------------------------------------------- 10 ---
     # the main paths run kernels A and C in their paired forms only (the
     # optimizers' forward-mode gradients); the plain forms' numbers are in
-    # the lines of phases 2 and 6. Kernel C's and kernel B's D = 3 numbers
-    # are at the solo pupil path's shapes (2 lanes, 1 lane)
+    # the lines of phases 2, 6 and 12. Kernel C's and kernel B's D = 3
+    # filter numbers are at the solo pupil path's shapes (2 lanes, 1 lane);
+    # the smoother instances' at the headline's (D = 2, 20 lanes) and the
+    # two-camera session's (D = 3, 10 lanes); the paired lane-batched scan's
+    # at the six-camera optimizer's (10 lanes). `launches` is the count of the
+    # first path named beside it
     c1, b31 = c_res[1], b3[1]
     src = "eks_tpu_torch/csrc/"
     kernels = [{
@@ -768,10 +1191,39 @@ def main() -> int:
         "launches": launches_pupil["prefix_scan_filter_d3"],
         "launches_sessions": launches_sessions["prefix_scan_filter_d3"],
         "max_abs_err": b31["max_abs_err"], "ms": b31["ms"], "plain_ms": b31["plain_ms"],
+        "launches_multicam": launches_mc["prefix_scan_filter_d3"],
         "bound_ms": b31["bound_ms"], "bound_by": b31["bound_by"], "library_ms": None,
+    }, {
+        "name": "fused_nll_paired_d3_o4", "route": "cuda", "source": src + "fused_nll.cu",
+        "replaces": "eks_tpu/ops/pallas_nll.py:171", "path": "multicam",
+        "launches": launches_mc["fused_nll_paired"],
+        "max_abs_err": max(a3["paired_ll_max_abs_err"], a3["paired_dll_max_abs_err"]),
+        "ms": a3["paired_ms"], "plain_ms": a3["paired_plain_ms"],
+        "bound_ms": a3["paired_bound_ms"], "bound_by": a3["paired_bound_by"], "library_ms": None,
+    }, {
+        "name": "prefix_scan_smoother", "route": "cuda", "source": src + "prefix_scan.cu",
+        "replaces": "eks_tpu/ops/pallas_filter.py:136", "path": "headline",
+        "launches": launches["prefix_scan_smoother"], "max_abs_err": sm2["max_abs_err"],
+        "ms": sm2["ms"], "plain_ms": sm2["plain_ms"], "bound_ms": sm2["bound_ms"],
+        "bound_by": sm2["bound_by"], "library_ms": None,
+    }, {
+        "name": "prefix_scan_smoother_d3", "route": "cuda", "source": src + "prefix_scan.cu",
+        "replaces": "eks_tpu/ops/pallas_filter.py:136", "path": "multicam",
+        "launches": launches_mc["prefix_scan_smoother_d3"],
+        "launches_pupil": launches_pupil["prefix_scan_smoother_d3"],
+        "launches_six_cameras": launches_w["prefix_scan_smoother_d3"],
+        "max_abs_err": sm3["max_abs_err"], "ms": sm3["ms"], "plain_ms": sm3["plain_ms"],
+        "bound_ms": sm3["bound_ms"], "bound_by": sm3["bound_by"], "library_ms": None,
+    }, {
+        "name": "prefix_scan_filter_paired_d3", "route": "cuda", "source": src + "prefix_scan.cu",
+        "replaces": "eks_tpu/ops/pallas_filter.py:252", "path": "multicam_six_cameras",
+        "launches": launches_w["prefix_scan_filter_paired_d3"], "max_abs_err": fp3["max_abs_err"],
+        "ms": fp3["ms"], "plain_ms": fp3["plain_ms"], "bound_ms": fp3["bound_ms"],
+        "bound_by": fp3["bound_by"], "library_ms": None,
     }]
     emit({"launches": {"headline": launches, "pupil": launches_pupil,
-                       "pupil_sessions": launches_sessions}})
+                       "pupil_sessions": launches_sessions, "multicam": launches_mc,
+                       "multicam_six_cameras": launches_w}})
     print(gpu_name_power(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,11 +16,17 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from eks_tpu_torch.marker_array import MarkerArray  # noqa: E402
+from eks_tpu_torch.models.ibl_paw import fit_eks_multicam_ibl_paw  # noqa: E402
 from eks_tpu_torch.models.ibl_pupil import (  # noqa: E402
     ensemble_kalman_smoother_ibl_pupil,
     ensemble_kalman_smoother_ibl_pupil_sessions,
     fit_eks_pupil,
     fit_eks_pupil_sessions,
+)
+from eks_tpu_torch.models.multicam import (  # noqa: E402
+    ensemble_kalman_smoother_multicam,
+    fit_eks_mirrored_multicam,
+    fit_eks_multicam,
 )
 from eks_tpu_torch.models.singlecam import (  # noqa: E402
     ensemble_kalman_smoother_singlecam,
@@ -31,7 +37,11 @@ __all__ = [
     "MarkerArray",
     "ensemble_kalman_smoother_ibl_pupil",
     "ensemble_kalman_smoother_ibl_pupil_sessions",
+    "ensemble_kalman_smoother_multicam",
     "ensemble_kalman_smoother_singlecam",
+    "fit_eks_mirrored_multicam",
+    "fit_eks_multicam",
+    "fit_eks_multicam_ibl_paw",
     "fit_eks_pupil",
     "fit_eks_pupil_sessions",
     "fit_eks_singlecam",

@@ -18,8 +18,10 @@ Semantics kept from the JAX package:
     is active. The pupil family runs the same loop on its two sigmoid-space
     parameters per session, as Adam(lr) on the raw gradient.
 
-The loss runs through the fused NLL (kernel A, paired form) on the card; its
-derivative is forward-mode, from the scalar table's tangent.
+The loss runs through the fused NLL (kernel A, paired form) on the card, or
+at more than eight observations through the staged plane NLL and the paired
+lane-batched scan; its derivative is forward-mode, from the scalar table's
+tangent.
 """
 
 from __future__ import annotations
@@ -32,9 +34,12 @@ import numpy as np
 import torch
 
 from eks_tpu_torch.marker_array import MarkerArray
-from eks_tpu_torch.ops.fused_nll import fused_nll_paired
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
-from eks_tpu_torch.ops.pkalman import _pack_scalars, kalman_smoother_parallel
+from eks_tpu_torch.ops.pkalman import (
+    _pack_scalars,
+    filter_nll_paired_batched,
+    kalman_smoother_parallel,
+)
 from eks_tpu_torch.utils import crop_frames
 
 logger = logging.getLogger(__name__)
@@ -274,8 +279,10 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
                            lr, s_lo, s_hi, tol, safety_cap, sequential=False,
                            timings=None):
     """Tune one log s per block: every iteration evaluates all
-    n_blocks * B_max member filters at once (one paired kernel A launch on
-    the card) and sums the masked member NLLs per block. Non-finite member
+    n_blocks * B_max member filters at once and sums the masked member NLLs
+    per block. On the card that is one paired kernel A launch up to D = 3
+    and O = 8 observations, and beyond (five cameras or more) the staged
+    plane NLL with one paired lane-batched scan launch. Non-finite member
     NLLs count as 1e12 with a zero gradient."""
     n_blocks, b_max = yB.shape[:2]
     n_flat = n_blocks * b_max
@@ -301,7 +308,7 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
             lls, dlls = torch.func.jvp(member_lls, (s_log,), (tangent,))
         else:
             table, dtable = torch.func.jvp(member_lls, (s_log,), (tangent,))
-            lls, dlls = fused_nll_paired(table.contiguous(), dtable.contiguous(), y_planes)
+            lls, dlls = filter_nll_paired_batched(table.contiguous(), dtable.contiguous(), y_planes)
         finite = torch.isfinite(lls)
         nll = torch.where(finite, -lls, torch.full_like(lls, 1e12))
         dnll = torch.where(finite, -dlls, torch.zeros_like(dlls))

@@ -1,16 +1,20 @@
-// Filtering-element algebra shared by the prefix-scan kernel (kernel B,
-// prefix_scan.cu) and the fused NLL kernels (kernel A, fused_nll.cu, and
-// kernel C, fused_nll_tv.cu), and the innovation log-density the two fused
-// kernels end each step with.
+// Element algebras shared by the prefix-scan kernel (kernel B and its
+// lane-batched form D, prefix_scan.cu) and the fused NLL kernels (kernel A,
+// fused_nll.cu, and kernel C, fused_nll_tv.cu), and the innovation
+// log-density the two fused kernels end each step with.
 //
 // An element of the parallel Kalman filter (Särkkä & García-Fernández 2021)
 // is (A, b, C, eta, J), stored flat as P = 3D² + 2D values in the plane order
 // of eks_tpu_torch/ops/pkalman.py: A row-major, b, C row-major, eta, J
 // row-major. combine() is ops/pkalman.py::_combine_filter term for term,
 // including Zt = Zᵀ, which equals inv(I + J2 C1) only because C1 and J2 are
-// symmetric. Everything is templated on the scalar type S (float, or Dual
-// for the forward-mode pairing) and on D, and fully unrolled, so an element
-// lives in registers.
+// symmetric. An element of the parallel RTS smoother is (E, g, L), P = 2D² + D
+// values (E row-major, g, L row-major); smoother_combine() is
+// ops/pkalman.py::_combine_smoother. Everything is templated on the scalar
+// type S (float, or Dual for the forward-mode pairing) and on D, and fully
+// unrolled, so an element lives in registers. FilterAlgebra and
+// SmootherAlgebra name an element type, its identity and its combine in scan
+// order for the block scan and the scan kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,8 +56,8 @@ struct Scalar<float> {
   static constexpr int W = 1;
   __device__ static float c(float v) { return v; }
   __device__ static float make(float v, float) { return v; }
-  __device__ static void put(float* p, int, float s) { p[0] = s; }
-  __device__ static float get(const float* p, int) { return p[0]; }
+  __device__ static void put(float* p, size_t, float s) { p[0] = s; }
+  __device__ static float get(const float* p, size_t) { return p[0]; }
   __device__ static float value(float s) { return s; }
   __device__ static float tangent(float) { return 0.f; }
 };
@@ -63,11 +67,11 @@ struct Scalar<Dual> {
   static constexpr int W = 2;
   __device__ static Dual c(float v) { return {v, 0.f}; }
   __device__ static Dual make(float v, float d) { return {v, d}; }
-  __device__ static void put(float* p, int stride, Dual s) {
+  __device__ static void put(float* p, size_t stride, Dual s) {
     p[0] = s.v;
     p[stride] = s.d;
   }
-  __device__ static Dual get(const float* p, int stride) { return {p[0], p[stride]}; }
+  __device__ static Dual get(const float* p, size_t stride) { return {p[0], p[stride]}; }
   __device__ static float value(Dual s) { return s.v; }
   __device__ static float tangent(Dual s) { return s.d; }
 };
@@ -234,39 +238,133 @@ __device__ __forceinline__ FilterElem<S, D> combine(FilterElem<S, D> e1, FilterE
   return out;
 }
 
+// RTS smoothing element: the backward affine-Gaussian map x -> E x + g with
+// covariance L
+template <typename S, int D>
+struct SmootherElem {
+  static constexpr int P = 2 * D * D + D;
+  S x[P];
+  __device__ S& E(int i, int j) { return x[i * D + j]; }
+  __device__ S& g(int i) { return x[D * D + i]; }
+  __device__ S& L(int i, int j) { return x[D * D + D + i * D + j]; }
+};
+
+// `later` follows `earlier` in time: the earlier element's map is applied to
+// the later suffix, (E_e E_l, E_e g_l + g_e, E_e L_l E_eᵀ + L_e)
+template <typename S, int D>
+__device__ __forceinline__ SmootherElem<S, D> smoother_combine(SmootherElem<S, D> later,
+                                                               SmootherElem<S, D> earlier) {
+  SmootherElem<S, D> out;
+  S T1[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S e = earlier.E(i, 0) * later.E(0, j);
+      S t = earlier.E(i, 0) * later.L(0, j);
+#pragma unroll
+      for (int k = 1; k < D; ++k) {
+        e = e + earlier.E(i, k) * later.E(k, j);
+        t = t + earlier.E(i, k) * later.L(k, j);
+      }
+      out.E(i, j) = e;
+      T1[i][j] = t;
+    }
+    S s = earlier.E(i, 0) * later.g(0);
+#pragma unroll
+    for (int k = 1; k < D; ++k) s = s + earlier.E(i, k) * later.g(k);
+    out.g(i) = s + earlier.g(i);
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = T1[i][0] * earlier.E(j, 0);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + T1[i][k] * earlier.E(j, k);
+      out.L(i, j) = s + earlier.L(i, j);
+    }
+  return out;
+}
+
+// An algebra for the scans: the element, its identity, and op(first, second)
+// with `first` preceding `second` in SCAN order. The filter scans forward in
+// time. The smoother scans backward (REVERSED: scan position i is time step
+// T-1-i), so its first operand is the element later in time; its identity is
+// E = I, g = 0, L = 0.
+template <typename S, int D>
+struct FilterAlgebra {
+  using Scalar = S;
+  using Elem = FilterElem<S, D>;
+  static constexpr int P = Elem::P;
+  static constexpr bool REVERSED = false;
+  __device__ static Elem identity() { return eks::identity<S, D>(); }
+  __device__ static Elem op(const Elem& first, const Elem& second) {
+    return combine<S, D>(first, second);
+  }
+};
+
+template <typename S, int D>
+struct SmootherAlgebra {
+  using Scalar = S;
+  using Elem = SmootherElem<S, D>;
+  static constexpr int P = Elem::P;
+  static constexpr bool REVERSED = true;
+  __device__ static Elem identity() {
+    Elem e;
+#pragma unroll
+    for (int p = 0; p < P; ++p) e.x[p] = eks::Scalar<S>::c(0.f);
+#pragma unroll
+    for (int i = 0; i < D; ++i) e.E(i, i) = eks::Scalar<S>::c(1.f);
+    return e;
+  }
+  __device__ static Elem op(const Elem& first, const Elem& second) {
+    return smoother_combine<S, D>(first, second);
+  }
+};
+
 // Exclusive prefix of the per-thread chunk totals across the block: a
-// Hillis-Steele sweep of log2(NT) steps in shared memory with the same
-// combine (the left operand is the earlier chunk). `smem` holds
+// Hillis-Steele sweep of log2(NT) steps in shared memory with the algebra's
+// op (the left operand is the earlier chunk in scan order). `smem` holds
 // Scalar<S>::W * P * NT floats. Thread 0 gets the identity.
-template <typename S, int D, int NT>
-__device__ __forceinline__ FilterElem<S, D> block_exclusive_scan(FilterElem<S, D> total, float* smem) {
-  constexpr int P = FilterElem<S, D>::P;
-  constexpr int STRIDE = P * NT;  // tangent planes follow the value planes
+template <typename Alg, int NT>
+__device__ __forceinline__ typename Alg::Elem block_exclusive_scan_of(typename Alg::Elem total,
+                                                                      float* smem) {
+  using Elem = typename Alg::Elem;
+  using Sc = Scalar<typename Alg::Scalar>;
+  constexpr int P = Alg::P;
+  constexpr size_t STRIDE = (size_t)P * NT;  // tangent planes follow the value planes
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int p = 0; p < P; ++p) Scalar<S>::put(smem + p * NT + tid, STRIDE, total.x[p]);
+  for (int p = 0; p < P; ++p) Sc::put(smem + p * NT + tid, STRIDE, total.x[p]);
   __syncthreads();
   for (int shift = 1; shift < NT; shift <<= 1) {
-    FilterElem<S, D> left;
+    Elem left;
     const bool has = tid >= shift;
     if (has) {
 #pragma unroll
-      for (int p = 0; p < P; ++p) left.x[p] = Scalar<S>::get(smem + p * NT + tid - shift, STRIDE);
+      for (int p = 0; p < P; ++p) left.x[p] = Sc::get(smem + p * NT + tid - shift, STRIDE);
     }
     __syncthreads();
     if (has) {
-      total = combine<S, D>(left, total);
+      total = Alg::op(left, total);
 #pragma unroll
-      for (int p = 0; p < P; ++p) Scalar<S>::put(smem + p * NT + tid, STRIDE, total.x[p]);
+      for (int p = 0; p < P; ++p) Sc::put(smem + p * NT + tid, STRIDE, total.x[p]);
     }
     __syncthreads();
   }
-  FilterElem<S, D> excl = identity<S, D>();
+  Elem excl = Alg::identity();
   if (tid > 0) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) excl.x[p] = Scalar<S>::get(smem + p * NT + tid - 1, STRIDE);
+    for (int p = 0; p < P; ++p) excl.x[p] = Sc::get(smem + p * NT + tid - 1, STRIDE);
   }
   return excl;
+}
+
+// the filter algebra's block scan, as the fused NLL kernels call it
+template <typename S, int D, int NT>
+__device__ __forceinline__ FilterElem<S, D> block_exclusive_scan(FilterElem<S, D> total, float* smem) {
+  return block_exclusive_scan_of<FilterAlgebra<S, D>, NT>(total, smem);
 }
 
 constexpr float LOG_2PI = 1.8378770664093453f;

@@ -8,8 +8,10 @@
 // a linear Kalman filter with constant diagonal R. The only T-sized input is
 // y (N, O, T); every filtering element is built on the fly from y_t and the
 // lane's scalar table (N, n_scal), whose layout is ops/pkalman.py::
-// _scalar_offsets (46 floats at D = O = 2) and which is staged in shared
-// memory. Each of the NT threads owns one contiguous chunk of time steps:
+// _scalar_offsets (46 floats at D = O = 2, 109 at D = 3, O = 4) and which is
+// staged in shared memory. Instances: (D, O) = (2, 2), the singlecam family,
+// and (3, 4), (3, 6), (3, 8), the linear multi-camera family with two to four
+// cameras. Each of the NT threads owns one contiguous chunk of time steps:
 //   pass 1   build the chunk's elements and fold them into the chunk total;
 //   phase 2  exclusive prefix of the chunk totals across the block
 //            (filter_algebra.cuh::block_exclusive_scan);
@@ -33,7 +35,9 @@
 // (two element builds, two combines and one epilogue per step) and runs each
 // chunk sequentially, so it sits far above the bound. N = 20 blocks fill only
 // 20 of the 132 SMs; spreading a lane over several blocks is left for a later
-// change.
+// change. At D = 3 an element is 33 floats (66 as Dual), so those instances
+// sit at the register limit; the block scan's buffer (67.6 KB paired) is
+// dynamic shared memory, opted in per launch.
 #include "filter_algebra.cuh"
 
 namespace {
@@ -111,8 +115,8 @@ __global__ void __launch_bounds__(NT) fused_nll_kernel(const float* __restrict__
   using Elem = eks::FilterElem<S, D>;
   constexpr int W = Sc::W;
   __shared__ S tab[Lt::N_SCAL];
-  __shared__ float smem[W * Elem::P * NT];
   __shared__ float red[W * NT];
+  extern __shared__ float smem[];  // W * Elem::P * NT floats
 
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
@@ -158,17 +162,29 @@ __global__ void __launch_bounds__(NT) fused_nll_kernel(const float* __restrict__
   eks::block_sum_to<S, NT>(acc, red, out, lane, N);
 }
 
+template <typename S, int D, int O>
+int launch_shape(const float* y, const float* table, const float* dtable, float* out, int N, int T,
+                 cudaStream_t s) {
+  auto kernel = fused_nll_kernel<S, D, O>;
+  // the block scan's buffer passes 48 KB in the paired form at D = 3: opt in
+  const int scan_bytes = eks::Scalar<S>::W * eks::FilterElem<S, D>::P * NT * (int)sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, scan_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<N, NT, scan_bytes, s>>>(y, table, dtable, out, N, T);
+  return (int)cudaGetLastError();
+}
+
 template <typename S>
 int launch(const float* y, const float* table, const float* dtable, float* out, int N, int T, int D,
            int O, void* stream) {
   if (N <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 2 && O == 2) {
-    fused_nll_kernel<S, 2, 2><<<N, NT, 0, s>>>(y, table, dtable, out, N, T);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (D == 2 && O == 2) return launch_shape<S, 2, 2>(y, table, dtable, out, N, T, s);
+  if (D == 3 && O == 4) return launch_shape<S, 3, 4>(y, table, dtable, out, N, T, s);
+  if (D == 3 && O == 6) return launch_shape<S, 3, 6>(y, table, dtable, out, N, T, s);
+  if (D == 3 && O == 8) return launch_shape<S, 3, 8>(y, table, dtable, out, N, T, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -18,7 +18,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["MarkerArray", "input_dfs_to_markerArray"]
+__all__ = [
+    "MarkerArray",
+    "input_dfs_to_markerArray",
+    "mA_to_stacked_array",
+    "stacked_array_to_mA",
+]
 
 # canonical axis order for every MarkerArray
 _AXES = ("models", "cameras", "frames", "keypoints", "fields")
@@ -237,3 +242,35 @@ def input_dfs_to_markerArray(
                 n_frames, len(bodypart_list), len(data_fields)
             )
     return MarkerArray(planes, data_fields=data_fields)
+
+
+def mA_to_stacked_array(marker_array: MarkerArray, keypoint_idx: int) -> np.ndarray:
+    """Flatten one keypoint of a single-model MarkerArray to (n_frames, n_cameras*n_fields),
+    with per-frame layout [cam0 fields..., cam1 fields..., ...].
+
+    Same exterior contract as the reference (eks/marker_array.py:302-324).
+    """
+    _, n_cameras, n_frames, n_keypoints, n_fields = marker_array.shape
+    assert 0 <= keypoint_idx < n_keypoints, (
+        f"keypoint index {keypoint_idx} outside [0, {n_keypoints})."
+    )
+    # (cameras, frames, fields) for model 0, then frames-major flatten
+    one_kp = marker_array.array[0, :, :, keypoint_idx, :]
+    return np.moveaxis(one_kp, 0, 1).reshape(n_frames, n_cameras * n_fields)
+
+
+def stacked_array_to_mA(
+    stacked: np.ndarray,
+    n_cameras: int,
+    data_fields: list[str],
+) -> MarkerArray:
+    """Inverse of :func:`mA_to_stacked_array` for a single keypoint:
+    (n_frames, n_cameras*n_fields) -> MarkerArray (1, n_cameras, n_frames, 1, n_fields).
+    """
+    n_frames, total = stacked.shape
+    assert total % n_cameras == 0, (
+        f"Cannot split {total} stacked columns across {n_cameras} cameras evenly."
+    )
+    per_cam = stacked.reshape(n_frames, n_cameras, total // n_cameras)
+    arr = np.moveaxis(per_cam, 1, 0)[:, :, None, :][None]
+    return MarkerArray(arr, data_fields=data_fields)

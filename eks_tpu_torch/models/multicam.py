@@ -1,0 +1,725 @@
+"""Multi-camera EKS, linear (PCA-latent) observation model.
+
+Counterpart of the linear half of ``eks_tpu/models/multicam.py``: per
+keypoint, a PCA of the centered (T, 2C) multi-view stack builds the emission
+matrix ``C = components.T``; the latent is a random walk with Q from the
+normalized covariance of PC lag-1 diffs. The calibrated (nonlinear
+projection) path of the JAX package is not ported yet: ``calibration`` and
+``camgroup`` raise.
+
+Two routes, as in the JAX package:
+
+  * the fused route (no inflation, no injected PCA, no ``s_frames``): the raw
+    (M, C, T, K) prediction planes are uploaded once, the prep (ensemble
+    statistics, frame filter, centering, PCA, KF init), the s-optimizer, the
+    final smoother and the packaging all run on the device, and the output
+    tables come back in one copy;
+  * the general route: ensemble, centering, optional Mahalanobis variance
+    inflation, the sklearn-exact PCA and the KF init run on the host in
+    numpy, the smoother on the device, the packaging on the host again.
+
+Variance inflation: per keypoint, a Factor-Analysis/Mahalanobis screen
+multiplies ensemble variances by 10 wherever the distance exceeds 5, repeated
+to a fixed point.
+
+Output parity quirk preserved deliberately: the per-camera outputs ADD the
+ensemble variance to the posterior variance.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Literal, Optional
+
+import numpy as np
+import pandas as pd
+import torch
+
+from eks_tpu_torch.core import _ensemble_kernel, _sync, ensemble, run_kalman_smoother
+from eks_tpu_torch.marker_array import (
+    MarkerArray,
+    input_dfs_to_markerArray,
+    mA_to_stacked_array,
+    stacked_array_to_mA,
+)
+from eks_tpu_torch.stats import PCA, _svd_flip_rows, compute_mahalanobis, compute_pca
+from eks_tpu_torch.utils import (
+    center_predictions,
+    format_data,
+    make_dlc_pandas_index,
+    resolve_device,
+    save_dlc_csv,
+)
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "fit_eks_multicam",
+    "fit_eks_mirrored_multicam",
+    "ensemble_kalman_smoother_multicam",
+    "initialize_kalman_filter_pca",
+    "inflate_variance",
+    "mA_compute_maha",
+]
+
+OUTPUT_LABELS = [
+    "x",
+    "y",
+    "likelihood",
+    "x_ens_median",
+    "y_ens_median",
+    "x_ens_var",
+    "y_ens_var",
+    "x_posterior_var",
+    "y_posterior_var",
+]
+
+_LABELS_3D = ["x", "y", "z", "x_posterior_var", "y_posterior_var", "z_posterior_var"]
+
+_CALIBRATION_NOT_PORTED = (
+    "the calibrated (nonlinear projection) multi-camera path is not ported to "
+    "eks_tpu_torch yet (see ROADMAP.md, queue 1)"
+)
+
+
+# --------------------------------------------------------------------------- #
+# public fit wrappers
+# --------------------------------------------------------------------------- #
+def fit_eks_mirrored_multicam(
+    input_source: str | list,
+    save_file: str,
+    bodypart_list: list | None = None,
+    smooth_param: float | list | None = None,
+    s_frames: list | None = None,
+    camera_names: list = [],
+    quantile_keep_pca: float = 50.0,
+    avg_mode: Literal["mean", "median"] = "median",
+    var_mode: Literal["var", "confidence_weighted_var"] = "confidence_weighted_var",
+    inflate_vars: bool = False,
+    n_latent: int = 3,
+    devices: int | None = None,
+    partition: Literal["keypoint", "time"] = "keypoint",
+    device: str | torch.device = "cuda",
+) -> tuple:
+    """Mirrored multi-camera fit: one CSV per seed holds all views as
+    ``{kp}_{camera}`` columns; views are split out, smoothed jointly, and the
+    per-camera outputs merged back into a single CSV. ``device`` is where the
+    pipeline runs ("cuda" by default); ``devices``/``partition`` (multi-device
+    sharding) are not ported yet.
+
+    Returns:
+        (final_df, s_finals, input_dfs_list, bodypart_list)
+    """
+    input_dfs_list, keypoint_names = format_data(input_source)
+    if bodypart_list is None:
+        # deduped prefix before the first underscore
+        seen: set = set()
+        bodypart_list = []
+        for name in keypoint_names:
+            base = name.split("_")[0]
+            if base not in seen:
+                seen.add(base)
+                bodypart_list.append(base)
+
+    n_models = len(input_dfs_list)
+    n_cameras = len(camera_names)
+
+    camera_model_dfs = [[None] * n_models for _ in range(n_cameras)]
+    for m, df in enumerate(input_dfs_list):
+        for c, camera in enumerate(camera_names):
+            # replace-ALL is deliberate: it is the reference's own column
+            # transform, including its behavior on bodyparts whose names
+            # contain the camera substring ('nose_top' + camera 'top' ->
+            # 'nose'); the goldens pin it
+            cols = {
+                col: col.replace(f"_{camera}", "")
+                for col in df.columns
+                if f"_{camera}_" in col
+            }
+            camera_model_dfs[c][m] = df[list(cols.keys())].rename(columns=cols)
+
+    marker_array = input_dfs_to_markerArray(
+        camera_model_dfs, bodypart_list, camera_names
+    )
+    camera_dfs, s_finals, _df_3d = ensemble_kalman_smoother_multicam(
+        marker_array=marker_array,
+        keypoint_names=bodypart_list,
+        camera_names=camera_names,
+        smooth_param=smooth_param,
+        quantile_keep_pca=quantile_keep_pca,
+        s_frames=s_frames,
+        avg_mode=avg_mode,
+        var_mode=var_mode,
+        inflate_vars=inflate_vars,
+        n_latent=n_latent,
+        devices=devices,
+        partition=partition,
+        device=device,
+    )
+
+    # merge per-camera frames back into one mirrored CSV
+    final_df = None
+    for c, camera_df in enumerate(camera_dfs):
+        renamed = [
+            (scorer, f"{kp}_{camera_names[c]}", attr)
+            for scorer, kp, attr in camera_df.columns
+        ]
+        camera_df.columns = pd.MultiIndex.from_tuples(
+            renamed, names=camera_df.columns.names
+        )
+        final_df = camera_df if final_df is None else pd.concat(
+            [final_df, camera_df], axis=1
+        )
+
+    assert final_df is not None
+    save_dir = os.path.dirname(save_file)
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+    save_dlc_csv(final_df, save_file)
+    return final_df, s_finals, input_dfs_list, bodypart_list
+
+
+def fit_eks_multicam(
+    input_source: str | list | dict,
+    save_dir: str,
+    bodypart_list: list | None = None,
+    smooth_param: float | list | None = None,
+    s_frames: list | None = None,
+    camera_names: list | None = None,
+    quantile_keep_pca: float = 50.0,
+    avg_mode: Literal["mean", "median"] = "median",
+    var_mode: Literal["var", "confidence_weighted_var"] = "confidence_weighted_var",
+    inflate_vars: bool = False,
+    n_latent: int = 3,
+    calibration: str | None = None,
+    save_3d_outputs: bool = True,
+    devices: int | None = None,
+    partition: Literal["keypoint", "time"] = "keypoint",
+    device: str | torch.device = "cuda",
+) -> tuple:
+    """Un-mirrored multi-camera fit: one CSV per (camera, seed), matched to
+    cameras by filename. ``calibration`` (the nonlinear calibrated-projection
+    path) is not ported yet and raises.
+
+    Returns:
+        (camera_dfs, s_finals, input_dfs_list, bodypart_list, df_3d)
+    """
+    if calibration is not None:
+        raise NotImplementedError(_CALIBRATION_NOT_PORTED)
+    if camera_names is None:
+        raise ValueError("without a calibration file, pass camera_names explicitly")
+
+    input_dfs_list, keypoint_names = format_data(input_source, camera_names=camera_names)
+    if bodypart_list is None:
+        bodypart_list = keypoint_names
+    marker_array = input_dfs_to_markerArray(input_dfs_list, bodypart_list, camera_names)
+
+    camera_dfs, s_finals, df_3d = ensemble_kalman_smoother_multicam(
+        marker_array=marker_array,
+        keypoint_names=bodypart_list,
+        camera_names=camera_names,
+        smooth_param=smooth_param,
+        quantile_keep_pca=quantile_keep_pca,
+        s_frames=s_frames,
+        avg_mode=avg_mode,
+        var_mode=var_mode,
+        inflate_vars=inflate_vars,
+        n_latent=n_latent,
+        devices=devices,
+        partition=partition,
+        device=device,
+    )
+
+    os.makedirs(save_dir, exist_ok=True)
+    for c, camera in enumerate(camera_names):
+        save_dlc_csv(
+            camera_dfs[c], os.path.join(save_dir, f"multicam_{camera}_results.csv")
+        )
+    return camera_dfs, s_finals, input_dfs_list, bodypart_list, df_3d
+
+
+# --------------------------------------------------------------------------- #
+# array-level smoother
+# --------------------------------------------------------------------------- #
+def ensemble_kalman_smoother_multicam(
+    marker_array: MarkerArray,
+    keypoint_names: list,
+    camera_names: list,
+    smooth_param: float | list | None = None,
+    quantile_keep_pca: float = 50.0,
+    s_frames: list | None = None,
+    avg_mode: Literal["mean", "median"] = "median",
+    var_mode: Literal["var", "confidence_weighted_var"] = "confidence_weighted_var",
+    inflate_vars: bool = False,
+    inflate_vars_kwargs: dict = {},
+    pca_object: Optional[PCA] = None,
+    n_latent: int = 3,
+    camgroup=None,
+    devices: int | None = None,
+    partition: Literal["keypoint", "time"] = "keypoint",
+    device: str | torch.device = "cuda",
+    timings: dict | None = None,
+) -> tuple:
+    """Multi-view smoother over a (M, C, T, K, 3) MarkerArray.
+
+    Args:
+        device: where the pipeline runs ("cuda" by default).
+        timings: if a dict, the device is synchronized between stages and
+            their seconds are recorded ("prep", "optimizer", "final_pass",
+            "package"), with the optimizer's Adam iteration count.
+
+    Returns:
+        (camera_dfs, s_finals, df_3d)
+    """
+    if camera_names is None or len(camera_names) == 0:
+        raise ValueError("camera_names must be provided")
+    if camgroup is not None:
+        raise NotImplementedError(_CALIBRATION_NOT_PORTED)
+    dev = resolve_device(device)
+
+    # the plain linear family (no inflation, no injected PCA, no loss-frame
+    # cropping) runs prep, smoothing and packaging on the device with one
+    # upload (raw predictions) and one download (the packaged tables)
+    if not inflate_vars and pca_object is None and not s_frames:
+        return _smoother_multicam_linear_fused(
+            marker_array, keypoint_names, smooth_param=smooth_param,
+            quantile_keep_pca=quantile_keep_pca, avg_mode=avg_mode,
+            var_mode=var_mode, n_latent=n_latent, dev=dev,
+            devices=devices, partition=partition, timings=timings,
+        )
+
+    M, V, T, K, _ = marker_array.shape
+
+    # ensemble + centering, on the host: the general path consumes their
+    # outputs host-side (centering, inflation, PCA)
+    t0 = time.perf_counter()
+    emA = ensemble(marker_array, avg_mode=avg_mode, var_mode=var_mode)
+    emA_unsm = emA.slice_fields("x", "y")
+    emA_vars = emA.slice_fields("var_x", "var_y")
+    emA_likes = emA.slice_fields("likelihood")
+    valid_mask, emA_centered, emA_good_centered, emA_means = center_predictions(
+        emA, quantile_keep_pca
+    )
+
+    # optional Mahalanobis variance inflation
+    if inflate_vars:
+        # never mutate the caller's kwargs dict (a reused dict would find
+        # its fitted 'mean' silently zeroed on the next call)
+        inflate_vars_kwargs = dict(inflate_vars_kwargs)
+        if inflate_vars_kwargs.get("mean", None) is not None:
+            # centered predictions are passed in, so the latent mean is zero
+            inflate_vars_kwargs["mean"] = np.zeros_like(inflate_vars_kwargs["mean"])
+        emA_inflated_vars = mA_compute_maha(
+            emA_centered, emA_vars, emA_likes, n_latent,
+            inflate_vars_kwargs=inflate_vars_kwargs,
+        )
+    else:
+        emA_inflated_vars = emA_vars
+
+    ensemble_pca, good_pcs_list = compute_pca(
+        valid_mask, emA_centered, emA_good_centered,
+        n_components=n_latent, pca_object=pca_object,
+    )
+    m0s, S0s, As, Qs, Cs = initialize_kalman_filter_pca(
+        good_pcs_list=good_pcs_list, ensemble_pca=ensemble_pca, n_latent=n_latent,
+        device=dev,
+    )
+
+    cen = emA_centered.array[0]  # (C, T, K, 2)
+    infl = emA_inflated_vars.array[0]
+    ys = np.moveaxis(cen, 2, 0).transpose(0, 2, 1, 3).reshape(K, T, 2 * V)
+    ensemble_vars = np.moveaxis(infl, 2, 0).transpose(0, 2, 1, 3).reshape(K, T, 2 * V)
+    if timings is not None:
+        timings["prep"] = time.perf_counter() - t0
+
+    def upload(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=dev)
+
+    s_finals, ms, Vs = run_kalman_smoother(
+        ys=upload(ys),
+        m0s=m0s, S0s=S0s, As=As, Qs=Qs, Cs=Cs,
+        ensemble_vars=upload(np.swapaxes(ensemble_vars, 0, 1)),  # (T, K, 2C)
+        s_frames=s_frames,
+        smooth_param=smooth_param,
+        devices=devices,
+        partition=partition,
+        timings=timings,
+    )
+    # one batched pull of the device-resident results
+    t0 = time.perf_counter()
+    ms, Vs = ms.cpu().numpy(), Vs.cpu().numpy()
+
+    # reprojection + packaging
+    likes = emA_likes.array[0, :, :, :, 0]  # (C, T, K)
+    unsm = emA_unsm.array[0]  # (C, T, K, 2)
+    infl_vars = emA_inflated_vars.array[0]
+    means = emA_means.array[0, :, 0, :, :]  # (C, K, 2)
+
+    Cs_np = Cs.cpu().numpy()  # (K, 2C, L)
+    y_m = np.einsum("koj,ktj->kto", Cs_np, ms)  # (K, T, 2C)
+    y_v_diag = np.einsum("koj,ktjl,kol->kto", Cs_np, Vs, Cs_np)  # (K, T, 2C)
+
+    camera_dfs = []
+    for c in range(V):
+        xi, yi = 2 * c, 2 * c + 1
+        blocks = []
+        for k in range(K):
+            blocks.append(
+                np.stack(
+                    [
+                        y_m[k, :, xi] + means[c, k, 0],
+                        y_m[k, :, yi] + means[c, k, 1],
+                        likes[c, :, k],
+                        unsm[c, :, k, 0],
+                        unsm[c, :, k, 1],
+                        infl_vars[c, :, k, 0],
+                        infl_vars[c, :, k, 1],
+                        # posterior var + ensemble var (deliberate quirk)
+                        y_v_diag[k, :, xi] + ensemble_vars[k, :, xi],
+                        y_v_diag[k, :, yi] + ensemble_vars[k, :, yi],
+                    ],
+                    axis=-1,
+                )
+            )
+        arr = np.concatenate(blocks, axis=-1)
+        camera_dfs.append(
+            pd.DataFrame(
+                arr, columns=make_dlc_pandas_index(keypoint_names, OUTPUT_LABELS)
+            )
+        )
+
+    # 3-D latent dataframe
+    arr_3d = np.concatenate(
+        [
+            np.concatenate(
+                [ms[k], np.stack([Vs[k, :, i, i] for i in range(3)], axis=-1)],
+                axis=-1,
+            )
+            for k in range(K)
+        ],
+        axis=-1,
+    ) if ms.shape[-1] == 3 else np.zeros((T, K * 6))
+    df_3d = pd.DataFrame(arr_3d, columns=make_dlc_pandas_index(keypoint_names, _LABELS_3D))
+    if timings is not None:
+        timings["package"] = time.perf_counter() - t0
+    return camera_dfs, s_finals, df_3d
+
+
+# --------------------------------------------------------------------------- #
+# Kalman initialisation
+# --------------------------------------------------------------------------- #
+def initialize_kalman_filter_pca(
+    good_pcs_list: list[np.ndarray],
+    ensemble_pca: list,
+    n_latent: int,
+    device: str | torch.device = "cuda",
+) -> tuple:
+    """PCA-latent init: C = componentsᵀ, Q = normalized covariance of PC
+    lag-1 diffs, S0 = diag(var of good PCs). Computed on the host in numpy
+    (float64 where numpy promotes) and handed over as float32 tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    K = len(good_pcs_list)
+    m0s = np.zeros((K, n_latent))
+    # per-column np.var calls, not an axis-reduction: the reference computes
+    # each diagonal with its own 1-D np.var and the f32 summation order
+    # differs enough to show up in the parity goldens
+    S0s = np.stack(
+        [
+            np.diag(
+                [np.var(good_pcs_list[k][:, i]) for i in range(n_latent)]
+            )
+            for k in range(K)
+        ]
+    )
+    As = np.tile(np.eye(n_latent), (K, 1, 1))
+    Cs = np.stack([pca.components_.T for pca in ensemble_pca])  # (K, 2C, L)
+
+    Qs = []
+    for k in range(K):
+        d = np.diff(good_pcs_list[k], axis=0)
+        cov = np.atleast_2d(np.cov(d.T))  # np.cov of 1-D diffs is a scalar
+        peak = np.max(np.abs(cov))
+        Qs.append(cov / peak if peak > 0 else cov)
+    Qs = np.stack(Qs)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=dev)
+
+    return t(m0s), t(S0s), t(As), t(Qs), t(Cs)
+
+
+# --------------------------------------------------------------------------- #
+# fused linear path (device-resident prep + packaging)
+# --------------------------------------------------------------------------- #
+def _percentile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.percentile(x, q, axis=0)`` (linear interpolation) in its own
+    float32 formula: position q/100 * (n - 1), weights from its fractional
+    part, ``low * (1 - w) + high * w``. Bit-equal to it where the weights are
+    0, 1/2 or 1 (the default q = 50 always), within one ulp of its compiled
+    evaluation elsewhere. ``torch.quantile`` interpolates with another
+    formula (``low + w * (high - low)``), and the frame filter compares
+    variances with this threshold."""
+    n = x.shape[0]
+    pos = np.float32(q) / np.float32(100.0) * np.float32(n - 1)
+    low, high = np.floor(pos), np.ceil(pos)
+    w_high = np.float32(pos - low)
+    w_low = np.float32(np.float32(1.0) - w_high)
+    lo_i = int(np.clip(low, 0, n - 1))
+    hi_i = int(np.clip(high, 0, n - 1))
+    srt = torch.sort(x, dim=0).values
+    return srt[lo_i] * float(w_low) + srt[hi_i] * float(w_high)
+
+
+def _prep_multicam_linear(
+    data_x, data_y, data_lh, n_models, avg_mode, var_mode, n_latent, quantile
+):
+    """Device twin of ensemble() + center_predictions + compute_pca +
+    initialize_kalman_filter_pca for the linear multicam family, with no
+    intermediate host transfer and no host synchronization.
+
+    The variance-quantile frame filter has data-dependent good-frame counts;
+    the good-row selection is a {0,1} weight plane and the counts stay device
+    scalars. The PCA fit stays exact because rows zeroed AFTER centering
+    contribute nothing to XᵀX: the eigenvectors match those of the gathered
+    submatrix.
+
+    Inputs (M, C, T, K) prediction planes; returns
+    (stats (C,T,K,5), ys (K,T,2C), evars (K,T,2C), m0s, S0s, As, Qs,
+    Cs (K,2C,L), means (C,K,2)).
+    """
+    stats = _ensemble_kernel(
+        data_x, data_y, data_lh, n_models, avg_mode, var_mode, 1000.0
+    )  # (C, T, K, 5)
+    preds = stats[..., :2]
+    variances = stats[..., 2:4]
+    C, T, K, _ = stats.shape
+    dt, dev = preds.dtype, preds.device
+
+    # frame filter: per-keypoint variance-quantile threshold on the max over
+    # cameras and x/y
+    max_vars = variances.amax(dim=(0, 3))  # (T, K)
+    thresholds = _percentile_linear(max_vars, quantile)  # (K,)
+    mask = max_vars <= thresholds  # (T, K)
+    counts = mask.sum(dim=0)  # (K,)
+    n_good = counts.min()
+    # every keypoint keeps its FIRST n_good valid frames (min-count
+    # truncation quirk); the cumsum rank reproduces the stable-argsort
+    # selection
+    rank = torch.cumsum(mask, dim=0)
+    w = (mask & (rank <= n_good)).to(dt)  # (T, K)
+    denom = n_good.to(dt)
+
+    means = torch.einsum("tk,ctko->cko", w, preds) / denom  # (C, K, 2)
+    centered = preds - means[:, None]  # (C, T, K, 2)
+    X = centered.permute(2, 1, 0, 3).reshape(K, T, 2 * C)  # ys
+    evars = variances.permute(2, 1, 0, 3).reshape(K, T, 2 * C)
+
+    # PCA on the truncated good rows (sklearn PCA re-centers internally, so
+    # subtract the good-row column mean before masking), by the
+    # covariance-eigh route
+    wK = w.T[:, :, None]  # (K, T, 1)
+    col_mean = (X * wK).sum(dim=1) / denom  # (K, 2C)
+    Xg_c = (X - col_mean[:, None, :]) * wK
+    cov = torch.einsum("ktf,ktg->kfg", Xg_c, Xg_c)  # (K, 2C, 2C)
+    _, V = torch.linalg.eigh(cov)  # ascending eigenvalues
+    vt = _svd_flip_rows(V.flip(-1).transpose(-1, -2))  # rows = descending components
+    comps = vt[:, :n_latent, :]  # (K, L, 2C)
+    pcs_all = torch.einsum("ktf,klf->ktl", X - col_mean[:, None, :], comps)
+
+    # KF init from each keypoint's own UNtruncated valid set
+    # (initialize_kalman_filter_pca semantics)
+    fmask = mask.T.to(dt)  # (K, T)
+    cnt = counts.to(dt)
+    mean_pc = torch.einsum("kt,ktl->kl", fmask, pcs_all) / cnt[:, None]
+    dev_pc = (pcs_all - mean_pc[:, None, :]) * fmask[:, :, None]
+    var_pc = torch.einsum("ktl,ktl->kl", dev_pc, dev_pc) / cnt[:, None]  # ddof=0
+    S0s = torch.diag_embed(var_pc)
+
+    # Q: np.cov (ddof=1) of lag-1 diffs over the COMPACTED good sequence; a
+    # stable argsort pulls the valid rows to the front in time order
+    perm = torch.argsort((~mask.T).to(torch.int8), dim=1, stable=True)  # (K, T)
+    ps = torch.take_along_dim(pcs_all, perm[:, :, None], dim=1)
+    d = ps[:, 1:] - ps[:, :-1]  # (K, T-1, L)
+    n_d = cnt - 1.0
+    wd = (torch.arange(T - 1, dtype=dt, device=dev)[None, :] < n_d[:, None]).to(dt)[:, :, None]
+    mu = (d * wd).sum(dim=1) / n_d[:, None]
+    dc = (d - mu[:, None, :]) * wd
+    qcov = dc.transpose(1, 2) @ dc / (n_d - 1.0)[:, None, None]
+    peak = qcov.abs().amax(dim=(1, 2))[:, None, None]
+    Qs = torch.where(peak > 0, qcov / peak, qcov)
+
+    m0s = torch.zeros((K, n_latent), dtype=dt, device=dev)
+    As = torch.eye(n_latent, dtype=dt, device=dev).expand(K, n_latent, n_latent).contiguous()
+    Cs = comps.transpose(1, 2).contiguous()  # (K, 2C, L)
+    return stats, X.contiguous(), evars.contiguous(), m0s, S0s, As, Qs, Cs, means
+
+
+def _package_multicam_smoothed(means, Cs, ms, Vs, evars) -> torch.Tensor:
+    """Device packaging of the smoother-dependent per-camera block:
+    reproject the latent through C, re-add centering means, and apply the
+    posterior-var + ensemble-var quirk. Returns (C, T, K, 4) as
+    [x, y, x_posterior_var, y_posterior_var]."""
+    y_m = torch.einsum("koj,ktj->kto", Cs, ms)  # (K, T, 2C)
+    y_v = torch.einsum("koj,ktjl,kol->kto", Cs, Vs, Cs)
+    post = y_v + evars  # posterior var + ensemble var (reference quirk)
+    K, T, F = y_m.shape
+    xy = y_m.reshape(K, T, F // 2, 2).permute(2, 1, 0, 3) + means[:, None]  # (C, T, K, 2)
+    pv = post.reshape(K, T, F // 2, 2).permute(2, 1, 0, 3)
+    return torch.cat([xy, pv], dim=-1)
+
+
+def _package_3d(ms, Vs) -> torch.Tensor:
+    """(K, T, L) latents + (K, T, L, L) covs -> (T, K*(2L)) layout of the
+    3-D output dataframe: per keypoint [x, y, z, *_posterior_var]."""
+    diag = torch.diagonal(Vs, dim1=-2, dim2=-1)  # (K, T, L)
+    arr = torch.cat([ms, diag], dim=-1)  # (K, T, 2L)
+    K, T, F = arr.shape
+    return arr.transpose(0, 1).reshape(T, K * F)
+
+
+def _smoother_multicam_linear_fused(
+    marker_array, keypoint_names, smooth_param, quantile_keep_pca,
+    avg_mode, var_mode, n_latent, dev,
+    devices=None, partition="keypoint", timings=None,
+):
+    """Linear multicam smoother with prep and packaging on the device.
+    Output contract identical to the general path (same columns, quirks)."""
+    M, V, T, K, _ = marker_array.shape
+
+    t0 = time.perf_counter()
+    arr = torch.as_tensor(
+        np.ascontiguousarray(marker_array.array, dtype=np.float32), device=dev
+    )  # (M, C, T, K, 3)
+    stats, ys, evars, m0s, S0s, As, Qs, Cs, means = _prep_multicam_linear(
+        arr[..., 0], arr[..., 1], arr[..., 2],
+        M, avg_mode, var_mode, int(n_latent), float(quantile_keep_pca),
+    )
+    if timings is not None:
+        _sync(dev)
+        timings["prep"] = time.perf_counter() - t0
+
+    s_finals, ms, Vs = run_kalman_smoother(
+        ys=ys, m0s=m0s, S0s=S0s, As=As, Qs=Qs, Cs=Cs,
+        ensemble_vars=evars.transpose(0, 1),  # (T, K, 2C)
+        smooth_param=smooth_param,
+        devices=devices, partition=partition, timings=timings,
+    )
+
+    t0 = time.perf_counter()
+    sm4 = _package_multicam_smoothed(means, Cs, ms, Vs, evars)
+    if n_latent == 3:
+        arr_3d = _package_3d(ms, Vs)
+    else:
+        arr_3d = torch.zeros((T, K * 6), dtype=sm4.dtype, device=dev)
+    sm4_np, stats_np, arr_3d_np = (x.cpu().numpy() for x in (sm4, stats, arr_3d))
+    camera_dfs = _assemble_camera_dfs(sm4_np, stats_np, keypoint_names)
+    df_3d = pd.DataFrame(arr_3d_np, columns=make_dlc_pandas_index(keypoint_names, _LABELS_3D))
+    if timings is not None:
+        timings["package"] = time.perf_counter() - t0
+    return camera_dfs, s_finals, df_3d
+
+
+def _assemble_camera_dfs(sm4_np, stats_np, keypoint_names) -> list:
+    """Interleave the smoother-dependent block (C, T, K, 4) with the ensemble
+    stats (C, T, K, 5) into one 9-column-per-keypoint DataFrame per camera."""
+    V, T, K, _ = sm4_np.shape
+    cols = make_dlc_pandas_index(keypoint_names, OUTPUT_LABELS)
+    camera_dfs = []
+    for c in range(V):
+        block = np.concatenate(
+            [
+                sm4_np[c][..., :2],  # x, y
+                stats_np[c][..., 4:5],  # likelihood
+                stats_np[c][..., 0:2],  # x_ens_median, y_ens_median
+                stats_np[c][..., 2:4],  # x_ens_var, y_ens_var
+                sm4_np[c][..., 2:4],  # x/y posterior var
+            ],
+            axis=-1,
+        )  # (T, K, 9)
+        camera_dfs.append(
+            pd.DataFrame(block.reshape(T, K * len(OUTPUT_LABELS)), columns=cols)
+        )
+    return camera_dfs
+
+
+# --------------------------------------------------------------------------- #
+# variance inflation
+# --------------------------------------------------------------------------- #
+def mA_compute_maha(
+    centered_emA_preds: MarkerArray,
+    emA_vars: MarkerArray,
+    emA_likes: MarkerArray,
+    n_latent: int,
+    inflate_vars_kwargs: dict | None = None,
+    threshold: float = 5.0,
+    scalar: float = 10.0,
+) -> MarkerArray:
+    """Fixed-point variance inflation: per keypoint, compute Mahalanobis
+    distances and multiply variances by ``scalar`` where the distance exceeds
+    ``threshold``; repeat until nothing inflates."""
+    _, n_cameras, _, n_keypoints, _ = centered_emA_preds.shape
+
+    # copy so neither a shared default nor the caller's dict is mutated
+    inflate_vars_kwargs = dict(inflate_vars_kwargs or {})
+    inflate_vars_kwargs.setdefault("likelihood_threshold", 0.9)
+    inflate_vars_kwargs.setdefault("v_quantile_threshold", 50.0)
+
+    out_list = []
+    for k in range(n_keypoints):
+        preds = mA_to_stacked_array(centered_emA_preds, k)
+        variances = mA_to_stacked_array(emA_vars, k)
+        likes = mA_to_stacked_array(emA_likes, k)
+
+        logger.info(f"variance-inflation pass for keypoint {k}")
+        inflated = True
+        tmp = variances
+        while inflated:
+            if inflate_vars_kwargs.get("likelihoods", None) is None:
+                maha = compute_mahalanobis(
+                    preds, tmp, n_latent=n_latent, **inflate_vars_kwargs
+                )
+            else:
+                maha = compute_mahalanobis(
+                    preds, tmp, n_latent=n_latent, likelihoods=likes,
+                    **inflate_vars_kwargs,
+                )
+            tmp, inflated = inflate_variance(
+                tmp, maha["mahalanobis"], threshold, scalar
+            )
+
+        out_list.append(
+            stacked_array_to_mA(tmp, n_cameras, data_fields=["var_x", "var_y"])
+        )
+    return MarkerArray.stack(out_list, "keypoints")
+
+
+def inflate_variance(
+    v: np.ndarray,
+    maha_dict: dict,
+    threshold: float = 5.0,
+    scalar: float = 10.0,
+) -> tuple:
+    """Multiply variances by ``scalar`` for (frame, view) cells whose
+    Mahalanobis distance exceeds ``threshold``. With exactly 2 views, any
+    flagged view inflates the whole row.
+
+    Returns (updated_v, anything_inflated).
+    """
+    assert len(maha_dict) >= 2, "variance inflation needs at least two camera views"
+    updated = v.copy()
+    N, _ = v.shape
+    C = len(maha_dict)
+
+    mask = np.zeros((N, C), dtype=bool)
+    for view, dist in maha_dict.items():
+        mask[:, view] = dist[:, 0] > threshold
+
+    full = np.repeat(mask, 2, axis=1)
+    if C == 2:
+        full |= full.any(axis=1, keepdims=True)
+
+    updated[full] *= scalar
+    return updated, bool(full.any())

@@ -1,6 +1,9 @@
 """Kernels A and C: the fused filter NLLs of the optimizers.
 
-Kernel A: constant diagonal R (the s-optimizer's loss).
+Kernel A: constant diagonal R (the s-optimizer's loss), instantiated at
+(D, O) = (2, 2) for the singlecam family and at (3, 4), (3, 6), (3, 8) for the
+linear multi-camera family with two to four cameras. More observations take
+the staged plane NLL of ``ops/pkalman.py`` (``_staged_nll_paired``).
 
 Replaces the Pallas kernel ``eks_tpu/ops/pallas_nll.py`` ``_make_fused_kernel``
 (plain and ``paired=True``), reached in the JAX package through
@@ -43,13 +46,10 @@ from eks_tpu_torch.ops.fused_filter import filter_prefix_plain
 from eks_tpu_torch.ops.pkalman import (
     _pack_scalars,
     _pack_scalars_tv,
-    _plane_nll_post,
-    _plane_split_moments,
     _scalar_offsets_tv,
+    _staged_nll,
     _table_dims,
     _table_nll_tv,
-    _table_planes,
-    _unpack_scalars,
 )
 
 __all__ = [
@@ -73,7 +73,7 @@ TV_LAUNCHES = 0
 TV_PAIRED_LAUNCHES = 0
 
 #: (D, O) pairs the CUDA kernels are instantiated for
-_CUDA_SHAPES = ((2, 2),)
+_CUDA_SHAPES = ((2, 2), (3, 4), (3, 6), (3, 8))
 _CUDA_SHAPES_TV = ((3, 8),)
 
 
@@ -81,12 +81,9 @@ _CUDA_SHAPES_TV = ((3, 8),)
 # plain versions
 # --------------------------------------------------------------------------- #
 def _fused_nll_plain(table: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of kernel A: (N,) log-likelihoods."""
-    O = y.shape[1]
-    D = _table_dims(table.shape[1], O)
-    out = filter_prefix_plain(_table_planes(table, y, D))
-    m_pl, P_pl = _plane_split_moments(out, D)
-    return _plane_nll_post(m_pl, P_pl, y.transpose(1, 2), *_unpack_scalars(table, D, O))
+    """Plain PyTorch version of kernel A: (N,) log-likelihoods, the staged
+    plane NLL over the plain scan."""
+    return _staged_nll(table, y, filter_prefix_plain)
 
 
 def _fused_nll_paired_plain(table, dtable, y):

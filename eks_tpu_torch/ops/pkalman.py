@@ -14,8 +14,10 @@ Python, the same formulas the CUDA kernels unroll in registers
 (``eks_tpu_torch/csrc/filter_algebra.cuh``).
 
 The forward filter's prefix scan goes through ``fused_filter.filter_prefix``
-(the CUDA kernel on the card, the plain scan on the CPU). The reverse RTS
-scan is plain PyTorch on every device.
+and the reverse RTS scan through ``fused_filter.smoother_suffix`` (the CUDA
+kernel on the card, the plain scan on the CPU). The optimizer's loss at more
+than eight observations is the staged plane NLL here, whose scan is the
+lane-batched kernel, paired with its tangent in one launch.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from eks_tpu_torch.ops.linalg import mvn_logpdf, psd_solve, small_inv
 
 __all__ = [
     "associative_scan",
+    "filter_nll_paired_batched",
     "filter_nll_parallel_planes_tv",
     "kalman_filter_parallel",
     "kalman_smoother_parallel",
@@ -609,6 +612,61 @@ def _plane_nll_post(m_pl, P_pl, ys, m0, S0, A, Q, C, r) -> torch.Tensor:
     return _plane_innovation_ll(pred_m, pred_P, ys, C, r)
 
 
+# the fused constant-R NLL (kernel A) covers these state and observation sizes
+_FUSED_MAX_D, _FUSED_MAX_O = 3, 8
+
+
+def _staged_nll(table: torch.Tensor, y: torch.Tensor, prefix=None) -> torch.Tensor:
+    """The staged constant-R plane NLL from a scalar table (N, n_scal) and
+    observation planes y (N, O, T): element planes, the lane-batched prefix
+    scan ``prefix`` over them (``fused_filter.filter_prefix`` unless given),
+    predictive moments and log-densities. (N,)."""
+    if prefix is None:
+        from eks_tpu_torch.ops.fused_filter import filter_prefix as prefix
+
+    O = y.shape[1]
+    D = _table_dims(table.shape[1], O)
+    out = prefix(_table_planes(table, y, D).contiguous())
+    m_pl, P_pl = _plane_split_moments(out, D)
+    return _plane_nll_post(m_pl, P_pl, y.transpose(1, 2), *_unpack_scalars(table, D, O))
+
+
+def _staged_nll_paired(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor):
+    """(ll (N,), d ll (N,)) of the staged plane NLL along the table tangent
+    ``dtable``: the element planes and their tangents from ``torch.func.jvp``,
+    both through ONE paired lane-batched scan
+    (``fused_filter.filter_prefix_paired``), and the epilogue under
+    ``torch.func.jvp`` again. The forward-mode pairing of the JAX package's
+    staged path."""
+    from eks_tpu_torch.ops.fused_filter import filter_prefix_paired
+
+    O = y.shape[1]
+    D = _table_dims(table.shape[1], O)
+    y_to = y.transpose(1, 2)
+    rows, drows = torch.func.jvp(lambda tab: _table_planes(tab, y, D), (table,), (dtable,))
+    out, dout = filter_prefix_paired(rows.contiguous(), drows.contiguous())
+
+    def post(scanned, tab):
+        m_pl, P_pl = _plane_split_moments(scanned, D)
+        return _plane_nll_post(m_pl, P_pl, y_to, *_unpack_scalars(tab, D, O))
+
+    return torch.func.jvp(post, (out, table), (dout, dtable))
+
+
+def filter_nll_paired_batched(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor):
+    """(ll (N,), d ll (N,)) of N constant-diagonal-R linear filters along the
+    table tangent ``dtable``, the s-optimizer's loss and gradient, from the
+    scalar table (N, n_scal) and observation planes y (N, O, T): the fused NLL
+    (kernel A) up to D = 3 and O = 8, the staged plane pipeline with the
+    paired lane-batched scan beyond. The only place that chooses."""
+    from eks_tpu_torch.ops.fused_nll import fused_nll_paired
+
+    O = y.shape[1]
+    if _table_dims(table.shape[1], O) <= _FUSED_MAX_D and O <= _FUSED_MAX_O:
+        return fused_nll_paired(table, dtable, y)
+    return _staged_nll_paired(table, dtable, y)
+
+
 def _table_nll_tv(table: torch.Tensor, yr: torch.Tensor, prefix) -> torch.Tensor:
     """The staged time-varying-R plane NLL from a table and the (N, 2O, T)
     planes yr (y rows, then r rows): element planes, the prefix scan
@@ -640,11 +698,18 @@ def filter_nll_parallel_planes_tv(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
 _SMOOTHER_D = {2 * d * d + d: d for d in range(1, 9)}
 
 
+def smoother_state_dim(n_planes: int) -> int:
+    """State dimension D of a smoothing-element table with ``n_planes``."""
+    if n_planes not in _SMOOTHER_D:
+        raise ValueError(f"{n_planes} planes is not a smoothing element (2D²+D)")
+    return _SMOOTHER_D[n_planes]
+
+
 def _combine_smoother(later: torch.Tensor, earlier: torch.Tensor) -> torch.Tensor:
     """Associative combination of smoothing elements under a reverse scan:
     the first argument is the element later in time; the earlier element's
     affine map ``x -> E_e x + g_e`` is applied to the later suffix."""
-    D = _SMOOTHER_D[later.shape[-2]]
+    D = smoother_state_dim(later.shape[-2])
     dd = D * D
     El, gl, Ll = _mat_planes(later, 0, D), _vec_planes(later, dd, D), _mat_planes(later, dd + D, D)
     Ee, ge, Le = _mat_planes(earlier, 0, D), _vec_planes(earlier, dd, D), _mat_planes(earlier, dd + D, D)
@@ -670,10 +735,14 @@ def _make_smoother_elements(ms, Ps, A, Q) -> torch.Tensor:
 
 def _rts_from_filtered(ms, Ps, A, Q):
     """Backward RTS pass as a reverse associative scan over the filtered
-    moments. Returns smoothed means (N, T, D) and covariances (N, T, D, D)."""
+    moments, through ``fused_filter.smoother_suffix`` (the CUDA kernel on the
+    card, the plain scan on the CPU). Returns smoothed means (N, T, D) and
+    covariances (N, T, D, D)."""
+    from eks_tpu_torch.ops.fused_filter import smoother_suffix
+
     D = ms.shape[-1]
     dd = D * D
-    out = associative_scan(_combine_smoother, _make_smoother_elements(ms, Ps, A, Q), reverse=True)
+    out = smoother_suffix(_make_smoother_elements(ms, Ps, A, Q))
     N, _, T = out.shape
     return out[:, dd:dd + D].transpose(1, 2), out[:, dd + D:].transpose(1, 2).reshape(N, T, D, D)
 

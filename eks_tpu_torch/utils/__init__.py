@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from eks_tpu_torch.utils.frames import crop_frames
+from eks_tpu_torch.utils.frames import center_predictions, crop_frames
 from eks_tpu_torch.utils.io import (
     convert_lp_dlc,
     format_data,
@@ -14,6 +14,7 @@ from eks_tpu_torch.utils.io import (
 )
 
 __all__ = [
+    "center_predictions",
     "convert_lp_dlc",
     "crop_frames",
     "format_data",

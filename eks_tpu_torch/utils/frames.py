@@ -1,9 +1,11 @@
-"""Frame-span cropping for the optimizer's ``s_frames``.
+"""Frame-span cropping for the optimizer's ``s_frames``, and centering.
 
 Span semantics (same contract as ``eks_tpu/utils/frames.py``): 0-based
 half-open ``(start, end)`` tuples, None = open end, multiple non-overlapping
 spans are concatenated in ascending order. Works on tensors of any device
-(the selection is one index gather).
+(the selection is one index gather). ``center_predictions`` is the host
+(numpy) variance-quantile frame filter and mean centering of the general
+multi-camera path.
 """
 
 from __future__ import annotations
@@ -11,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["crop_frames"]
+from eks_tpu_torch.marker_array import MarkerArray
+
+__all__ = ["center_predictions", "crop_frames"]
 
 
 def _resolve_span(span, i: int, n: int) -> tuple[int, int]:
@@ -51,3 +55,52 @@ def crop_frames(y: torch.Tensor, s_frames, dim: int = 0) -> torch.Tensor:
             )
     keep = np.concatenate([np.arange(lo, hi) for lo, hi in spans])
     return y.index_select(dim, torch.as_tensor(keep, device=y.device))
+
+
+def center_predictions(
+    ensemble_marker_array: MarkerArray,
+    quantile_keep_pca: float,
+) -> tuple[np.ndarray, MarkerArray, MarkerArray, MarkerArray]:
+    """Variance-quantile frame filter + per-camera/per-keypoint mean centering.
+
+    Per keypoint, frames whose max-over-cameras ensemble variance exceeds the
+    per-keypoint ``quantile_keep_pca`` percentile are marked invalid; all
+    keypoints are truncated to the global minimum count of valid frames, and
+    predictions are centered by the mean over those valid frames
+    (same contract as reference eks/utils.py:293-365; implementation is one
+    vectorized take_along_axis gather rather than a per-keypoint loop).
+
+    Returns:
+        (valid_frames_mask (T, K) bool,
+         emA_centered_preds (1, C, T, K, 2),
+         emA_good_centered_preds (1, C, T_good, K, 2),
+         emA_means (1, C, 1, K, 2))
+    """
+    n_models, n_cameras, n_frames, n_keypoints, _ = ensemble_marker_array.shape
+    assert n_models == 1, "Expected a post-ensemble MarkerArray (models axis already collapsed to 1)."
+
+    preds = ensemble_marker_array.slice_fields("x", "y").array  # (1,C,T,K,2)
+    variances = ensemble_marker_array.slice_fields("var_x", "var_y").array
+
+    # per-frame max variance over cameras and x/y -> (T, K)
+    max_vars = np.max(variances, axis=(0, 1, 4))
+    thresholds = np.percentile(max_vars, quantile_keep_pca, axis=0)
+    valid_frames_mask = max_vars <= thresholds  # (T, K)
+
+    # every keypoint keeps its first `min_frames` valid frames; argsort on the
+    # inverted mask is a stable way to pull valid indices to the front per kp
+    min_frames = int(valid_frames_mask.sum(axis=0).min())
+    first_valid = np.argsort(~valid_frames_mask, axis=0, kind="stable")[:min_frames]
+
+    # gather (1,C,Tg,K,2) in one shot: index varies along (frames, keypoints)
+    gather = first_valid[None, None, :, :, None]
+    good = np.take_along_axis(preds, gather, axis=2)
+    means = good.mean(axis=2, keepdims=True)  # (1,C,1,K,2)
+
+    fields = ["x", "y"]
+    return (
+        valid_frames_mask,
+        MarkerArray(preds - means, data_fields=fields),
+        MarkerArray(good - means, data_fields=fields),
+        MarkerArray(means, data_fields=fields),
+    )

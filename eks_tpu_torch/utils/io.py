@@ -1,14 +1,13 @@
 """CSV loading and DLC-format conversion (pandas only).
 
-Input contract (same as ``eks_tpu/utils/io.py`` for one camera): a
-directory or a list of prediction CSVs in the DeepLabCut/Lightning-Pose
-3-row-header format (scorer / bodyparts / coords). Output CSVs use scorer
-``ensemble-kalman_tracker``.
+Input contract (same as ``eks_tpu/utils/io.py``): a directory, a list of
+files, or a {camera: [files]} dict of prediction CSVs in the
+DeepLabCut/Lightning-Pose 3-row-header format (scorer / bodyparts / coords).
+Output CSVs use scorer ``ensemble-kalman_tracker``.
 
-The port reads and writes through pandas only. Per-camera loading (the
-multicam families), SLEAP ``.slp`` input and the native C++ reader and
-writer of the JAX package are not ported yet; files of other extensions are
-skipped as the JAX package skips unknown ones.
+The port reads and writes through pandas only. SLEAP ``.slp`` input and the
+native C++ reader and writer of the JAX package are not ported yet; files of
+other extensions are skipped as the JAX package skips unknown ones.
 """
 
 from __future__ import annotations
@@ -90,41 +89,91 @@ def _load_one(file_path: str) -> tuple[pd.DataFrame, list] | None:
     return convert_lp_dlc(raw, keypoint_names), keypoint_names
 
 
-def _candidate_paths(input_source) -> list:
-    """Normalize the input_source forms to a sorted path list."""
+def _candidate_paths(input_source) -> list | dict:
+    """Normalize the input_source forms to either a sorted path list or a
+    {camera: [paths]} dict."""
     if isinstance(input_source, str) and os.path.isdir(input_source):
         return sorted(
             os.path.join(input_source, f) for f in os.listdir(input_source)
         )
     if isinstance(input_source, list):
         return sorted(input_source)
+    if isinstance(input_source, dict):
+        return input_source
     raise ValueError(
         f"cannot interpret input_source of type {type(input_source).__name__}; "
-        "pass a directory or a list of prediction files"
+        "pass a directory, a list of prediction files, or a "
+        "{camera: [files]} mapping"
     )
 
 
-def format_data(input_source: str | list) -> tuple[list, list]:
-    """Load one camera's prediction files into DataFrames.
+def _paths_for_camera(file_paths, camera: str) -> list[str]:
+    """Loadable files belonging to one camera (by filename substring for a
+    flat list, by key for a dict)."""
+    pool = file_paths if isinstance(file_paths, list) else file_paths.get(camera, [])
+    return [
+        fp
+        for fp in pool
+        if camera in os.path.basename(fp) and fp.endswith(".csv")
+    ]
+
+
+def format_data(
+    input_source: str | list | dict,
+    camera_names: list | None = None,
+) -> tuple[list, list]:
+    """Load prediction files into DataFrames.
 
     Args:
-        input_source: a directory path or a list of file paths, one CSV per
-            ensemble model.
+        input_source: a directory path, a list of file paths, or a dict
+            mapping camera names to lists of file paths.
+        camera_names: if given, files are matched to cameras by filename
+            substring and the result is a list (per camera) of lists (per
+            model); if None, the result is a flat list of model DataFrames.
 
     Returns:
-        (input_dfs_list, keypoint_names): a flat list of model DataFrames
-        with ``{keypoint}_{coord}`` columns, and the keypoint names.
+        (input_dfs_list, keypoint_names)
     """
+    file_paths = _candidate_paths(input_source)
+
     input_dfs_list: list = []
     keypoint_names = None
-    for fp in _candidate_paths(input_source):
-        loaded = _load_one(fp)
-        if loaded is None:
-            continue
-        df, keypoint_names = loaded
-        input_dfs_list.append(df)
+
+    if camera_names is None:
+        for fp in file_paths:
+            loaded = _load_one(fp)
+            if loaded is None:
+                continue
+            df, keypoint_names = loaded
+            input_dfs_list.append(df)
+    else:
+        for camera in camera_names:
+            cam_paths = _paths_for_camera(file_paths, camera)
+            if not cam_paths:
+                raise FileNotFoundError(
+                    f"camera '{camera}' matched nothing under {input_source}; "
+                    "each prediction filename must contain its camera's name"
+                )
+            dfs_this_cam = []
+            for fp in cam_paths:
+                loaded = _load_one(fp)
+                if loaded is None:
+                    raise ValueError(f"cannot load predictions from {fp!r}")
+                df, keypoint_names = loaded
+                dfs_this_cam.append(df)
+            input_dfs_list.append(dfs_this_cam)
+
+        seed_counts = {len(dfs) for dfs in input_dfs_list}
+        if len(seed_counts) > 1:
+            detail = ", ".join(
+                f"{cam}={len(dfs)}"
+                for cam, dfs in zip(camera_names, input_dfs_list, strict=True)
+            )
+            logger.warning(f"cameras carry different ensemble sizes: {detail}")
+
     if len(input_dfs_list) == 0:
         raise FileNotFoundError(
             f"found no loadable prediction files in {input_source}"
         )
+    assert keypoint_names is not None
     return input_dfs_list, keypoint_names

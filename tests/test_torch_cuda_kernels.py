@@ -1,5 +1,6 @@
-"""Kernels A, B and C of the PyTorch port on the card, against their plain
-versions on the same inputs, at the edge shapes the full-width runs of
+"""Kernels A, B (every instance of the scan: filter and smoother algebra,
+plain and paired, over lanes) and C of the PyTorch port on the card, against
+their plain versions on the same inputs, at the edge shapes the full-width runs of
 chip_smoke.py do not reach: a single step, a single lane, fewer steps than
 threads, time axes one either side of a multiple of the block.
 
@@ -49,8 +50,8 @@ def _lanes(N, T, O, D, seed=0):
     return ys, m0, S0, A, Q, C, r, r_tv
 
 
-def _nll_operands(dev, N, T):
-    ys, m0, S0, A, Q, C, r, _ = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, 2, 2))
+def _nll_operands(dev, N, T, O=2, D=2):
+    ys, m0, S0, A, Q, C, r, _ = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, O, D))
     s_log = torch.linspace(-1.0, 1.0, N, device=dev)
 
     def pack(sl):
@@ -75,6 +76,36 @@ def test_kernel_a_matches_plain(dev, N, T):
     _close(dll_p, want_dp)
     # the fixed-order block reduction makes the kernel deterministic
     assert torch.equal(fused_nll.fused_nll(table, y), ll)
+
+
+@pytest.mark.parametrize("N,T,O", [(1, 1, 4), (3, 255, 4), (2, 257, 6), (10, 1000, 4), (3, 300, 8)])
+def test_kernel_a_at_d3_matches_plain(dev, N, T, O):
+    """The multi-camera instances, (D, O) = (3, 4), (3, 6), (3, 8)."""
+    table, dtable, y = _nll_operands(dev, N, T, O=O, D=3)
+    before = (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES)
+    ll = fused_nll.fused_nll(table, y)
+    ll_p, dll_p = fused_nll.fused_nll_paired(table, dtable, y)
+    torch.cuda.synchronize()
+    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want_p, want_dp = fused_nll._fused_nll_paired_plain(table, dtable, y)
+    _close(ll, want_p)
+    _close(ll_p, want_p)
+    _close(dll_p, want_dp)
+
+
+def test_staged_nll_at_12_observations_matches_plain(dev):
+    """Beyond kernel A's sizes (six cameras: O = 12) the loss is the staged
+    plane NLL: one paired lane-batched scan launch, no kernel A launch."""
+    table, dtable, y = _nll_operands(dev, 3, 300, O=12, D=3)
+    before = (fused_nll.PAIRED_LAUNCHES, fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 3)])
+    ll, dll = pkalman._staged_nll_paired(table, dtable, y)
+    torch.cuda.synchronize()
+    assert (fused_nll.PAIRED_LAUNCHES, fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 3)]) == (
+        before[0], before[1] + 1)
+    want, want_d = pkalman._staged_nll_paired(table.cpu(), dtable.cpu(), y.cpu())
+    _close(ll.cpu(), want)
+    _close(dll.cpu(), want_d)
+    _close(pkalman._staged_nll(table, y).cpu(), want)
 
 
 def _nll_tv_operands(dev, N, T):
@@ -134,6 +165,66 @@ def test_kernel_b_matches_plain(dev, T, O, D):
     _close(out, fused_filter.filter_prefix_plain(planes))
 
 
+def _smoother_planes(dev, N, T, O, D, seed):
+    """Smoothing elements of a filtered random walk, and a tangent for them."""
+    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, O, D, seed=seed))
+    fr = pkalman.kalman_filter_parallel(ys, m0, S0, 0.95 * A, Q, C, r_tv, compute_ll=False)
+    planes = pkalman._make_smoother_elements(fr.filtered_means, fr.filtered_covs, 0.95 * A, Q)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    tangents = (0.1 * torch.randn(planes.shape, generator=gen)).to(dev)
+    return planes, tangents
+
+
+@pytest.mark.parametrize("T,O,D", [(1, 2, 2), (7, 2, 2), (255, 2, 2), (256, 2, 2), (257, 2, 2),
+                                   (1, 4, 3), (255, 4, 3), (256, 4, 3), (257, 4, 3), (1000, 4, 3)])
+def test_smoother_kernel_matches_plain(dev, T, O, D):
+    planes, _ = _smoother_planes(dev, 3, T, O, D, seed=T)
+    key = ("smoother", False, D)
+    before = fused_filter.LAUNCHES_BY_INSTANCE[key]
+    out = fused_filter.smoother_suffix(planes)
+    torch.cuda.synchronize()
+    assert fused_filter.LAUNCHES_BY_INSTANCE[key] == before + 1
+    _close(out, fused_filter.smoother_suffix_plain(planes))
+    # the last step is the last element itself (E = 0, g = m_T, L = P_T)
+    assert torch.equal(out[..., -1], planes[..., -1])
+
+
+def _symmetric_cj(tangents, D):
+    """A filter element's C and J are symmetric, and its combine is
+    associative only on such elements (it takes Zᵀ for inv(I + J2 C1)), so a
+    tangent direction must keep them symmetric for two association orders to
+    agree."""
+    dd = D * D
+    out = tangents.clone()
+    for off in (dd + D, 2 * dd + 2 * D):
+        blk = tangents[:, off:off + dd].reshape(-1, D, D, tangents.shape[-1])
+        out[:, off:off + dd] = (0.5 * (blk + blk.transpose(1, 2))).reshape(-1, dd, tangents.shape[-1])
+    return out
+
+
+@pytest.mark.parametrize("kind", ["filter", "smoother"])
+@pytest.mark.parametrize("T,O,D", [(1, 2, 2), (255, 2, 2), (257, 2, 2), (1, 4, 3), (256, 4, 3),
+                                   (257, 4, 3), (1000, 12, 3)])
+def test_paired_scan_kernels_match_plain(dev, kind, T, O, D):
+    if kind == "smoother":
+        planes, tangents = _smoother_planes(dev, 3, T, O, D, seed=T)
+        scan, plain = fused_filter.smoother_suffix_paired, fused_filter.smoother_suffix_plain
+    else:
+        ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(3, T, O, D, seed=T))
+        planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
+        gen = torch.Generator(device="cpu").manual_seed(T)
+        tangents = _symmetric_cj((0.1 * torch.randn(planes.shape, generator=gen)).to(dev), D)
+        scan, plain = fused_filter.filter_prefix_paired, fused_filter.filter_prefix_plain
+    key = (kind, True, D)
+    before = fused_filter.LAUNCHES_BY_INSTANCE[key]
+    out, dout = scan(planes, tangents)
+    torch.cuda.synchronize()
+    assert fused_filter.LAUNCHES_BY_INSTANCE[key] == before + 1
+    want, dwant = torch.func.jvp(plain, (planes,), (tangents,))
+    _close(out, want)
+    _close(dout, dwant)
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
     table, dtable, y = _nll_operands(dev, 2, 16)
     with pytest.raises(TypeError):
@@ -157,3 +248,9 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_filter.filter_prefix(planes.double())
     with pytest.raises(ValueError):
         fused_filter.filter_prefix(planes.transpose(1, 2))
+    with pytest.raises(ValueError):  # 16 planes is no smoothing element
+        fused_filter.smoother_suffix(planes)
+    with pytest.raises(NotImplementedError):  # D = 1 is not instantiated
+        fused_filter.smoother_suffix(torch.zeros(2, 3, 8, device=dev))
+    with pytest.raises(ValueError):
+        fused_filter.filter_prefix_paired(planes, planes[:1])

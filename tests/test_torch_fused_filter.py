@@ -1,9 +1,12 @@
 """Kernel B of the PyTorch port (eks_tpu_torch/ops/fused_filter.py) and the
 parallel filter and smoother around it (ops/pkalman.py): the plain prefix
 scan against the JAX package's Pallas prefix-scan kernel (interpret mode)
-and against the port's float64 sequential filter; the element builders and
-the parallel smoother against their JAX counterparts. The CUDA kernel runs
-only on the card (chip_smoke.py phase 3)."""
+and against the port's float64 sequential filter; the plain smoother suffix
+scan against the Pallas smoother kernel and the float64 sequential RTS pass;
+the plain paired scans against ``jax.jvp`` of the lane-batched Pallas scan;
+the element builders and the parallel smoother against their JAX
+counterparts. The CUDA kernel runs only on the card (chip_smoke.py and
+tests/test_torch_cuda_kernels.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +15,8 @@ import torch
 from jax import vmap
 
 from eks_tpu.ops import pkalman as jax_pk
-from eks_tpu.ops.pallas_filter import filter_prefix_pallas
-from eks_tpu_torch.convert import params_from_numpy
+from eks_tpu.ops.pallas_filter import _scan_fn_batched, filter_prefix_pallas, smoother_suffix_pallas
+from eks_tpu_torch.convert import params_from_numpy, smoother_planes_from_numpy
 from eks_tpu_torch.ops import fused_filter, pkalman
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
 from tests.test_torch_fused_nll import _FakeCuda
@@ -116,6 +119,118 @@ def test_parallel_filter_and_smoother_match_jax():
     _close(res.smoothed_covs.numpy(), seq.smoothed_covs.numpy())
 
 
+def _close_entrywise(got, want, tol=1e-5):
+    """Entry by entry, within ``tol`` of 1 + |value|."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    err = np.abs(got - want) / (1.0 + np.abs(want))
+    assert err.max() <= tol, err.max()
+
+
+def _smoother_elements(T, D, seed, N=2):
+    """Smoothing-element planes (N, 2D² + D, T) of a filtered random walk at
+    state size D (O = 2D observations), the filter's operands, and the
+    filtered moments. Built by the port; the JAX package's element builder is
+    held against the port's in test_parallel_filter_and_smoother_match_jax."""
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(seed), N, T, O=2 * D, D=D)
+    A = (0.95 * A).astype(np.float32)
+    params = params_from_numpy(m0, S0, A, Q, C, r)
+    fr = pkalman.kalman_filter_parallel(torch.as_tensor(ys), *params, compute_ll=False)
+    planes = pkalman._make_smoother_elements(fr.filtered_means, fr.filtered_covs, params[2], params[3])
+    return planes, (ys, m0, S0, A, Q, C, r), fr
+
+
+def _aos(planes, D):
+    """(N, P, T) smoothing planes -> numpy E (N, T, D, D), g (N, T, D), L."""
+    N, _, T = planes.shape
+    dd = D * D
+    rows = planes.transpose(1, 2).numpy()
+    return (rows[..., :dd].reshape(N, T, D, D), rows[..., dd:dd + D],
+            rows[..., dd + D:].reshape(N, T, D, D))
+
+
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("T", [1, 255, 256, 257])
+def test_plain_smoother_suffix_matches_pallas_kernel_and_sequential_rts(T, D):
+    """Identical smoothing elements through the JAX package's Pallas smoother
+    kernel (interpret mode) and through the port's plain suffix scan, and the
+    port's result against its float64 sequential RTS smoother; T = 1 and T
+    on either side of 256, the CUDA kernel's block."""
+    planes, (ys, m0, S0, A, Q, C, r), fr = _smoother_elements(T, D, seed=10 * T + D)
+    E, g, L = _aos(planes, D)
+    # convert.py carries the JAX package's (E, g, L) layout to these planes
+    np.testing.assert_array_equal(smoother_planes_from_numpy(E, g, L).numpy(), planes.numpy())
+    assert planes.shape == (2, 2 * D * D + D, T)
+    out = fused_filter.smoother_suffix(planes)
+    sm_all, sP_all = _aos(out, D)[1:]
+    sm_j, sP_j = smoother_suffix_pallas(*(jnp.asarray(x[0]) for x in (E, g, L)), interpret=True)
+    _close_entrywise(sm_all[0], sm_j)
+    _close_entrywise(sP_all[0], sP_j)
+    # the last step carries the filtered terminal moments untouched
+    np.testing.assert_array_equal(sm_all[:, -1], g[:, -1])
+    seq = kalman_smoother(torch.as_tensor(ys).double(), *(p.double() for p in params_from_numpy(m0, S0, A, Q, C, r)))
+    # elements and filter are float32, the oracle float64 throughout
+    _close_entrywise(sm_all, seq.smoothed_means.numpy(), tol=2e-5)
+    _close_entrywise(sP_all, seq.smoothed_covs.numpy(), tol=2e-5)
+    # the smoother of ops/pkalman.py goes through the same wrapper
+    sm_p, sP_p = pkalman._rts_from_filtered(
+        fr.filtered_means, fr.filtered_covs, torch.as_tensor(A), torch.as_tensor(Q))
+    np.testing.assert_array_equal(sm_p.numpy(), sm_all)
+    np.testing.assert_array_equal(sP_p.numpy(), sP_all)
+
+
+def _paired_operands(kind, D, N=3, T=130):
+    """(planes, tangents, paired scan, plain scan) for one instance. The
+    filter's tangent is its elements' derivative in log s, which keeps C and
+    J symmetric as every real tangent does (the filter combine is
+    associative only on such elements); the smoother's is random."""
+    rng = np.random.default_rng(7 + D)
+    if kind == "filter":
+        ys, m0, S0, A, Q, C, r = _lanes(rng, N, T, O=2 * D, D=D)
+        params = params_from_numpy(m0, S0, A, Q, C, r)
+        sl = torch.zeros(N)
+
+        def elems(s_log):
+            return pkalman._make_filter_elements(
+                torch.as_tensor(ys), params[0], params[1], params[2],
+                torch.exp(s_log)[:, None, None] * params[3], params[4], params[5])
+
+        planes, tangents = torch.func.jvp(elems, (sl,), (torch.ones_like(sl),))
+        return planes, tangents, fused_filter.filter_prefix_paired, fused_filter.filter_prefix
+    planes, _, _ = _smoother_elements(T, D, seed=D, N=N)
+    tangents = torch.as_tensor((0.1 * rng.normal(size=planes.shape)).astype(np.float32))
+    return planes, tangents, fused_filter.smoother_suffix_paired, fused_filter.smoother_suffix
+
+
+@pytest.mark.parametrize("kind,D", [("filter", 3), ("smoother", 2), ("smoother", 3)])
+def test_plain_paired_scans_match_jax_jvp_of_lane_batched_kernel(kind, D):
+    """(N, P, T) planes and a tangent through ``jax.jvp`` of the JAX
+    package's lane-batched Pallas scan (its paired instance, interpret mode)
+    and through the port's plain paired scans. The smoother scan of the JAX
+    package runs on time-reversed planes; the port's takes forward time."""
+    import jax
+
+    planes, tangents, scan, _ = _paired_operands(kind, D)
+    out, dout = scan(planes, tangents)
+    flip = (lambda a: a[..., ::-1]) if kind == "smoother" else (lambda a: a)
+    out_j, dout_j = jax.jvp(
+        _scan_fn_batched(kind, D, planes.shape[-1], True),
+        (jnp.asarray(flip(planes.numpy())),), (jnp.asarray(flip(tangents.numpy())),))
+    _close_entrywise(out.numpy(), flip(np.asarray(out_j)))
+    _close_entrywise(dout.numpy(), flip(np.asarray(dout_j)))
+
+
+@pytest.mark.parametrize("kind,D", [("filter", 2), ("filter", 3), ("smoother", 2), ("smoother", 3)])
+def test_plain_paired_scans_match_finite_differences(kind, D):
+    """Every paired instance's plain version: its value is the plain scan's,
+    and its tangent is the central difference of the float64 plain scan."""
+    planes, tangents, scan, plain = _paired_operands(kind, D, T=70)
+    out, dout = scan(planes, tangents)
+    np.testing.assert_array_equal(out.numpy(), plain(planes).numpy())
+    h = 1e-6
+    fd = (plain(planes.double() + h * tangents.double()) - plain(planes.double() - h * tangents.double())) / (2 * h)
+    _close_entrywise(dout.numpy(), fd.numpy(), tol=1e-4)
+
+
 @pytest.mark.parametrize("T", [1, 2, 7, 64])
 def test_associative_scan_matches_sequential_fold(T):
     """The log-depth scan is an inclusive prefix, forward and reverse, for a
@@ -151,7 +266,7 @@ def test_kernel_b_wrapper_refuses_cuda_without_a_card():
         fused_filter.filter_prefix(_FakeCuda(planes))
     assert fused_filter.LAUNCHES == before
     with pytest.raises(ValueError):
-        fused_filter._filter_prefix_cuda(planes)  # a CPU tensor is never launched
+        fused_filter._scan_cuda(planes, "filter", False)  # a CPU tensor is never launched
     with pytest.raises(RuntimeError):
         fused_filter.filter_prefix(planes.to("meta"))  # nor is any other device
     with pytest.raises(ValueError):
@@ -161,4 +276,29 @@ def test_kernel_b_wrapper_refuses_cuda_without_a_card():
             fused_filter.filter_prefix(_FakeCuda(torch.zeros(2, P, 16)))
     with pytest.raises((RuntimeError, AssertionError)):  # D = 3 goes on to the card
         fused_filter.filter_prefix(_FakeCuda(torch.zeros(2, 33, 16)))
-    assert fused_filter.LAUNCHES == before and fused_filter.LAUNCHES_BY_D[3] == 0
+    assert fused_filter.LAUNCHES == before and fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 3)] == 0
+
+
+def test_smoother_and_paired_wrappers_refuse_cuda_without_a_card():
+    """The smoother and paired scans, like the filter scan: a CUDA request
+    reaches the kernel path and fails there, shapes the kernel is not built
+    for are refused before any launch, and no count moves."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible; chip_smoke.py runs the kernels")
+    before = dict(fused_filter.LAUNCHES_BY_INSTANCE)
+    for P in (10, 21):  # D = 2, 3 go on to the card
+        with pytest.raises((RuntimeError, AssertionError)):
+            fused_filter.smoother_suffix(_FakeCuda(torch.zeros(2, P, 16)))
+    with pytest.raises(NotImplementedError):  # D = 1
+        fused_filter.smoother_suffix(_FakeCuda(torch.zeros(2, 3, 16)))
+    with pytest.raises(ValueError):  # 16 planes is a filter element
+        fused_filter.smoother_suffix(torch.zeros(2, 16, 16))
+    with pytest.raises(RuntimeError):
+        fused_filter.smoother_suffix(torch.zeros(2, 10, 16).to("meta"))
+    with pytest.raises(ValueError):  # a CPU tensor is never launched
+        fused_filter._scan_cuda(torch.zeros(2, 20, 16), "smoother", True)
+    with pytest.raises(ValueError):  # 33 planes cannot be P primal + P tangent
+        fused_filter._scan_cuda(_FakeCuda(torch.zeros(2, 33, 16)), "filter", True)
+    assert fused_filter.LAUNCHES_BY_INSTANCE == before
+    assert sorted(before) == sorted(
+        (k, p, d) for k in ("filter", "smoother") for p in (False, True) for d in (2, 3))

@@ -34,7 +34,9 @@ def _problem(rng, N, T, O, D):
     return ys, m0, S0, A, Q, C, r
 
 
-SHAPES = [(5, 300, 2, 2), (3, 256, 2, 2), (2, 97, 6, 3)]
+# (N, T, O, D): the singlecam shape, and the multi-camera shapes the CUDA
+# kernel is instantiated for (two, three and four cameras at D = 3)
+SHAPES = [(5, 300, 2, 2), (3, 256, 2, 2), (2, 97, 4, 3), (2, 97, 6, 3), (2, 97, 8, 3)]
 
 
 @pytest.mark.parametrize("N,T,O,D", SHAPES)
@@ -154,6 +156,77 @@ def test_kernel_a_wrappers_refuse_cuda_without_a_card():
         fused_nll.fused_nll_paired(_FakeCuda(table), _FakeCuda(table), _FakeCuda(y_planes))
     assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES) == before
     # shapes the CUDA kernel is not built for are refused before any launch
-    bad = torch.zeros(2, pkalman._scalar_offsets(3, 6)[1])
-    with pytest.raises(NotImplementedError):
-        fused_nll.fused_nll(_FakeCuda(bad), _FakeCuda(torch.zeros(2, 6, 16)))
+    for D, O in ((3, 2), (2, 4), (1, 2)):
+        bad = torch.zeros(2, pkalman._scalar_offsets(D, O)[1])
+        with pytest.raises(NotImplementedError):
+            fused_nll.fused_nll(_FakeCuda(bad), _FakeCuda(torch.zeros(2, O, 16)))
+    # the multi-camera instances go on to the card
+    for O in (4, 6, 8):
+        tab = torch.zeros(2, pkalman._scalar_offsets(3, O)[1])
+        with pytest.raises((RuntimeError, AssertionError)):
+            fused_nll.fused_nll_paired(_FakeCuda(tab), _FakeCuda(tab), _FakeCuda(torch.zeros(2, O, 16)))
+    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES) == before
+
+
+def test_staged_nll_at_12_observations_matches_jax_staged_pipeline():
+    """Six cameras (O = 12) are beyond the fused kernel: the loss is the
+    staged plane NLL over the lane-batched scan. Value and d/d(log s) of the
+    port's staged path (plain paired scan on the CPU) against ``jax.jvp`` of
+    the JAX package's staged pipeline with its Pallas scan forced (interpret
+    mode), on identical operands; and the dispatch takes that path."""
+    from eks_tpu.ops.pallas_filter import force_pallas_scan
+    from eks_tpu.ops.pkalman import _filter_nll_planes_batched_staged
+
+    N, T, O, D = 2, 90, 12, 3
+    ys, m0, S0, A, Q, C, r = _problem(np.random.default_rng(5), N, T, O, D)
+    s_log = np.array([-0.3, 0.4], np.float32)
+
+    def jax_loss(sl):
+        sQ = jnp.exp(sl)[:, None, None] * jnp.asarray(Q)
+        return _filter_nll_planes_batched_staged(
+            jnp.asarray(ys), jnp.asarray(m0), jnp.asarray(S0), jnp.asarray(A), sQ,
+            jnp.asarray(C), jnp.asarray(r))
+
+    with force_pallas_scan(True):
+        ll_j, dll_j = jax.jvp(jax_loss, (jnp.asarray(s_log),), (jnp.ones(N, jnp.float32),))
+
+    y_t = torch.as_tensor(ys)
+    m0_t, S0_t, A_t, Q_t, C_t, r_t = params_from_numpy(m0, S0, A, Q, C, r)
+
+    def pack(sl):
+        return pkalman._pack_scalars(y_t[:, 0], m0_t, S0_t, A_t, torch.exp(sl)[:, None, None] * Q_t, C_t, r_t)
+
+    sl_t = torch.as_tensor(s_log)
+    table, dtable = torch.func.jvp(pack, (sl_t,), (torch.ones_like(sl_t),))
+    y_planes = torch.as_tensor(np.ascontiguousarray(ys.transpose(0, 2, 1)))
+    ll_p, dll_p = pkalman._staged_nll_paired(table, dtable, y_planes)
+    np.testing.assert_allclose(ll_p.numpy(), np.asarray(ll_j), rtol=1e-5)
+    np.testing.assert_allclose(dll_p.numpy(), np.asarray(dll_j), rtol=1e-5, atol=1e-5 * np.abs(np.asarray(dll_j)).max())
+    # the optimizer's dispatch takes this path, and its value is the
+    # value-only staged pipeline's
+    ll_d, dll_d = pkalman.filter_nll_paired_batched(table, dtable, y_planes)
+    np.testing.assert_array_equal(ll_d.numpy(), ll_p.numpy())
+    np.testing.assert_array_equal(dll_d.numpy(), dll_p.numpy())
+    np.testing.assert_allclose(pkalman._staged_nll(table, y_planes).numpy(), ll_p.numpy(), rtol=1e-6)
+
+
+def test_nll_dispatch_takes_the_fused_kernel_up_to_8_observations(monkeypatch):
+    """``filter_nll_paired_batched`` at two to four cameras (D = 3, O = 4, 6,
+    8) is the fused NLL, as in the JAX package, and at five cameras and more
+    (O = 10, 12) the staged path."""
+    taken = []
+    monkeypatch.setattr(fused_nll, "fused_nll_paired", lambda *a: taken.append("fused"))
+    monkeypatch.setattr(pkalman, "_staged_nll_paired", lambda *a: taken.append("staged"))
+    for O in (4, 6, 8, 10, 12):
+        table = torch.zeros(2, pkalman._scalar_offsets(3, O)[1])
+        pkalman.filter_nll_paired_batched(table, table, torch.zeros(2, O, 16))
+    assert taken == ["fused", "fused", "fused", "staged", "staged"]
+    # and the fused path's value is the fused NLL's
+    monkeypatch.undo()
+    ys, m0, S0, A, Q, C, r = _problem(np.random.default_rng(2), 2, 60, 4, 3)
+    params = params_from_numpy(m0, S0, A, Q, C, r)
+    y_t = torch.as_tensor(ys)
+    table = pkalman._pack_scalars(y_t[:, 0], *params)
+    y_planes = y_t.transpose(1, 2).contiguous()
+    ll, _ = pkalman.filter_nll_paired_batched(table, torch.zeros_like(table), y_planes)
+    np.testing.assert_array_equal(ll.numpy(), fused_nll.filter_nll_fused_batched(y_t, *params).numpy())
