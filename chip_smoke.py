@@ -22,7 +22,9 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
   6. holds kernel C (the fused time-varying-R NLL, plain and paired) against
      its plain version on the pupil optimizer's own operands: one session
      (2 lanes) and eight (16 lanes), 10,000 frames, D = 3, O = 8, and once
-     more with noise variances clipped to 1e-12;
+     more with noise variances clipped to 1e-12, printing each shape's
+     segments per lane G, threads per block, and whether two launches gave
+     the same bits;
   7. runs ``fit_eks_pupil`` on the bundled ``data/pupil`` session with
      fixed parameters and compares it with the committed golden at 1e-4,
      then with tuned parameters against the committed golden at 1e-2;
@@ -38,7 +40,11 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      elements), the float filter scan at D = 3 on those two final passes'
      elements, and the paired lane-batched filter scan at D = 3 (10 lanes,
      the six-camera optimizer's), at 10,000 steps, timing the smoother
-     kernel against the plain reverse scan on the same operands;
+     kernel against the plain reverse scan on the same operands; and the
+     paired instances no path runs (the filter at D = 2, the smoother at
+     D = 2 and 3) at the headline, two-camera and pupil final passes' shapes.
+     Every scan instance it holds (here and in phases 3 and 3b) prints its
+     G, threads per block, and whether two launches gave the same bits;
  12. holds kernel A at (D, O) = (3, 4), plain and paired, against its plain
      version on the two-camera optimizer's operands;
  13. runs the mirrored family (fixed s; auto s with variance inflation) and
@@ -221,6 +227,45 @@ def time_cuda(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps):
+    """(device milliseconds per call, and per kernel name) of the port's own
+    kernels (those in an anonymous namespace of csrc/), each of which a call
+    launches once, under the profiler over ``reps`` calls: the mean of each
+    kernel's recorded launches, so the card's time alone, without the launch
+    gaps and the host's dispatch time that ``time_cuda`` also sees, and without
+    counting a launch the profiler failed to record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "(anonymous namespace)::" in e.key:
+            name = e.key.split("(anonymous namespace)::")[1].split("<")[0].split("(")[0]
+            total, count = by_name.get(name, (0.0, 0))
+            by_name[name] = (total + e.self_device_time_total / 1e3, count + e.count)
+    per_launch = {k: total / count for k, (total, count) in by_name.items()}
+    return sum(per_launch.values()), per_launch
+
+
+def enqueue_ms(torch, fn, reps):
+    """Mean host milliseconds to dispatch one call, over ``reps`` calls made
+    back to back before one synchronise: where this reaches ``time_cuda``'s
+    figure, the host, not the card, sets the pace of a loop of calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
 def device_profile(torch, prof, wall_s, iters):
     """What ran on the card under a device-only profile: busy seconds, the
     idle share against the unprofiled wall ``wall_s`` of the same work, the
@@ -366,8 +411,19 @@ def main() -> int:
             "prefix_scan_filter_d3": fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 3)],
             "prefix_scan_smoother": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", False, 2)],
             "prefix_scan_smoother_d3": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", False, 3)],
+            "prefix_scan_filter_paired_d2": fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 2)],
             "prefix_scan_filter_paired_d3": fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 3)],
+            "prefix_scan_smoother_paired_d2": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", True, 2)],
+            "prefix_scan_smoother_paired_d3": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", True, 3)],
         }
+
+    def along_log_s(make, n):
+        """(planes, tangents): ``make(log s)`` for n lanes at s = 1 and its
+        derivative along log s, the direction the optimizers differentiate
+        in (C and J stay symmetric along it)."""
+        sl = torch.zeros(n, device=dev)
+        planes_, tangents_ = torch.func.jvp(make, (sl,), (torch.ones_like(sl),))
+        return planes_.contiguous(), tangents_.contiguous()
 
     def scan_check(kind, planes, tangents=None):
         """One instance against its plain version (and both against the
@@ -404,15 +460,26 @@ def main() -> int:
         torch.cuda.synchronize()
         e_abs, e_rel = rel_err(out_k, out_p)
         bound = bound_ms(2 * out_k.numel() * 4, ops)
-        return {
+        plan = fused_filter.scan_plan(n_l, n_t, kind, paired, d, dev)
+        res = {
             "kind": kind, "paired": paired, "D": d, "lanes": n_l, "planes": out_k.shape[1], "T": n_t,
+            "segments_G": plan["G"], "threads": plan["threads"], "deterministic": deterministic(run_k, out_k),
             "max_abs_err": e_abs, "rel_err": e_rel,
             "rel_err_kernel_vs_f64_plain": rel_err(out_k.double(), out_64)[1],
             "rel_err_plain_vs_f64_plain": rel_err(out_p.double(), out_64)[1],
-            "ms": time_cuda(torch, run_k, 50), "plain_ms": time_cuda(torch, run_p, 3),
+            "ms": time_cuda(torch, run_k, 50), "enqueue_ms": enqueue_ms(torch, run_k, 50),
+            "device_ms": device_ms(torch, run_k, 20)[0],
+            "plain_ms": time_cuda(torch, run_p, 1 if paired else 3),
             "bound_ms": bound[0], "bound_by": bound[1],
-            "ok": e_rel <= RTOL_SCAN_NEW and bool(torch.isfinite(out_k).all()),
         }
+        res["ok"] = res["deterministic"] and e_rel <= RTOL_SCAN_NEW and bool(torch.isfinite(out_k).all())
+        return res
+
+    def deterministic(run, first):
+        """Whether another launch on the same inputs gives the same bits."""
+        again = run()
+        torch.cuda.synchronize()
+        return bool(torch.equal(again, first))
 
     def dll_ok(cams, kernel_vs_64, plain_vs_64, kernel_vs_plain):
         """The derivative's three relative gaps against the limits stated at
@@ -464,6 +531,8 @@ def main() -> int:
     ms_pack = time_cuda(torch, lambda: torch.func.jvp(pack, (s_log,), (torch.ones_like(s_log),)), 20)
     ms_a = time_cuda(torch, lambda: fused_nll.fused_nll(table, y_pl), 50)
     ms_ap = time_cuda(torch, lambda: fused_nll.fused_nll_paired(table, dtable, y_pl), 50)
+    dev_a, _ = device_ms(torch, lambda: fused_nll.fused_nll(table, y_pl), 20)
+    dev_ap, _ = device_ms(torch, lambda: fused_nll.fused_nll_paired(table, dtable, y_pl), 20)
     ms_a_plain = time_cuda(torch, lambda: fused_nll._fused_nll_plain(table, y_pl), 3)
     ms_ap_plain = time_cuda(torch, lambda: fused_nll._fused_nll_paired_plain(table, dtable, y_pl), 3)
     in_bytes = (N * O * T + N * table.shape[1]) * 4
@@ -475,6 +544,7 @@ def main() -> int:
         "paired_ll_max_abs_err": e_pll, "paired_ll_rel_err": r_pll, "paired_dll_max_abs_err": e_dll,
         "paired_dll_rel_err": r_dll, "ms": ms_a, "plain_ms": ms_a_plain,
         "paired_ms": ms_ap, "paired_plain_ms": ms_ap_plain, "pack_jvp_ms": ms_pack,
+        "device_ms": dev_a, "paired_device_ms": dev_ap,
         "bound_ms": b_a[0], "bound_by": b_a[1], "paired_bound_ms": b_ap[0],
         "paired_bound_by": b_ap[1], "ok": ok_a,
         "launches": {"fused_nll": fused_nll.LAUNCHES, "fused_nll_paired": fused_nll.PAIRED_LAUNCHES},
@@ -492,13 +562,17 @@ def main() -> int:
     ms_b = time_cuda(torch, lambda: fused_filter.filter_prefix(planes), 50)
     ms_b_plain = time_cuda(torch, lambda: fused_filter.filter_prefix_plain(planes), 3)
     b_b = bound_ms(2 * planes.numel() * 4, scan_ops(N, T, D))
+    det_b = deterministic(lambda: fused_filter.filter_prefix(planes), out_k)
+    dev_b = device_ms(torch, lambda: fused_filter.filter_prefix(planes), 20)[0]
     emit({
         "phase": "kernel_B", "N": N, "P": planes.shape[1], "T": T, "rtol": RTOL_SCAN,
-        "max_abs_err": e_b, "rel_err": r_b, "ms": ms_b, "plain_ms": ms_b_plain,
+        "max_abs_err": e_b, "rel_err": r_b, "ms": ms_b, "device_ms": dev_b, "plain_ms": ms_b_plain,
         "bound_ms": b_b[0], "ok": ok_b, "launches": {"prefix_scan_filter": fused_filter.LAUNCHES},
+        "segments_G": fused_filter.scan_plan(N, T, "filter", False, D, dev)["G"],
+        "threads": fused_filter.scan_plan(N, T, "filter", False, D, dev)["threads"], "deterministic": det_b,
     })
-    if not ok_b:
-        raise AssertionError("kernel B disagrees with its plain version")
+    if not (ok_b and det_b):
+        raise AssertionError("kernel B disagrees with its plain version or is not deterministic")
 
     # --------------------------------------------------------------- 3b ---
     # kernel B at D = 3, on the pupil final pass's own elements: the eight
@@ -530,25 +604,37 @@ def main() -> int:
         e3, r3 = rel_err(out_k, out_p)
         out_64 = fused_filter.filter_prefix_plain(planes3.double())
         bound3 = bound_ms(2 * planes3.numel() * 4, scan_ops(n, T_PUPIL, 3))
+        plan3 = fused_filter.scan_plan(n, T_PUPIL, "filter", False, 3, dev)
         b3[n] = {
+            "segments_G": plan3["G"], "threads": plan3["threads"],
+            "deterministic": deterministic(lambda: fused_filter.filter_prefix(planes3), out_k),
             "max_abs_err": e3, "rel_err": r3,
             "rel_err_kernel_vs_f64_plain": rel_err(out_k.double(), out_64)[1],
             "rel_err_plain_vs_f64_plain": rel_err(out_p.double(), out_64)[1],
             "ms": time_cuda(torch, lambda: fused_filter.filter_prefix(planes3), 50),
+            "device_ms": device_ms(torch, lambda: fused_filter.filter_prefix(planes3), 20)[0],
             "plain_ms": time_cuda(torch, lambda: fused_filter.filter_prefix_plain(planes3), 3),
             "bound_ms": bound3[0], "bound_by": bound3[1],
             "ok": r3 <= RTOL_SCAN_D3 and bool(torch.isfinite(out_k).all()),
         }
+        b3[n]["ok"] = b3[n]["ok"] and b3[n]["deterministic"]
         # and the smoother instance on the same final pass's elements
         fr_p = pkalman.kalman_filter_parallel(y_p, m0_p, S0_p, A_p, Q_p, C_p.expand(n, 8, 3), r_p,
                                               compute_ll=False)
         sm_pupil[n] = scan_check(
             "smoother", pkalman._make_smoother_elements(fr_p.filtered_means, fr_p.filtered_covs, A_p, Q_p))
+        if n == 1:
+            # the paired smoother, which no path runs, at the pupil final
+            # pass's shape: tangent along the log of Q's scale
+            sm_pupil_paired = scan_check("smoother", *along_log_s(
+                lambda sl: pkalman._make_smoother_elements(
+                    fr_p.filtered_means, fr_p.filtered_covs, A_p, torch.exp(sl)[:, None, None] * Q_p), n))
     emit({"phase": "kernel_B_d3", "P": 33, "T": T_PUPIL, "rtol": RTOL_SCAN_D3,
           "lanes": {str(n): v for n, v in b3.items()},
           "smoother_lanes": {str(n): v for n, v in sm_pupil.items()},
+          "smoother_paired_1_lane": sm_pupil_paired,
           "launches": {"prefix_scan_filter_d3": fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 3)]}})
-    if not all(v["ok"] for v in list(b3.values()) + list(sm_pupil.values())):
+    if not all(v["ok"] for v in list(b3.values()) + list(sm_pupil.values()) + [sm_pupil_paired]):
         raise AssertionError("kernel B at D = 3 disagrees with its plain version")
 
     # ---------------------------------------------------------------- 4 ---
@@ -664,8 +750,13 @@ def main() -> int:
         in_bytes = (yr.numel() + tab_c.numel()) * 4
         bound_c = bound_ms(in_bytes + L * 4, nll_ops(L, T_PUPIL, 3, 8, False))
         bound_cp = bound_ms(in_bytes + tab_c.numel() * 4 + 2 * L * 4, nll_ops(L, T_PUPIL, 3, 8, True))
+        plan_c = fused_nll.tv_plan(L, T_PUPIL, dev)
+        det_c = (deterministic(lambda: fused_nll.fused_nll_tv(tab_c, yr), cll_k)
+                 and deterministic(lambda: torch.stack(fused_nll.fused_nll_tv_paired(tab_c, dtab_c, yr)),
+                                   torch.stack((cpll_k, cdll_k))))
         c_res[n] = {
-            "lanes": L, "ll_max_abs_err": ce_ll, "ll_rel_err": cr_ll,
+            "lanes": L, "segments_G": plan_c["G"], "threads": plan_c["threads"], "deterministic": det_c,
+            "ll_max_abs_err": ce_ll, "ll_rel_err": cr_ll,
             "ll_rel_err_kernel_vs_f64_plain": rel_err(cll_k.double(), ll_64)[1],
             "ll_rel_err_plain_vs_f64_plain": rel_err(cll_p.double(), ll_64)[1],
             "paired_ll_max_abs_err": ce_pll, "paired_ll_rel_err": cr_pll,
@@ -673,12 +764,17 @@ def main() -> int:
             "ms": time_cuda(torch, lambda: fused_nll.fused_nll_tv(tab_c, yr), 30),
             "plain_ms": time_cuda(torch, lambda: fused_nll._fused_nll_tv_plain(tab_c, yr), 2),
             "paired_ms": time_cuda(torch, lambda: fused_nll.fused_nll_tv_paired(tab_c, dtab_c, yr), 30),
+            "paired_enqueue_ms": enqueue_ms(
+                torch, lambda: fused_nll.fused_nll_tv_paired(tab_c, dtab_c, yr), 30),
+            "device_ms": device_ms(torch, lambda: fused_nll.fused_nll_tv(tab_c, yr), 20)[0],
+            "paired_device_ms_by_kernel": device_ms(
+                torch, lambda: fused_nll.fused_nll_tv_paired(tab_c, dtab_c, yr), 20)[1],
             "paired_plain_ms": time_cuda(
-                torch, lambda: fused_nll._fused_nll_tv_paired_plain(tab_c, dtab_c, yr), 2),
+                torch, lambda: fused_nll._fused_nll_tv_paired_plain(tab_c, dtab_c, yr), 1),
             "pack_jvp_ms": time_cuda(torch, pack_tv, 20),
             "bound_ms": bound_c[0], "bound_by": bound_c[1],
             "paired_bound_ms": bound_cp[0], "paired_bound_by": bound_cp[1],
-            "ok": max(cr_ll, cr_pll, cr_dll) <= RTOL_NLL_TV and bool(torch.isfinite(cdll_k).all()),
+            "ok": det_c and max(cr_ll, cr_pll, cr_dll) <= RTOL_NLL_TV and bool(torch.isfinite(cdll_k).all()),
         }
     # noise variances clipped to 1e-12, as the pupil path clips an ensemble
     # variance of zero: sessions 4-7 get 30 such entries each, which puts
@@ -704,7 +800,7 @@ def main() -> int:
           "launches": {"fused_nll_tv": fused_nll.TV_LAUNCHES,
                        "fused_nll_tv_paired": fused_nll.TV_PAIRED_LAUNCHES}})
     if not (all(v["ok"] for v in c_res.values()) and clipped["ok"]):
-        raise AssertionError("kernel C disagrees with its plain version")
+        raise AssertionError("kernel C disagrees with its plain version or is not deterministic")
 
     # ---------------------------------------------------------------- 7 ---
     with tempfile.TemporaryDirectory() as tmp:
@@ -923,6 +1019,16 @@ def main() -> int:
         fr3_w.filtered_means, fr3_w.filtered_covs, A_w, sQ_w))
     rows_w, drows_w = torch.func.jvp(lambda tab: pkalman._table_planes(tab, y_w_pl, 3), (tab_w,), (dtab_w,))
     fp3 = scan_check("filter", rows_w.contiguous(), drows_w.contiguous())
+    # the paired instances no path runs, at the final passes' shapes, with
+    # tangents along the log of Q's scale: the filter and the smoother at
+    # D = 2 on the headline's elements (20 lanes), the smoother at D = 3 on
+    # the two-camera ones (10 lanes); the one-lane pupil one is in phase 3b
+    fp2 = scan_check("filter", *along_log_s(lambda sl: pkalman._make_filter_elements(
+        ys_t, m0_t, S0_t, A_t, torch.exp(sl)[:, None, None] * Q_t, C_t, rtv_t), K_HEAD))
+    sp2 = scan_check("smoother", *along_log_s(lambda sl: pkalman._make_smoother_elements(
+        fr2.filtered_means, fr2.filtered_covs, A_t, torch.exp(sl)[:, None, None] * Q_t), K_HEAD))
+    sp3 = scan_check("smoother", *along_log_s(lambda sl: pkalman._make_smoother_elements(
+        fr3.filtered_means, fr3.filtered_covs, A_m, torch.exp(sl)[:, None, None] * sQ_m), K_MC))
     # and the staged loss around it against the same on the plain scan
     sll_k, sdll_k = pkalman._staged_nll_paired(tab_w, dtab_w, y_w_pl)
     sll_p, sdll_p = fused_nll._fused_nll_paired_plain(tab_w, dtab_w, y_w_pl)
@@ -940,13 +1046,15 @@ def main() -> int:
                                staged["dll_rel_err_plain_vs_f64_plain"], staged["dll_rel_err"])
                     and bool(torch.isfinite(sdll_k).all()))
     scans = {"smoother_d2": sm2, "smoother_d3": sm3, "filter_d3_two_cameras": ff3,
-             "filter_d3_six_cameras": ff3_w, "smoother_d3_six_cameras": sm3_w, "filter_paired_d3": fp3}
+             "filter_d3_six_cameras": ff3_w, "smoother_d3_six_cameras": sm3_w, "filter_paired_d3": fp3,
+             "filter_paired_d2_headline": fp2, "smoother_paired_d2_headline": sp2,
+             "smoother_paired_d3_two_cameras": sp3}
     emit({"phase": "scan_instances", "rtol": RTOL_SCAN_NEW, **scans, "staged_nll_paired_o12": staged,
           "smoother_kernel_vs_plain_reverse_scan": {
               "d2_kernel_ms": sm2["ms"], "d2_plain_ms": sm2["plain_ms"],
               "d3_kernel_ms": sm3["ms"], "d3_plain_ms": sm3["plain_ms"]}})
     if not (all(v["ok"] for v in scans.values()) and staged["ok"]):
-        raise AssertionError("a scan instance disagrees with its plain version")
+        raise AssertionError("a scan instance disagrees with its plain version or is not deterministic")
 
     # --------------------------------------------------------------- 12 ---
     # kernel A at (D, O) = (3, 4): the two-camera optimizer's first iteration
@@ -974,6 +1082,8 @@ def main() -> int:
         "ms": time_cuda(torch, lambda: fused_nll.fused_nll(tab_m, y_m_pl), 50),
         "plain_ms": time_cuda(torch, lambda: fused_nll._fused_nll_plain(tab_m, y_m_pl), 3),
         "paired_ms": time_cuda(torch, lambda: fused_nll.fused_nll_paired(tab_m, dtab_m, y_m_pl), 50),
+        "paired_device_ms": device_ms(torch, lambda: fused_nll.fused_nll_paired(tab_m, dtab_m, y_m_pl), 20)[0],
+        "device_ms": device_ms(torch, lambda: fused_nll.fused_nll(tab_m, y_m_pl), 20)[0],
         "paired_plain_ms": time_cuda(torch, lambda: fused_nll._fused_nll_paired_plain(tab_m, dtab_m, y_m_pl), 3),
         "pack_jvp_ms": time_cuda(torch, lambda: torch.func.jvp(pack_m, (sl0_m,), (torch.ones_like(sl0_m),)), 20),
         "bound_ms": b_a3[0], "bound_by": b_a3[1], "paired_bound_ms": b_a3p[0], "paired_bound_by": b_a3p[1],
@@ -1161,20 +1271,27 @@ def main() -> int:
     # the smoother instances' at the headline's (D = 2, 20 lanes) and the
     # two-camera session's (D = 3, 10 lanes); the paired lane-batched scan's
     # at the six-camera optimizer's (10 lanes). `launches` is the count of the
-    # first path named beside it
+    # first path named beside it. `ms` is CUDA events around back-to-back
+    # calls, which on a slow host is the host's dispatch rate once a kernel is
+    # shorter than its wrapper's Python; `device_ms` is the kernels' own
+    # device time per call under the profiler. The paired smoother and the
+    # paired filter at D = 2 are on no path: their `launches` is the sum of
+    # every main path's count, and `launches_by_path` each path's
     c1, b31 = c_res[1], b3[1]
+    path_counts = {"headline": launches, "pupil": launches_pupil, "pupil_sessions": launches_sessions,
+                   "multicam": launches_mc, "multicam_six_cameras": launches_w}
     src = "eks_tpu_torch/csrc/"
     kernels = [{
         "name": "fused_nll_paired", "route": "cuda", "source": src + "fused_nll.cu",
         "replaces": "eks_tpu/ops/pallas_nll.py:171",
         "launches": launches["fused_nll_paired"], "max_abs_err": max(e_pll, e_dll),
-        "ms": ms_ap, "plain_ms": ms_ap_plain, "bound_ms": b_ap[0], "bound_by": b_ap[1],
+        "ms": ms_ap, "device_ms": dev_ap, "plain_ms": ms_ap_plain, "bound_ms": b_ap[0], "bound_by": b_ap[1],
         "library_ms": None,
     }, {
         "name": "prefix_scan_filter", "route": "cuda", "source": src + "prefix_scan.cu",
         "replaces": "eks_tpu/ops/pallas_filter.py:187",
         "launches": launches["prefix_scan_filter"], "max_abs_err": e_b,
-        "ms": ms_b, "plain_ms": ms_b_plain, "bound_ms": b_b[0], "bound_by": b_b[1],
+        "ms": ms_b, "device_ms": dev_b, "plain_ms": ms_b_plain, "bound_ms": b_b[0], "bound_by": b_b[1],
         "library_ms": None,
     }, {
         "name": "fused_nll_tv_paired", "route": "cuda", "source": src + "fused_nll_tv.cu",
@@ -1182,7 +1299,8 @@ def main() -> int:
         "launches": launches_pupil["fused_nll_tv_paired"],
         "launches_sessions": launches_sessions["fused_nll_tv_paired"],
         "max_abs_err": max(c1["paired_ll_max_abs_err"], c1["paired_dll_max_abs_err"]),
-        "ms": c1["paired_ms"], "plain_ms": c1["paired_plain_ms"],
+        "ms": c1["paired_ms"], "device_ms": sum(c1["paired_device_ms_by_kernel"].values()),
+        "plain_ms": c1["paired_plain_ms"],
         "bound_ms": c1["paired_bound_ms"], "bound_by": c1["paired_bound_by"],
         "library_ms": None,
     }, {
@@ -1190,7 +1308,8 @@ def main() -> int:
         "replaces": "eks_tpu/ops/pallas_filter.py:187",
         "launches": launches_pupil["prefix_scan_filter_d3"],
         "launches_sessions": launches_sessions["prefix_scan_filter_d3"],
-        "max_abs_err": b31["max_abs_err"], "ms": b31["ms"], "plain_ms": b31["plain_ms"],
+        "max_abs_err": b31["max_abs_err"], "ms": b31["ms"], "device_ms": b31["device_ms"],
+        "plain_ms": b31["plain_ms"],
         "launches_multicam": launches_mc["prefix_scan_filter_d3"],
         "bound_ms": b31["bound_ms"], "bound_by": b31["bound_by"], "library_ms": None,
     }, {
@@ -1198,13 +1317,13 @@ def main() -> int:
         "replaces": "eks_tpu/ops/pallas_nll.py:171", "path": "multicam",
         "launches": launches_mc["fused_nll_paired"],
         "max_abs_err": max(a3["paired_ll_max_abs_err"], a3["paired_dll_max_abs_err"]),
-        "ms": a3["paired_ms"], "plain_ms": a3["paired_plain_ms"],
+        "ms": a3["paired_ms"], "device_ms": a3["paired_device_ms"], "plain_ms": a3["paired_plain_ms"],
         "bound_ms": a3["paired_bound_ms"], "bound_by": a3["paired_bound_by"], "library_ms": None,
     }, {
         "name": "prefix_scan_smoother", "route": "cuda", "source": src + "prefix_scan.cu",
         "replaces": "eks_tpu/ops/pallas_filter.py:136", "path": "headline",
         "launches": launches["prefix_scan_smoother"], "max_abs_err": sm2["max_abs_err"],
-        "ms": sm2["ms"], "plain_ms": sm2["plain_ms"], "bound_ms": sm2["bound_ms"],
+        "ms": sm2["ms"], "device_ms": sm2["device_ms"], "plain_ms": sm2["plain_ms"], "bound_ms": sm2["bound_ms"],
         "bound_by": sm2["bound_by"], "library_ms": None,
     }, {
         "name": "prefix_scan_smoother_d3", "route": "cuda", "source": src + "prefix_scan.cu",
@@ -1212,18 +1331,27 @@ def main() -> int:
         "launches": launches_mc["prefix_scan_smoother_d3"],
         "launches_pupil": launches_pupil["prefix_scan_smoother_d3"],
         "launches_six_cameras": launches_w["prefix_scan_smoother_d3"],
-        "max_abs_err": sm3["max_abs_err"], "ms": sm3["ms"], "plain_ms": sm3["plain_ms"],
+        "max_abs_err": sm3["max_abs_err"], "ms": sm3["ms"], "device_ms": sm3["device_ms"],
+        "plain_ms": sm3["plain_ms"],
         "bound_ms": sm3["bound_ms"], "bound_by": sm3["bound_by"], "library_ms": None,
     }, {
         "name": "prefix_scan_filter_paired_d3", "route": "cuda", "source": src + "prefix_scan.cu",
         "replaces": "eks_tpu/ops/pallas_filter.py:252", "path": "multicam_six_cameras",
         "launches": launches_w["prefix_scan_filter_paired_d3"], "max_abs_err": fp3["max_abs_err"],
-        "ms": fp3["ms"], "plain_ms": fp3["plain_ms"], "bound_ms": fp3["bound_ms"],
+        "ms": fp3["ms"], "device_ms": fp3["device_ms"], "plain_ms": fp3["plain_ms"], "bound_ms": fp3["bound_ms"],
         "bound_by": fp3["bound_by"], "library_ms": None,
-    }]
-    emit({"launches": {"headline": launches, "pupil": launches_pupil,
-                       "pupil_sessions": launches_sessions, "multicam": launches_mc,
-                       "multicam_six_cameras": launches_w}})
+    }] + [{
+        "name": name, "route": "cuda", "source": src + "prefix_scan.cu", "replaces": "eks_tpu/ops/pallas_filter.py:169",
+        "path": None, "shape": shape, "launches": sum(c[key] for c in path_counts.values()),
+        "launches_by_path": {p: c[key] for p, c in path_counts.items()},
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+    } for name, key, shape, r in (
+        ("prefix_scan_filter_paired_d2", "prefix_scan_filter_paired_d2", "headline", fp2),
+        ("prefix_scan_smoother_paired_d2", "prefix_scan_smoother_paired_d2", "headline", sp2),
+        ("prefix_scan_smoother_paired_d3", "prefix_scan_smoother_paired_d3", "two_cameras", sp3),
+        ("prefix_scan_smoother_paired_d3_1_lane", "prefix_scan_smoother_paired_d3", "pupil", sm_pupil_paired))]
+    emit({"launches": path_counts})
     print(gpu_name_power(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

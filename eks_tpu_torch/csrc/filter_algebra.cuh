@@ -1,7 +1,9 @@
 // Element algebras shared by the prefix-scan kernel (kernel B and its
 // lane-batched form D, prefix_scan.cu) and the fused NLL kernels (kernel A,
-// fused_nll.cu, and kernel C, fused_nll_tv.cu), and the innovation
-// log-density the two fused kernels end each step with.
+// fused_nll.cu, and kernel C, fused_nll_tv.cu), the innovation log-density
+// the two fused kernels end each step with, and the lane x segment machinery
+// (at the end of the file) on which the scan and kernel C spread a lane over
+// many thread blocks.
 //
 // An element of the parallel Kalman filter (Särkkä & García-Fernández 2021)
 // is (A, b, C, eta, J), stored flat as P = 3D² + 2D values in the plane order
@@ -238,6 +240,91 @@ __device__ __forceinline__ FilterElem<S, D> combine(FilterElem<S, D> e1, FilterE
   return out;
 }
 
+// A filtered posterior (mean b, covariance C): what a combination of
+// filtering elements that includes step 0 reduces to, since step 0's element
+// has A = 0, eta = 0 and J = 0 and combine() keeps them 0 in every element
+// that follows it. 2D + D² values where a full element has 3D² + 2D.
+template <typename S, int D>
+struct Posterior {
+  S x[D + D * D];
+  __device__ S& b(int i) { return x[i]; }
+  __device__ S& C(int i, int j) { return x[D + i * D + j]; }
+};
+
+// combine(e1, e2) for an e1 with A1 = 0, eta1 = 0, J1 = 0: the b and C terms
+// of combine() in the same order, so the two agree to the last bit wherever
+// the compiler contracts them alike
+template <typename S, int D>
+__device__ __forceinline__ Posterior<S, D> posterior_combine(Posterior<S, D> p, FilterElem<S, D>& e2) {
+  S M[D][D], Z[D][D], A2Z[D][D], v[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = p.C(i, 0) * e2.J(0, j);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + p.C(i, k) * e2.J(k, j);
+      M[i][j] = i == j ? s + Scalar<S>::c(1.f) : s;
+    }
+  small_inv<S, D>(M, Z);
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = e2.A(i, 0) * Z[0][j];
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + e2.A(i, k) * Z[k][j];
+      A2Z[i][j] = s;
+    }
+  Posterior<S, D> out;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    S s = p.C(i, 0) * e2.eta(0);
+#pragma unroll
+    for (int k = 1; k < D; ++k) s = s + p.C(i, k) * e2.eta(k);
+    v[i] = p.b(i) + s;
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    S s = A2Z[i][0] * v[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) s = s + A2Z[i][k] * v[k];
+    out.b(i) = s + e2.b(i);
+  }
+  S T1[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = A2Z[i][0] * p.C(0, j);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + A2Z[i][k] * p.C(k, j);
+      T1[i][j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S s = T1[i][0] * e2.A(j, 0);
+#pragma unroll
+      for (int k = 1; k < D; ++k) s = s + T1[i][k] * e2.A(j, k);
+      out.C(i, j) = s + e2.C(i, j);
+    }
+  return out;
+}
+
+template <typename S, int D>
+__device__ __forceinline__ Posterior<S, D> posterior_of(FilterElem<S, D>& e) {
+  Posterior<S, D> p;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    p.b(i) = e.b(i);
+#pragma unroll
+    for (int j = 0; j < D; ++j) p.C(i, j) = e.C(i, j);
+  }
+  return p;
+}
+
 // RTS smoothing element: the backward affine-Gaussian map x -> E x + g with
 // covariance L
 template <typename S, int D>
@@ -370,14 +457,15 @@ __device__ __forceinline__ FilterElem<S, D> block_exclusive_scan(FilterElem<S, D
 constexpr float LOG_2PI = 1.8378770664093453f;
 
 // log N(y_t; C m_pred, C P_pred Cᵀ + diag(r)) from the carry before step t
-// (the t-1 filtered posterior; the prior at t = 0): predict with (A, Q), then
+// (the t-1 filtered posterior, a FilterElem or a Posterior, of which only b
+// and C are read; the prior at t = 0): predict with (A, Q), then
 // the O x O innovation Cholesky, built and consumed row by row (the forward
 // substitution and the log-determinant need row i only while it is built),
 // as ops/pkalman.py::_plane_nll_post. A, Q, Cobs, m0 and S0 point at the
 // row-major blocks of the lane's table; rv is the step's diagonal noise, a
 // table entry (S) or a plain float.
-template <typename S, typename R, int D, int O>
-__device__ __forceinline__ S innovation_logpdf(FilterElem<S, D>& prev, const S* A, const S* Q,
+template <typename S, typename R, int D, int O, typename Carry = FilterElem<S, D>>
+__device__ __forceinline__ S innovation_logpdf(Carry& prev, const S* A, const S* Q,
                                                const S* Cobs, const S* m0, const S* S0,
                                                const R (&rv)[O], const float (&yv)[O], bool t0) {
   using Sc = Scalar<S>;
@@ -460,6 +548,179 @@ __device__ __forceinline__ void block_sum_to(S acc, float* red, float* out, int 
     out[lane] = red[0];
     if constexpr (W == 2) out[N + lane] = red[NT];
   }
+}
+
+// --------------------------------------------------------------------------
+// The lane x segment grid: a deterministic segmented scan over many blocks.
+//
+// A lane's T scan positions are cut into G contiguous segments of
+// L = ceil(T / G) positions (the last may be shorter, none is empty), one
+// thread block each, and a scan runs as three stream-ordered launches:
+//   reduce     each block but the last folds its segment into a segment
+//              total (block_reduce_of) and writes it to a (N, G, W * P)
+//              scratch buffer;
+//   totals     one block per lane replaces total g by the combination of
+//              totals 0 .. g-1 (scan_segment_totals);
+//   downsweep  each block folds its segment again from that carry-in.
+// Inside a block each of NT threads owns one contiguous chunk of the
+// segment. Every association is fixed by (segment, thread) alone, never by
+// timing (no look-back, no atomics), so two launches on the same inputs give
+// the same bits. A block stages its segment's planes in shared memory with
+// coalesced asynchronous copies (stage_async), consecutive threads on
+// consecutive steps; a plane's row in shared memory is padded by one float
+// every 32 (padded), so threads walking chunks of 2, 4 or 8 steps hit
+// distinct banks.
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ int padded(int k) { return k + (k >> 5); }
+
+// shared-memory floats a plane of up to n steps takes
+__host__ __device__ constexpr int padded_stride(int n) { return n + (n >> 5) + 1; }
+
+// element `slot` of a tile of W * P planes (the P value planes, then the P
+// tangent planes), each `stride` floats, padded
+template <typename Alg>
+__device__ __forceinline__ typename Alg::Elem tile_get(const float* tile, int stride, int slot) {
+  using Sc = Scalar<typename Alg::Scalar>;
+  typename Alg::Elem e;
+#pragma unroll
+  for (int p = 0; p < Alg::P; ++p) e.x[p] = Sc::get(tile + p * stride + padded(slot), (size_t)Alg::P * stride);
+  return e;
+}
+
+template <typename Alg>
+__device__ __forceinline__ void tile_put(float* tile, int stride, int slot, const typename Alg::Elem& e) {
+  using Sc = Scalar<typename Alg::Scalar>;
+#pragma unroll
+  for (int p = 0; p < Alg::P; ++p) Sc::put(tile + p * stride + padded(slot), (size_t)Alg::P * stride, e.x[p]);
+}
+
+// an element of a (G, W * P) row of segment totals in device memory
+template <typename Alg>
+__device__ __forceinline__ typename Alg::Elem total_get(const float* row) {
+  using Sc = Scalar<typename Alg::Scalar>;
+  typename Alg::Elem e;
+#pragma unroll
+  for (int p = 0; p < Alg::P; ++p) e.x[p] = Sc::get(row + p, Alg::P);
+  return e;
+}
+
+template <typename Alg>
+__device__ __forceinline__ void total_put(float* row, const typename Alg::Elem& e) {
+  using Sc = Scalar<typename Alg::Scalar>;
+#pragma unroll
+  for (int p = 0; p < Alg::P; ++p) Sc::put(row + p, Alg::P, e.x[p]);
+}
+
+// Copy `planes` planes of n floats each from device memory (plane stride
+// `gstride`) into shared memory (plane stride `sstride`, padded) with 4-byte
+// cp.async, then wait for them and synchronise the block. Every float is one
+// copy, consecutive threads on consecutive floats of a plane, so each warp's
+// reads are coalesced whatever the alignment of the segment.
+template <int NT>
+__device__ __forceinline__ void stage_async(float* dst, int sstride, const float* src, size_t gstride,
+                                            int planes, int n) {
+#pragma unroll 1
+  for (int q = 0; q < planes; ++q) {
+    for (int k = threadIdx.x; k < n; k += NT) {
+      const unsigned s = (unsigned)__cvta_generic_to_shared(dst + q * sstride + padded(k));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src + q * gstride + k)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// the inverse copy, with plain coalesced stores
+template <int NT>
+__device__ __forceinline__ void store_planes(float* dst, size_t gstride, const float* src, int sstride,
+                                             int planes, int n) {
+#pragma unroll 1
+  for (int q = 0; q < planes; ++q)
+    for (int k = threadIdx.x; k < n; k += NT) dst[q * gstride + k] = src[q * sstride + padded(k)];
+}
+
+// this thread's chunk [a, b) of a segment of n steps (empty past n)
+template <int NT>
+__device__ __forceinline__ void chunk_of(int n, int& a, int& b) {
+  const int c = (n + NT - 1) / NT;
+  a = min((int)threadIdx.x * c, n);
+  b = min(a + c, n);
+}
+
+// The combination of the per-thread totals across the block in thread
+// order, by an in-order pairwise tree of log2(NT) levels: at width w the
+// thread i with i % 2w == w publishes its partial and thread i - w folds it
+// in after its own. Thread 0 returns the block's total. `smem` holds
+// Scalar<S>::W * P * NT floats; each slot is written once and read once.
+template <typename Alg, int NT>
+__device__ __forceinline__ typename Alg::Elem block_reduce_of(typename Alg::Elem total, float* smem) {
+  using Sc = Scalar<typename Alg::Scalar>;
+  constexpr int P = Alg::P;
+  constexpr size_t STRIDE = (size_t)P * NT;
+  const int tid = threadIdx.x;
+#pragma unroll 1
+  for (int w = 1; w < NT; w <<= 1) {
+    const int r = tid & (2 * w - 1);
+    if (r == w) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) Sc::put(smem + p * NT + tid, STRIDE, total.x[p]);
+    }
+    __syncthreads();
+    if (r == 0) {
+      typename Alg::Elem right;
+#pragma unroll
+      for (int p = 0; p < P; ++p) right.x[p] = Sc::get(smem + p * NT + tid + w, STRIDE);
+      total = Alg::op(total, right);
+    }
+  }
+  return total;
+}
+
+// The totals phase, for the lane of this block: `totals` holds G rows of
+// W * P floats per lane, rows 0 .. G-2 the segment totals (row G-1 is not
+// read: no segment follows the last). Row g becomes the combination of
+// totals 0 .. g-1, the identity for g = 0. Each thread folds a contiguous run
+// of ceil(G / NT) rows, the block takes the exclusive prefix of the runs,
+// and each thread re-walks its run, so G is not bounded by NT. `smem` holds
+// Scalar<S>::W * P * NT floats.
+template <typename Alg, int NT>
+__device__ __forceinline__ void scan_segment_totals(float* totals, int G, float* smem) {
+  using Elem = typename Alg::Elem;
+  constexpr int WP = Scalar<typename Alg::Scalar>::W * Alg::P;
+  float* rows = totals + (size_t)blockIdx.x * G * WP;
+  int lo, hi;
+  chunk_of<NT>(G, lo, hi);
+  Elem carry = Alg::identity();
+  for (int g = lo; g < hi && g < G - 1; ++g) {
+    const Elem e = total_get<Alg>(rows + (size_t)g * WP);
+    carry = g == lo ? e : Alg::op(carry, e);
+  }
+  Elem excl = block_exclusive_scan_of<Alg, NT>(carry, smem);
+  for (int g = lo; g < hi; ++g) {
+    Elem e;
+    if (g < G - 1) e = total_get<Alg>(rows + (size_t)g * WP);  // read before it is overwritten
+    total_put<Alg>(rows + (size_t)g * WP, excl);
+    if (g + 1 < hi) excl = Alg::op(excl, e);
+  }
+}
+
+// Host side: run `set`, an instance's cudaFuncSetAttribute calls, once per
+// device. The attributes stay with the kernels, and a runtime call for each
+// of them on every launch would add to every call's host time; `done` is the
+// instance's own record, one flag per device.
+constexpr int MAX_DEVICES = 64;
+
+template <typename F>
+cudaError_t once_per_device(bool (&done)[MAX_DEVICES], F&& set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return err;
+  err = set();
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
 }
 
 }  // namespace eks

@@ -8,10 +8,13 @@ algebra (the scan's JVP), and ``_make_scan_kernel_batched`` (the same scans
 over N lanes in one launch, plain and paired, which the staged optimizer
 loss runs at more than eight observations). The CUDA source is
 ``eks_tpu_torch/csrc/prefix_scan.cu``: one kernel template, instantiated for
-{filter, smoother} x {float, (primal, tangent) pairs} x D in {2, 3}, one
-lane per thread block, so a single-lane scan is N = 1 of the lane-batched
-one. The plain PyTorch versions beside it are the log-depth associative
-scans of ``ops/pkalman.py`` and ``torch.func.jvp`` of them.
+{filter, smoother} x {float, (primal, tangent) pairs} x D in {2, 3}, so a
+single-lane scan is N = 1 of the lane-batched one. Each lane is cut into G
+segments, one thread block each (``segment_partition`` picks G from the
+lanes, the steps and the card's SM count), and a call runs a deterministic
+three-phase segmented scan through an (N, G, W * P) scratch buffer that the
+wrapper allocates. The plain PyTorch versions beside it are the log-depth
+associative scans of ``ops/pkalman.py`` and ``torch.func.jvp`` of them.
 
 Every wrapper takes the plain version only for a tensor on the CPU. For a
 CUDA tensor it launches the kernel or raises.
@@ -35,9 +38,13 @@ from eks_tpu_torch.ops.pkalman import (
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_BY_INSTANCE",
+    "check_scratch",
     "filter_prefix",
     "filter_prefix_paired",
     "filter_prefix_plain",
+    "scan_plan",
+    "segment_partition",
+    "sm_count",
     "smoother_suffix",
     "smoother_suffix_paired",
     "smoother_suffix_plain",
@@ -75,19 +82,97 @@ def smoother_suffix_plain(planes: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
+# the lane x segment grid
+# --------------------------------------------------------------------------- #
+def segment_partition(N: int, T: int, sms: int, min_steps: int, max_steps: int) -> tuple:
+    """(G, L): each of N lanes' T steps cut into G contiguous segments of L
+    steps (the last may be shorter, none is empty), one thread block each.
+
+    Aims at two blocks per SM in one wave, G = floor(2 sms / N) (a ceiling
+    would leave a few blocks for a second wave), with no segment shorter
+    than ``min_steps`` unless the lane is, and at least enough segments that
+    none is longer than ``max_steps`` (what one block stages in shared
+    memory). A pure function of its arguments."""
+    if min(N, T, sms, min_steps) < 1 or max_steps < min_steps:
+        raise ValueError(f"segment_partition: bad arguments {(N, T, sms, min_steps, max_steps)}")
+    G = min(max(2 * sms // N, 1), -(-T // min_steps))
+    G = max(G, -(-T // max_steps))
+    L = -(-T // G)
+    return -(-T // L), L
+
+
+_SMS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, read once per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def check_scratch(name: str, x: torch.Tensor, shape: tuple, device=None) -> None:
+    """Raise ValueError unless ``x`` is a contiguous float32 ``shape`` tensor
+    (on ``device``, when given): a kernel's scratch buffer."""
+    if x.dtype != torch.float32 or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError(
+            f"{name} scratch must be contiguous float32 {tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name} scratch must be on {device}, got {x.device}")
+
+
+# --------------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------------- #
 def _lib():
-    fn = cuda_build.load("prefix_scan").prefix_scan_f32
+    lib = cuda_build.load("prefix_scan")
+    fn = lib.prefix_scan_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        geo = lib.prefix_scan_geometry
+        geo.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        geo.restype = ctypes.c_int
+    return lib
 
 
-def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool) -> torch.Tensor:
+_GEOMETRY: dict = {}
+
+
+def _geometry(kind: str, paired: bool, D: int) -> tuple:
+    """(threads per block, most steps per segment) of an instance."""
+    key = (kind, paired, D)
+    if key not in _GEOMETRY:
+        threads, max_steps = ctypes.c_int(), ctypes.c_int()
+        rc = _lib().prefix_scan_geometry(D, int(kind == "smoother"), int(paired),
+                                         ctypes.byref(threads), ctypes.byref(max_steps))
+        if rc != 0:
+            raise RuntimeError(f"prefix_scan has no instance {key} (CUDA error {rc})")
+        _GEOMETRY[key] = (threads.value, max_steps.value)
+    return _GEOMETRY[key]
+
+
+_PLANS: dict = {}
+
+
+def scan_plan(N: int, T: int, kind: str, paired: bool, D: int, device: torch.device) -> dict:
+    """The launch geometry of an (N, ., T) scan on ``device``: segments per
+    lane G, steps per segment L, threads per block. Kept per shape, instance
+    and device: an optimizer asks for the same one every iteration."""
+    key = (N, T, kind, paired, D, device.index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        threads, max_steps = _geometry(kind, paired, D)
+        G, L = segment_partition(N, T, sm_count(device), threads, max_steps)
+        plan = _PLANS[key] = {"G": G, "L": L, "threads": threads}
+    return plan
+
+
+def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool, scratch=None) -> torch.Tensor:
     """Launch the (kind, paired) instance on (N, W * P, T) planes, W = 2 when
-    paired (primal planes, then tangent planes)."""
+    paired (primal planes, then tangent planes). ``scratch``, (N, G, W * P)
+    float32, is checked when given, else allocated here."""
     global LAUNCHES
     if planes.device.type != "cuda":
         raise ValueError(f"prefix_scan kernel takes a CUDA tensor, got {planes.device}")
@@ -105,11 +190,15 @@ def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool) -> torch.Tensor:
     out = torch.empty((N, rows, T), dtype=torch.float32, device=planes.device)
     if N == 0 or T == 0:
         return out
-    fn = _lib()
+    G = scan_plan(N, T, kind, paired, D, planes.device)["G"]
+    if scratch is None:
+        scratch = torch.empty((N, G, rows), dtype=torch.float32, device=planes.device)
+    else:
+        check_scratch("prefix_scan", scratch, (N, G, rows), planes.device)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(planes.data_ptr(), out.data_ptr(), N, T, D, int(kind == "smoother"),
-                int(paired), stream)
+        rc = _lib().prefix_scan_f32(planes.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, T, D,
+                                    int(kind == "smoother"), int(paired), G, stream)
     if rc != 0:
         raise RuntimeError(f"prefix_scan kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1

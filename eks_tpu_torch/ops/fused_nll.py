@@ -32,7 +32,12 @@ time-varying-R table (``_scalar_offsets_tv``, ``_pack_scalars_tv`` and
 ``_table_planes_tv`` in ``ops/pkalman.py``). The CUDA source is
 ``eks_tpu_torch/csrc/fused_nll_tv.cu``; the plain version is the staged
 time-varying-R plane NLL (``pkalman._table_nll_tv``) over the plain scan, and
-the paired wrapper takes a table tangent only, as kernel A's does.
+the paired wrapper takes a table tangent only, as kernel A's does. Kernel C
+spreads each lane over G segments, one thread block each
+(``fused_filter.segment_partition`` picks G from the lanes, the steps and
+the card's SM count), through two scratch buffers the wrapper allocates: the
+segment totals (N, G, W * P) and the per-segment log-density sums (W, N, G),
+W = 2 when paired.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import ctypes
 import torch
 
 from eks_tpu_torch.ops import cuda_build
-from eks_tpu_torch.ops.fused_filter import filter_prefix_plain
+from eks_tpu_torch.ops.fused_filter import check_scratch, filter_prefix_plain, segment_partition, sm_count
 from eks_tpu_torch.ops.pkalman import (
     _pack_scalars,
     _pack_scalars_tv,
@@ -63,6 +68,7 @@ __all__ = [
     "fused_nll_paired",
     "fused_nll_tv",
     "fused_nll_tv_paired",
+    "tv_plan",
 ]
 
 #: launches of the plain and of the paired form of kernel A and of kernel C
@@ -108,10 +114,34 @@ def _lib(paired: bool, tv: bool):
     name = "fused_nll_tv" if tv else "fused_nll"
     fn = getattr(cuda_build.load(name), name + ("_paired_f32" if paired else "_f32"))
     if fn.argtypes is None:
-        n_ptr = 4 if paired else 3  # y (or yr), table[, dtable], out
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # y (or yr), table[, dtable], out[, totals, partials]; N, T, D, O[, G]
+        n_ptr = (4 if paired else 3) + (2 if tv else 0)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (5 if tv else 4) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+_TV_GEOMETRY: list = []
+_TV_PLANS: dict = {}
+
+
+def tv_plan(N: int, T: int, device: torch.device) -> dict:
+    """Kernel C's launch geometry for N lanes of T steps on ``device``:
+    segments per lane G, steps per segment L, threads per block. Kept per
+    (N, T, device): an optimizer asks for the same one every iteration."""
+    key = (N, T, device.index)
+    plan = _TV_PLANS.get(key)
+    if plan is None:
+        if not _TV_GEOMETRY:
+            geo = cuda_build.load("fused_nll_tv").fused_nll_tv_geometry
+            geo.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+            threads, max_steps = ctypes.c_int(), ctypes.c_int()
+            geo(ctypes.byref(threads), ctypes.byref(max_steps))
+            _TV_GEOMETRY.extend((threads.value, max_steps.value))
+        threads, max_steps = _TV_GEOMETRY
+        G, L = segment_partition(N, T, sm_count(device), threads, max_steps)
+        plan = _TV_PLANS[key] = {"G": G, "L": L, "threads": threads}
+    return plan
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple):
@@ -123,9 +153,11 @@ def _check(name: str, x: torch.Tensor, shape: tuple):
         raise ValueError(f"fused_nll: {name} must be contiguous {shape}, got {tuple(x.shape)}")
 
 
-def _launch(table, dtable, y, tv: bool = False) -> torch.Tensor:
+def _launch(table, dtable, y, tv: bool = False, scratch=None) -> torch.Tensor:
     """Launch kernel A on (table, y (N, O, T)) or, with ``tv``, kernel C on
-    (table, yr (N, 2O, T)); returns the (1, N) or, paired, (2, N) output."""
+    (table, yr (N, 2O, T)); returns the (1, N) or, paired, (2, N) output.
+    Kernel C's ``scratch``, (totals (N, G, W * P), partials (W, N, G)), is
+    checked when given; else it is allocated here, as one buffer."""
     N, rows, T = y.shape
     if tv:
         if rows % 2:
@@ -145,20 +177,29 @@ def _launch(table, dtable, y, tv: bool = False) -> torch.Tensor:
         _check("dtable", dtable, tuple(table.shape))
     if y.device != table.device or (dtable is not None and dtable.device != y.device):
         raise ValueError("fused_nll: y and the tables must be on one device")
-    out = torch.empty((2 if dtable is not None else 1, N), dtype=torch.float32, device=y.device)
+    W = 2 if dtable is not None else 1
+    out = torch.empty((W, N), dtype=torch.float32, device=y.device)
     if N == 0:
         return out
     if T == 0:
         return out.zero_()
+    fn = _lib(dtable is not None, tv)
+    ptrs = [x.data_ptr() for x in (y, table) + ((dtable,) if dtable is not None else ()) + (out,)]
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if dtable is None:
-            rc = _lib(False, tv)(y.data_ptr(), table.data_ptr(), out.data_ptr(), N, T, D, O, stream)
+        if tv:
+            G = tv_plan(N, T, y.device)["G"]
+            n_tot = N * G * W * (3 * D * D + 2 * D)  # floats of the segment totals
+            if scratch is None:
+                buf = torch.empty(n_tot + W * N * G, dtype=torch.float32, device=y.device)
+                scratch_ptrs = (buf.data_ptr(), buf.data_ptr() + 4 * n_tot)
+            else:
+                for x, sh in zip(scratch, ((N, G, n_tot // (N * G)), (W, N, G))):
+                    check_scratch("fused_nll_tv", x, sh, y.device)
+                scratch_ptrs = tuple(x.data_ptr() for x in scratch)
+            rc = fn(*ptrs, *scratch_ptrs, N, T, D, O, G, stream)
         else:
-            rc = _lib(True, tv)(
-                y.data_ptr(), table.data_ptr(), dtable.data_ptr(), out.data_ptr(),
-                N, T, D, O, stream,
-            )
+            rc = fn(*ptrs, N, T, D, O, stream)
     if rc != 0:
         raise RuntimeError(f"fused_nll kernel launch failed with CUDA error {rc}")
     return out

@@ -2,7 +2,9 @@
 plain and paired, over lanes) and C of the PyTorch port on the card, against
 their plain versions on the same inputs, at the edge shapes the full-width runs of
 chip_smoke.py do not reach: a single step, a single lane, fewer steps than
-threads, time axes one either side of a multiple of the block.
+threads, time axes one either side of a multiple of the block and of a
+segment, a long lane and a wide batch; and whether two launches of each
+kernel on the same inputs give the same bits.
 
 The kernels have no CPU mode, so every test here needs a CUDA card and
 ``nvcc``; on a machine without them each one skips. On the card (where JAX is
@@ -20,8 +22,8 @@ from eks_tpu_torch.ops import fused_filter, fused_nll, pkalman
 pytestmark = pytest.mark.cuda
 
 # the kernels combine the same elements as the plain versions in another
-# association order (per-thread chunks and a block sweep against a log-depth
-# tree), in float32; entry by entry, relative to 1 + the entry's magnitude
+# association order (segments, per-thread chunks and block sweeps against a
+# log-depth tree), in float32; entry by entry, relative to 1 + the entry's magnitude
 RTOL = 1e-5
 
 
@@ -30,6 +32,32 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels run only there; the CPU tests hold their plain versions")
     return torch.device("cuda")
+
+
+def _steps(spec, key):
+    """T for an edge case: an int, or "thr" / "tile" plus or minus one. A
+    segment holds at least one step per thread ("thr") unless the lane is
+    shorter, and at most what a block stages ("tile"); at N = 300 lanes the
+    partition wants one segment, so T = tile + 1 is the least T with two
+    full-size segments. ``key`` is a scan instance (kind, paired, D), or
+    "C" for kernel C."""
+    if isinstance(spec, int):
+        return spec
+    if key == "C":
+        fused_nll.tv_plan(1, 1, torch.device("cuda"))
+        threads, tile = fused_nll._TV_GEOMETRY
+    else:
+        threads, tile = fused_filter._geometry(*key)
+    base, _, delta = spec.partition("+") if "+" in spec else spec.partition("-")
+    sign = -1 if "-" in spec else 1
+    return {"thr": threads, "tile": tile}[base] + sign * int(delta or 0)
+
+
+# the lane x segment grid's edge cases, as (N, T): one segment of one step
+# per thread and either side of it, the largest segment and one past it, T
+# below the SM count, a long lane, a wide batch at the main paths' T
+SEGMENT_CASES = [(3, "thr-1"), (3, "thr"), (3, "thr+1"), (300, "tile"), (300, "tile+1"), (2, 100),
+                 (1, 100_000), (16, 10_000)]
 
 
 def _close(got, want):
@@ -108,10 +136,23 @@ def test_staged_nll_at_12_observations_matches_plain(dev):
     _close(pkalman._staged_nll(table, y).cpu(), want)
 
 
-def _nll_tv_operands(dev, N, T):
+def _nll_tv_operands(dev, N, T, walk=True):
     """Kernel C's operands at the pupil family's D = 3, O = 8: the table and
-    its tangent along log s (s scaling Q), and the y-then-r planes."""
-    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, 8, 3))
+    its tangent along log s (s scaling Q), and the y-then-r planes. With
+    ``walk`` False the observations are a stationary AR(1) series in place of
+    a random walk, as the pupil's are: on sixteen lanes of 10,000 random-walk
+    steps, s from e^-1 to e, d ll/d log s becomes a sum of terms that cancel
+    on some lanes, and float32 leaves it 3e-5 to 4e-5 from its float64 value
+    whichever way it is computed, the plain version further than the kernel
+    (scripts/torch_kernel_c_ab.py --precision prints both gaps)."""
+    ys, m0, S0, A, Q, C, _, r_tv = _lanes(N, T, 8, 3)
+    if not walk:
+        e = np.random.default_rng(T).normal(size=(N, T, 8)).astype(np.float32)
+        ys = np.empty_like(e)
+        ys[:, 0] = e[:, 0]
+        for t in range(1, T):
+            ys[:, t] = 0.95 * ys[:, t - 1] + e[:, t]
+    ys, m0, S0, A, Q, C, r_tv = (torch.as_tensor(x, device=dev) for x in (ys, m0, S0, A, Q, C, r_tv))
     s_log = torch.linspace(-1.0, 1.0, N, device=dev)
 
     def pack(sl):
@@ -122,9 +163,11 @@ def _nll_tv_operands(dev, N, T):
     return table.contiguous(), dtable.contiguous(), yr.contiguous()
 
 
-@pytest.mark.parametrize("N,T", [(1, 1), (1, 5), (3, 255), (2, 257), (1, 300), (16, 1000)])
-def test_kernel_c_matches_plain(dev, N, T):
-    table, dtable, yr = _nll_tv_operands(dev, N, T)
+@pytest.mark.parametrize("N,T,walk", [(N, T, True) for N, T in [(1, 1), (1, 5), (3, 255), (2, 257), (1, 300),
+                                                                  (16, 1000)]]
+                         + [(N, T, False) for N, T in SEGMENT_CASES])
+def test_kernel_c_matches_plain(dev, N, T, walk):
+    table, dtable, yr = _nll_tv_operands(dev, N, _steps(T, "C"), walk)
     before = (fused_nll.TV_LAUNCHES, fused_nll.TV_PAIRED_LAUNCHES)
     ll = fused_nll.fused_nll_tv(table, yr)
     ll_p, dll_p = fused_nll.fused_nll_tv_paired(table, dtable, yr)
@@ -153,10 +196,12 @@ def test_kernel_c_clipped_noise_stays_in_step_with_plain(dev):
     _close(dll[finite], want_d[finite])
 
 
-@pytest.mark.parametrize("T,O,D", [(1, 2, 2), (7, 2, 2), (255, 2, 2), (257, 2, 2), (300, 2, 2),
-                                   (1, 8, 3), (7, 8, 3), (257, 8, 3), (300, 8, 3)])
-def test_kernel_b_matches_plain(dev, T, O, D):
-    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(3, T, O, D, seed=T))
+@pytest.mark.parametrize("N,T,O,D", [(3, T, O, D) for T, O, D in [
+    (1, 2, 2), (7, 2, 2), (255, 2, 2), (257, 2, 2), (300, 2, 2), (1, 8, 3), (7, 8, 3), (257, 8, 3),
+    (300, 8, 3)]] + [(N, T, 8, 3) for N, T in SEGMENT_CASES] + [(3, "thr+1", 2, 2), (300, "tile+1", 2, 2)])
+def test_kernel_b_matches_plain(dev, N, T, O, D):
+    T = _steps(T, ("filter", False, D))
+    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, O, D, seed=T))
     planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
     before = fused_filter.LAUNCHES
     out = fused_filter.filter_prefix(planes)
@@ -175,10 +220,13 @@ def _smoother_planes(dev, N, T, O, D, seed):
     return planes, tangents
 
 
-@pytest.mark.parametrize("T,O,D", [(1, 2, 2), (7, 2, 2), (255, 2, 2), (256, 2, 2), (257, 2, 2),
-                                   (1, 4, 3), (255, 4, 3), (256, 4, 3), (257, 4, 3), (1000, 4, 3)])
-def test_smoother_kernel_matches_plain(dev, T, O, D):
-    planes, _ = _smoother_planes(dev, 3, T, O, D, seed=T)
+@pytest.mark.parametrize("N,T,O,D", [(3, T, O, D) for T, O, D in [
+    (1, 2, 2), (7, 2, 2), (255, 2, 2), (256, 2, 2), (257, 2, 2), (1, 4, 3), (255, 4, 3), (256, 4, 3),
+    (257, 4, 3), (1000, 4, 3)]] + [(N, T, 4, 3) for N, T in SEGMENT_CASES]
+    + [(3, "thr+1", 2, 2), (300, "tile+1", 2, 2)])
+def test_smoother_kernel_matches_plain(dev, N, T, O, D):
+    T = _steps(T, ("smoother", False, D))
+    planes, _ = _smoother_planes(dev, N, T, O, D, seed=T)
     key = ("smoother", False, D)
     before = fused_filter.LAUNCHES_BY_INSTANCE[key]
     out = fused_filter.smoother_suffix(planes)
@@ -203,14 +251,16 @@ def _symmetric_cj(tangents, D):
 
 
 @pytest.mark.parametrize("kind", ["filter", "smoother"])
-@pytest.mark.parametrize("T,O,D", [(1, 2, 2), (255, 2, 2), (257, 2, 2), (1, 4, 3), (256, 4, 3),
-                                   (257, 4, 3), (1000, 12, 3)])
-def test_paired_scan_kernels_match_plain(dev, kind, T, O, D):
+@pytest.mark.parametrize("N,T,O,D", [(3, T, O, D) for T, O, D in [
+    (1, 2, 2), (255, 2, 2), (257, 2, 2), (1, 4, 3), (256, 4, 3), (257, 4, 3), (1000, 12, 3)]]
+    + [(N, T, 4, 3) for N, T in SEGMENT_CASES] + [(3, "thr+1", 2, 2), (300, "tile+1", 2, 2)])
+def test_paired_scan_kernels_match_plain(dev, kind, N, T, O, D):
+    T = _steps(T, (kind, True, D))
     if kind == "smoother":
-        planes, tangents = _smoother_planes(dev, 3, T, O, D, seed=T)
+        planes, tangents = _smoother_planes(dev, N, T, O, D, seed=T)
         scan, plain = fused_filter.smoother_suffix_paired, fused_filter.smoother_suffix_plain
     else:
-        ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(3, T, O, D, seed=T))
+        ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, O, D, seed=T))
         planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
         gen = torch.Generator(device="cpu").manual_seed(T)
         tangents = _symmetric_cj((0.1 * torch.randn(planes.shape, generator=gen)).to(dev), D)
@@ -223,6 +273,40 @@ def test_paired_scan_kernels_match_plain(dev, kind, T, O, D):
     want, dwant = torch.func.jvp(plain, (planes,), (tangents,))
     _close(out, want)
     _close(dout, dwant)
+
+
+@pytest.mark.parametrize("instance", [(k, p, d) for k in ("filter", "smoother") for p in (False, True)
+                                      for d in (2, 3)] + ["C", "C paired"])
+def test_redesigned_kernels_are_bit_deterministic(dev, instance):
+    """Two launches on the same inputs give the same bits: every
+    association is fixed by (segment, thread), none by timing. Two lanes of
+    10,000 steps: many segments per lane."""
+    N, T = 2, 10_000
+    if instance in ("C", "C paired"):
+        table, dtable, yr = _nll_tv_operands(dev, N, T, walk=False)
+        if instance == "C":
+            run = lambda: fused_nll.fused_nll_tv(table, yr)  # noqa: E731
+        else:
+            run = lambda: torch.stack(fused_nll.fused_nll_tv_paired(table, dtable, yr))  # noqa: E731
+        assert fused_nll.tv_plan(N, T, dev)["G"] > 1
+    else:
+        kind, paired, D = instance
+        if kind == "smoother":
+            planes, tangents = _smoother_planes(dev, N, T, 2 * D - 2, D, seed=1)
+        else:
+            ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, 2 * D - 2, D))
+            planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
+            tangents = _symmetric_cj(0.1 * torch.ones_like(planes), D)
+        wrapper = {"filter": (fused_filter.filter_prefix, fused_filter.filter_prefix_paired),
+                   "smoother": (fused_filter.smoother_suffix, fused_filter.smoother_suffix_paired)}[kind][paired]
+        if paired:
+            run = lambda: torch.cat(wrapper(planes, tangents), dim=1)  # noqa: E731
+        else:
+            run = lambda: wrapper(planes)  # noqa: E731
+        assert fused_filter.scan_plan(N, T, kind, paired, D, dev)["G"] > 1
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -254,3 +338,14 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_filter.smoother_suffix(torch.zeros(2, 3, 8, device=dev))
     with pytest.raises(ValueError):
         fused_filter.filter_prefix_paired(planes, planes[:1])
+    # a scratch buffer of the wrong shape is refused before any launch
+    G = fused_filter.scan_plan(2, 8, "filter", False, 2, dev)["G"]
+    before = fused_filter.LAUNCHES
+    with pytest.raises(ValueError):
+        fused_filter._scan_cuda(planes, "filter", False, scratch=torch.empty(2, G + 1, 16, device=dev))
+    assert fused_filter.LAUNCHES == before
+    table, dtable, yr = _nll_tv_operands(dev, 2, 16)
+    G = fused_nll.tv_plan(2, 16, dev)["G"]
+    with pytest.raises(ValueError):
+        fused_nll._launch(table, dtable, yr, tv=True, scratch=(torch.empty(2, G, 66, device=dev),
+                                                               torch.empty(1, 2, G, device=dev)))
