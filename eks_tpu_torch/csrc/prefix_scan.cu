@@ -13,10 +13,14 @@
 // One kernel template covers all of them: <Algebra> picks the element, its
 // combine and the scan direction, its scalar type (float or Dual) picks plain
 // or paired. So the single-lane kernels are N = 1 of the lane-batched ones.
+// It is instantiated at every D <= 3, where the JAX package runs its Pallas
+// scan (_use_pallas); beyond, the wrapper runs the plain scan on the card,
+// as the JAX package runs XLA's associative_scan.
 //
 // Input and output are (N, W * P, T) float32 planes, W = 1 for float and 2
 // for Dual (the P primal planes, then the P tangent planes). P = 3D² + 2D for
-// the filter (16 at D = 2, 33 at D = 3) and 2D² + D for the smoother (10, 21).
+// the filter (5 at D = 1, 16 at D = 2, 33 at D = 3) and 2D² + D for the
+// smoother (3, 10, 21).
 // The filter scans forward in time. The smoother scans backward: scan
 // position i is time step T-1-i, read and written in place by index, so no
 // flipped copy of the planes is ever made, and its combine takes the element
@@ -181,11 +185,12 @@ int launch(const float* in, float* out, float* totals, int N, int T, int G, cuda
   return (int)cudaGetLastError();
 }
 
-// f(Alg{}) for the instance (D, smoother, paired); D = 2 (singlecam) and
-// D = 3 (pupil, multi-camera) are instantiated, D = 1 comes from the same
-// template once a path needs it
+// f(Alg{}) for the instance (D, smoother, paired); every D <= 3, as the JAX
+// package's Pallas scan: D = 2 (singlecam), D = 3 (pupil, multi-camera) and
+// D = 1 (multi-camera at n_latent = 1)
 template <typename S, typename F>
 int with_scalar(int D, int smoother, F&& f) {
+  if (D == 1) return smoother ? f(eks::SmootherAlgebra<S, 1>{}) : f(eks::FilterAlgebra<S, 1>{});
   if (D == 2) return smoother ? f(eks::SmootherAlgebra<S, 2>{}) : f(eks::FilterAlgebra<S, 2>{});
   if (D == 3) return smoother ? f(eks::SmootherAlgebra<S, 3>{}) : f(eks::FilterAlgebra<S, 3>{});
   return (int)cudaErrorInvalidValue;

@@ -69,7 +69,8 @@ def build(names=None) -> dict:
     procs = {}
     for n in todo:
         tmp = _library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / KERNEL_SOURCES[n])]
+        cmd = [nvcc, *_NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+               str(_CSRC / KERNEL_SOURCES[n])]
         procs[n] = (tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -77,7 +78,7 @@ def build(names=None) -> dict:
     for n, (tmp, t0, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {KERNEL_SOURCES[n]} (rc={proc.returncode}) ---\n{out}")
+            failed.append(f"--- nvcc {KERNEL_SOURCES[n]} for {n} (rc={proc.returncode}) ---\n{out}")
             continue
         os.replace(tmp, _library_path(n))
         report[n] = (time.perf_counter() - t0, out)

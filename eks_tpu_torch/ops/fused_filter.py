@@ -8,7 +8,7 @@ algebra (the scan's JVP), and ``_make_scan_kernel_batched`` (the same scans
 over N lanes in one launch, plain and paired, which the staged optimizer
 loss runs at more than eight observations). The CUDA source is
 ``eks_tpu_torch/csrc/prefix_scan.cu``: one kernel template, instantiated for
-{filter, smoother} x {float, (primal, tangent) pairs} x D in {2, 3}, so a
+{filter, smoother} x {float, (primal, tangent) pairs} x D in {1, 2, 3}, so a
 single-lane scan is N = 1 of the lane-batched one. Each lane is cut into G
 segments, one thread block each (``segment_partition`` picks G from the
 lanes, the steps and the card's SM count), and a call runs a deterministic
@@ -16,8 +16,13 @@ three-phase segmented scan through an (N, G, W * P) scratch buffer that the
 wrapper allocates. The plain PyTorch versions beside it are the log-depth
 associative scans of ``ops/pkalman.py`` and ``torch.func.jvp`` of them.
 
-Every wrapper takes the plain version only for a tensor on the CPU. For a
-CUDA tensor it launches the kernel or raises.
+Every wrapper takes the plain version for a tensor on the CPU. For a CUDA
+tensor at D <= 3 it launches the kernel or raises: a failed build or launch
+is never answered with the plain version. Beyond D = 3 the JAX package has no
+Pallas scan (``_use_pallas``) and runs XLA's ``associative_scan``; the port
+follows that dispatch by shape and runs the plain version on the card,
+counted in ``PLAIN_ROUTE_LAUNCHES`` (the multi-camera family at
+``n_latent`` 4 and above).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from eks_tpu_torch.ops.pkalman import (
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_BY_INSTANCE",
+    "PLAIN_ROUTE_LAUNCHES",
     "check_scratch",
     "filter_prefix",
     "filter_prefix_paired",
@@ -51,8 +57,8 @@ __all__ = [
 ]
 
 #: state dimensions the CUDA kernel is instantiated for (singlecam: 2; the
-#: pupil and multi-camera families: 3)
-_CUDA_D = (2, 3)
+#: pupil and multi-camera families: 3; multi-camera at n_latent 1 and 2: 1, 2)
+_CUDA_D = (1, 2, 3)
 
 #: kernel launches since import (or since a caller last reset them): in all,
 #: and of every instance by (kind, paired, D)
@@ -61,6 +67,8 @@ LAUNCHES_BY_INSTANCE = {
     (kind, paired, D): 0
     for kind in ("filter", "smoother") for paired in (False, True) for D in _CUDA_D
 }
+#: scans of CUDA tensors beyond D = 3, run by the plain version on the card
+PLAIN_ROUTE_LAUNCHES = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -183,8 +191,7 @@ def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool, scratch=None) -> t
     N, rows, T = planes.shape
     if paired and rows % 2:
         raise ValueError(f"paired planes hold P primal and P tangent planes, got {rows}")
-    P = rows // 2 if paired else rows
-    D = filter_state_dim(P) if kind == "filter" else smoother_state_dim(P)
+    D = _state_dim(rows // 2 if paired else rows, kind)
     if D not in _CUDA_D:
         raise NotImplementedError(f"prefix_scan kernel is built for D in {_CUDA_D}, got D={D}")
     out = torch.empty((N, rows, T), dtype=torch.float32, device=planes.device)
@@ -206,9 +213,23 @@ def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool, scratch=None) -> t
     return out
 
 
+def _state_dim(n_planes: int, kind: str) -> int:
+    return filter_state_dim(n_planes) if kind == "filter" else smoother_state_dim(n_planes)
+
+
+def _plain_route(planes: torch.Tensor, kind: str) -> bool:
+    """Whether a CUDA scan takes the plain version by shape: D > 3, where the
+    JAX package runs XLA's associative scan. Counted when it does."""
+    global PLAIN_ROUTE_LAUNCHES
+    if _state_dim(planes.shape[-2], kind) <= max(_CUDA_D):
+        return False
+    PLAIN_ROUTE_LAUNCHES += 1
+    return True
+
+
 def _dispatch(planes: torch.Tensor, kind: str, plain) -> torch.Tensor:
     if planes.device.type == "cuda":
-        return _scan_cuda(planes, kind, False)
+        return plain(planes) if _plain_route(planes, kind) else _scan_cuda(planes, kind, False)
     if planes.device.type == "cpu":
         return plain(planes)
     raise RuntimeError(f"no prefix scan for device {planes.device}")
@@ -218,6 +239,8 @@ def _dispatch_paired(planes, tangents, kind: str, plain):
     if planes.device.type == "cuda":
         if tangents.shape != planes.shape or tangents.device != planes.device:
             raise ValueError("paired scan: planes and tangents must share shape and device")
+        if _plain_route(planes, kind):
+            return torch.func.jvp(plain, (planes,), (tangents,))
         P = planes.shape[1]
         out = _scan_cuda(torch.cat([planes, tangents], dim=1), kind, True)
         return out[:, :P], out[:, P:]

@@ -1,9 +1,11 @@
 """Kernels A and C: the fused filter NLLs of the optimizers.
 
 Kernel A: constant diagonal R (the s-optimizer's loss), instantiated at
-(D, O) = (2, 2) for the singlecam family and at (3, 4), (3, 6), (3, 8) for the
-linear multi-camera family with two to four cameras. More observations take
-the staged plane NLL of ``ops/pkalman.py`` (``_staged_nll_paired``).
+every D in {1, 2, 3} with O in {2, 4, 6, 8}, the shapes the JAX package's
+fused route admits: (2, 2) for the singlecam family, (D, 2C) for the linear
+multi-camera family at ``n_latent`` D with two to four cameras. More
+observations or D > 3 take the staged plane NLL of ``ops/pkalman.py``
+(``_staged_nll_paired``).
 
 Replaces the Pallas kernel ``eks_tpu/ops/pallas_nll.py`` ``_make_fused_kernel``
 (plain and ``paired=True``), reached in the JAX package through
@@ -32,12 +34,14 @@ time-varying-R table (``_scalar_offsets_tv``, ``_pack_scalars_tv`` and
 ``_table_planes_tv`` in ``ops/pkalman.py``). The CUDA source is
 ``eks_tpu_torch/csrc/fused_nll_tv.cu``; the plain version is the staged
 time-varying-R plane NLL (``pkalman._table_nll_tv``) over the plain scan, and
-the paired wrapper takes a table tangent only, as kernel A's does. Kernel C
-spreads each lane over G segments, one thread block each
+the paired wrapper takes a table tangent only, as kernel A's does.
+
+Both kernels spread each lane over G segments, one thread block each
 (``fused_filter.segment_partition`` picks G from the lanes, the steps and
-the card's SM count), through two scratch buffers the wrapper allocates: the
-segment totals (N, G, W * P) and the per-segment log-density sums (W, N, G),
-W = 2 when paired.
+the card's SM count; ``nll_plan`` and ``tv_plan`` keep it per shape),
+through two scratch buffers the wrapper allocates as one: the segment totals
+(N, G, W * P) and the per-segment log-density sums (W, N, G), W = 2 when
+paired.
 """
 
 from __future__ import annotations
@@ -59,28 +63,35 @@ from eks_tpu_torch.ops.pkalman import (
 
 __all__ = [
     "LAUNCHES",
+    "LAUNCHES_BY_SHAPE",
     "PAIRED_LAUNCHES",
     "TV_LAUNCHES",
     "TV_PAIRED_LAUNCHES",
+    "built_shapes",
     "filter_nll_fused_batched",
     "filter_nll_fused_tv_batched",
     "fused_nll",
     "fused_nll_paired",
     "fused_nll_tv",
     "fused_nll_tv_paired",
+    "nll_plan",
     "tv_plan",
 ]
 
+#: (D, O) pairs the CUDA kernels are instantiated for: kernel A at every
+#: D <= 3 with an even O <= 8 (``FUSED_NLL_SHAPES`` in ``csrc/fused_nll.cu``),
+#: the JAX package's fused route; kernel C at the pupil family's (3, 8)
+_CUDA_SHAPES = tuple((D, O) for D in (1, 2, 3) for O in (2, 4, 6, 8))
+_CUDA_SHAPES_TV = ((3, 8),)
+
 #: launches of the plain and of the paired form of kernel A and of kernel C
-#: since import (or since a caller last reset them)
+#: since import (or since a caller last reset them), and kernel A's by
+#: instance (D, O, paired)
 LAUNCHES = 0
 PAIRED_LAUNCHES = 0
 TV_LAUNCHES = 0
 TV_PAIRED_LAUNCHES = 0
-
-#: (D, O) pairs the CUDA kernels are instantiated for
-_CUDA_SHAPES = ((2, 2), (3, 4), (3, 6), (3, 8))
-_CUDA_SHAPES_TV = ((3, 8),)
+LAUNCHES_BY_SHAPE = {(D, O, paired): 0 for D, O in _CUDA_SHAPES for paired in (False, True)}
 
 
 # --------------------------------------------------------------------------- #
@@ -114,34 +125,58 @@ def _lib(paired: bool, tv: bool):
     name = "fused_nll_tv" if tv else "fused_nll"
     fn = getattr(cuda_build.load(name), name + ("_paired_f32" if paired else "_f32"))
     if fn.argtypes is None:
-        # y (or yr), table[, dtable], out[, totals, partials]; N, T, D, O[, G]
-        n_ptr = (4 if paired else 3) + (2 if tv else 0)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (5 if tv else 4) + [ctypes.c_void_p]
+        # y (or yr), table[, dtable], out, totals, partials; N, T, D, O, G
+        fn.argtypes = [ctypes.c_void_p] * (6 if paired else 5) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-_TV_GEOMETRY: list = []
-_TV_PLANS: dict = {}
+def built_shapes() -> tuple:
+    """The (D, O) instances the library of kernel A reports it builds
+    (``FUSED_NLL_SHAPES`` in ``csrc/fused_nll.cu``)."""
+    fn = cuda_build.load("fused_nll").fused_nll_shapes
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int]
+    Ds, Os = (ctypes.c_int * 64)(), (ctypes.c_int * 64)()
+    n = fn(Ds, Os, 64)
+    return tuple((Ds[i], Os[i]) for i in range(n))
+
+
+_GEOMETRY: dict = {}
+_PLANS: dict = {}
+
+
+def _geometry(library: str) -> tuple:
+    """(threads per block, most steps per segment) of a library's kernels."""
+    if library not in _GEOMETRY:
+        geo = getattr(cuda_build.load(library), library + "_geometry")
+        geo.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        threads, max_steps = ctypes.c_int(), ctypes.c_int()
+        geo(ctypes.byref(threads), ctypes.byref(max_steps))
+        _GEOMETRY[library] = (threads.value, max_steps.value)
+    return _GEOMETRY[library]
+
+
+def _plan(library: str, N: int, T: int, device: torch.device) -> dict:
+    key = (library, N, T, device.index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        threads, max_steps = _geometry(library)
+        G, L = segment_partition(N, T, sm_count(device), threads, max_steps)
+        plan = _PLANS[key] = {"G": G, "L": L, "threads": threads}
+    return plan
+
+
+def nll_plan(N: int, T: int, device: torch.device) -> dict:
+    """Kernel A's launch geometry for N lanes of T steps on ``device``:
+    segments per lane G, steps per segment L, threads per block. Kept per
+    (N, T, device): an optimizer asks for the same one every iteration."""
+    return _plan("fused_nll", N, T, device)
 
 
 def tv_plan(N: int, T: int, device: torch.device) -> dict:
-    """Kernel C's launch geometry for N lanes of T steps on ``device``:
-    segments per lane G, steps per segment L, threads per block. Kept per
-    (N, T, device): an optimizer asks for the same one every iteration."""
-    key = (N, T, device.index)
-    plan = _TV_PLANS.get(key)
-    if plan is None:
-        if not _TV_GEOMETRY:
-            geo = cuda_build.load("fused_nll_tv").fused_nll_tv_geometry
-            geo.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-            threads, max_steps = ctypes.c_int(), ctypes.c_int()
-            geo(ctypes.byref(threads), ctypes.byref(max_steps))
-            _TV_GEOMETRY.extend((threads.value, max_steps.value))
-        threads, max_steps = _TV_GEOMETRY
-        G, L = segment_partition(N, T, sm_count(device), threads, max_steps)
-        plan = _TV_PLANS[key] = {"G": G, "L": L, "threads": threads}
-    return plan
+    """Kernel C's launch geometry for N lanes of T steps on ``device``, as
+    ``nll_plan``'s."""
+    return _plan("fused_nll_tv", N, T, device)
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple):
@@ -156,8 +191,8 @@ def _check(name: str, x: torch.Tensor, shape: tuple):
 def _launch(table, dtable, y, tv: bool = False, scratch=None) -> torch.Tensor:
     """Launch kernel A on (table, y (N, O, T)) or, with ``tv``, kernel C on
     (table, yr (N, 2O, T)); returns the (1, N) or, paired, (2, N) output.
-    Kernel C's ``scratch``, (totals (N, G, W * P), partials (W, N, G)), is
-    checked when given; else it is allocated here, as one buffer."""
+    The ``scratch``, (totals (N, G, W * P), partials (W, N, G)), is checked
+    when given; else it is allocated here, as one buffer."""
     N, rows, T = y.shape
     if tv:
         if rows % 2:
@@ -187,19 +222,16 @@ def _launch(table, dtable, y, tv: bool = False, scratch=None) -> torch.Tensor:
     ptrs = [x.data_ptr() for x in (y, table) + ((dtable,) if dtable is not None else ()) + (out,)]
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if tv:
-            G = tv_plan(N, T, y.device)["G"]
-            n_tot = N * G * W * (3 * D * D + 2 * D)  # floats of the segment totals
-            if scratch is None:
-                buf = torch.empty(n_tot + W * N * G, dtype=torch.float32, device=y.device)
-                scratch_ptrs = (buf.data_ptr(), buf.data_ptr() + 4 * n_tot)
-            else:
-                for x, sh in zip(scratch, ((N, G, n_tot // (N * G)), (W, N, G))):
-                    check_scratch("fused_nll_tv", x, sh, y.device)
-                scratch_ptrs = tuple(x.data_ptr() for x in scratch)
-            rc = fn(*ptrs, *scratch_ptrs, N, T, D, O, G, stream)
+        G = (tv_plan(N, T, y.device) if tv else nll_plan(N, T, y.device))["G"]
+        n_tot = N * G * W * (3 * D * D + 2 * D)  # floats of the segment totals
+        if scratch is None:
+            buf = torch.empty(n_tot + W * N * G, dtype=torch.float32, device=y.device)
+            scratch_ptrs = (buf.data_ptr(), buf.data_ptr() + 4 * n_tot)
         else:
-            rc = fn(*ptrs, N, T, D, O, stream)
+            for x, sh in zip(scratch, ((N, G, n_tot // (N * G)), (W, N, G))):
+                check_scratch("fused_nll", x, sh, y.device)
+            scratch_ptrs = tuple(x.data_ptr() for x in scratch)
+        rc = fn(*ptrs, *scratch_ptrs, N, T, D, O, G, stream)
     if rc != 0:
         raise RuntimeError(f"fused_nll kernel launch failed with CUDA error {rc}")
     return out
@@ -215,6 +247,7 @@ def fused_nll(table: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"no fused NLL for device {y.device}")
     out = _launch(table, None, y)
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(_table_dims(table.shape[1], y.shape[1]), y.shape[1], False)] += 1
     return out[0]
 
 
@@ -228,6 +261,7 @@ def fused_nll_paired(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor)
         raise RuntimeError(f"no fused NLL for device {y.device}")
     out = _launch(table, dtable, y)
     PAIRED_LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(_table_dims(table.shape[1], y.shape[1]), y.shape[1], True)] += 1
     return out[0], out[1]
 
 

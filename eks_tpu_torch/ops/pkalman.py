@@ -11,7 +11,8 @@ row per matrix entry, in a (..., P, T) tensor. The filtering element
 J); the smoothing element ``(E, g, L)`` has 2D² + D. Every combine is
 elementwise work over the time axis with the D x D algebra unrolled in
 Python, the same formulas the CUDA kernels unroll in registers
-(``eks_tpu_torch/csrc/filter_algebra.cuh``).
+(``eks_tpu_torch/csrc/filter_algebra.cuh``); beyond D = 3, where no kernel
+runs, the filter combine takes the matrix form (``_combine_filter_mats``).
 
 The forward filter's prefix scan goes through ``fused_filter.filter_prefix``
 and the reverse RTS scan through ``fused_filter.smoother_suffix`` (the CUDA
@@ -183,8 +184,11 @@ def _filter_parts(x, D):
 def _combine_filter(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """Associative combination of filtering elements; x1 precedes x2 in
     time. ``Zt = Zᵀ`` equals inv(I + J2 C1) because C1 and J2 are
-    symmetric."""
+    symmetric. Beyond D = 3 the same terms in matrix form
+    (``_combine_filter_mats``)."""
     D = filter_state_dim(x1.shape[-2])
+    if D > 3:
+        return _combine_filter_mats(x1, x2, D)
     A1, b1, C1, n1, J1 = _filter_parts(x1, D)
     A2, b2, C2, n2, J2 = _filter_parts(x2, D)
     Z = _pinv(_peye_plus(_pmatmul(C1, J2)))
@@ -197,6 +201,29 @@ def _combine_filter(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     eta = _pvadd(_pmatvec(A1tZt, _pvsub(n2, _pmatvec(J2, b1))), n1)
     J = _padd(_pmatmul(_pmatmul(A1tZt, J2), A1), J1)
     return _flat(A, b, C, eta, J)
+
+
+def _combine_filter_mats(x1: torch.Tensor, x2: torch.Tensor, D: int) -> torch.Tensor:
+    """``_combine_filter`` on (..., T, D, D) matrices with the library
+    inverse, as the JAX package's ``_combine_filter_aos`` runs every D that
+    its Pallas scan does not take: at D > 3 an unrolled plane algebra is
+    hundreds of small operations a combine."""
+    dd = D * D
+
+    def parts(x):
+        t = x.transpose(-1, -2)
+        mat = lambda lo: t[..., lo:lo + dd].unflatten(-1, (D, D))  # noqa: E731
+        vec = lambda lo: t[..., lo:lo + D, None]  # noqa: E731
+        return mat(0), vec(dd), mat(dd + D), vec(2 * dd + D), mat(2 * dd + 2 * D)
+
+    A1, b1, C1, n1, J1 = parts(x1)
+    A2, b2, C2, n2, J2 = parts(x2)
+    Z = torch.linalg.inv(torch.eye(D, dtype=x1.dtype, device=x1.device) + C1 @ J2)
+    A2Z = A2 @ Z
+    A1tZt = A1.transpose(-1, -2) @ Z.transpose(-1, -2)
+    out = (A2Z @ A1, A2Z @ (b1 + C1 @ n2) + b2, A2Z @ C1 @ A2.transpose(-1, -2) + C2,
+           A1tZt @ (n2 - J2 @ b1) + n1, A1tZt @ J2 @ A1 + J1)
+    return torch.cat([x.flatten(-2) for x in out], dim=-1).transpose(-1, -2)
 
 
 def _aos_planes(*leaves) -> torch.Tensor:

@@ -7,19 +7,23 @@ import torch
 from eks_tpu_torch.utils.frames import center_predictions, crop_frames
 from eks_tpu_torch.utils.io import (
     convert_lp_dlc,
+    convert_slp_dlc,
     format_data,
     get_keypoint_names,
     make_dlc_pandas_index,
+    read_slp_predictions,
     save_dlc_csv,
 )
 
 __all__ = [
     "center_predictions",
     "convert_lp_dlc",
+    "convert_slp_dlc",
     "crop_frames",
     "format_data",
     "get_keypoint_names",
     "make_dlc_pandas_index",
+    "read_slp_predictions",
     "resolve_device",
     "save_dlc_csv",
 ]

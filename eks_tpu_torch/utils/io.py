@@ -1,20 +1,25 @@
-"""CSV loading and DLC-format conversion (pandas only).
+"""CSV and SLEAP ``.slp`` loading and DLC-format conversion.
 
 Input contract (same as ``eks_tpu/utils/io.py``): a directory, a list of
 files, or a {camera: [files]} dict of prediction CSVs in the
-DeepLabCut/Lightning-Pose 3-row-header format (scorer / bodyparts / coords).
-Output CSVs use scorer ``ensemble-kalman_tracker``.
+DeepLabCut/Lightning-Pose 3-row-header format (scorer / bodyparts / coords),
+or SLEAP ``.slp`` files. Output CSVs use scorer ``ensemble-kalman_tracker``.
 
-The port reads and writes through pandas only. SLEAP ``.slp`` input and the
-native C++ reader and writer of the JAX package are not ported yet; files of
-other extensions are skipped as the JAX package skips unknown ones.
+CSVs are read and written through pandas; the native C++ reader and writer
+of the JAX package are not ported yet. ``.slp`` files are HDF5 containers,
+read through h5py (imported only when a ``.slp`` file is loaded, so the
+package imports without it); as in the JAX package, each one also leaves a
+flat ``{file}.csv`` copy in the working directory. Files of other extensions
+are skipped as the JAX package skips them.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 
+import numpy as np
 import pandas as pd
 
 logger = logging.getLogger(__name__)
@@ -22,6 +27,8 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "make_dlc_pandas_index",
     "convert_lp_dlc",
+    "convert_slp_dlc",
+    "read_slp_predictions",
     "get_keypoint_names",
     "format_data",
     "save_dlc_csv",
@@ -72,6 +79,75 @@ def convert_lp_dlc(
     return pd.DataFrame(flat, index=df_lp.index)
 
 
+# --------------------------------------------------------------------------- #
+# SLEAP .slp files (HDF5, through h5py)
+# --------------------------------------------------------------------------- #
+def _slp_node_names(h5file) -> list[str]:
+    """Skeleton node names, in skeleton order, from the JSON document the
+    container keeps in the ``json`` attribute of ``/metadata``."""
+    blob = h5file["metadata"].attrs["json"]
+    if isinstance(blob, bytes):
+        blob = blob.decode("utf-8")
+    return [node["name"] for node in json.loads(blob)["nodes"]]
+
+
+def read_slp_predictions(file_path: str) -> tuple[np.ndarray, list[str]]:
+    """A SLEAP ``.slp`` file as a dense (frames, instances, nodes, 3) array
+    of (x, y, score), and the node names.
+
+    Each row of ``frames`` points at a span of ``instances`` rows, each of
+    which points at a span of ``points`` (user labels) or ``pred_points``
+    (predictions, with a score per point); ``instance_type == 1`` marks a
+    prediction. The instance count is the first frame's, missing
+    coordinates read 0, and every score gets 1e-6 added (a label's score is
+    0), as the JAX package reads them."""
+    import h5py
+
+    with h5py.File(file_path, "r") as f:
+        node_names = _slp_node_names(f)
+        frames = f["frames"][:]
+        instances = f["instances"][:]
+        points = f["points"][:] if "points" in f else np.empty((0,))
+        pred_points = f["pred_points"][:] if "pred_points" in f else np.empty((0,))
+
+    n_nodes, n_frames = len(node_names), len(frames)
+    if n_frames == 0:
+        return np.zeros((0, 0, n_nodes, 3)), node_names
+    spans = [(int(row["instance_id_start"]), int(row["instance_id_end"])) for row in frames]
+    max_instances = spans[0][1] - spans[0][0]
+
+    dense = np.zeros((n_frames, max_instances, n_nodes, 3))
+    for fi, (lo, hi) in enumerate(spans):
+        for slot, inst in enumerate(instances[lo:hi][:max_instances]):
+            predicted = int(inst["instance_type"]) == 1
+            rows = (pred_points if predicted else points)[int(inst["point_id_start"]):int(inst["point_id_end"])]
+            for k in range(min(n_nodes, len(rows))):
+                x, y = float(rows[k]["x"]), float(rows[k]["y"])
+                dense[fi, slot, k, 0] = 0.0 if np.isnan(x) else x
+                dense[fi, slot, k, 1] = 0.0 if np.isnan(y) else y
+                dense[fi, slot, k, 2] = (float(rows[k]["score"]) if predicted else 0.0) + 1e-6
+    return dense, node_names
+
+
+def convert_slp_dlc(base_dir: str, slp_file: str) -> tuple:
+    """A SLEAP ``.slp`` file as a flat DataFrame with
+    ``{instance}_{keypoint}_{coord}`` columns (instances counted from 1),
+    and its keypoint names. Writes the same table to ``{slp_file}.csv`` in
+    the working directory, as the JAX package does."""
+    dense, keypoint_names = read_slp_predictions(os.path.join(base_dir, slp_file))
+    n_frames, max_instances = dense.shape[:2]
+    columns = [
+        f"{j + 1}_{kp}_{coord}"
+        for j in range(max_instances)
+        for kp in keypoint_names
+        for coord in _COORDS
+    ]
+    df = pd.DataFrame(dense.reshape(n_frames, -1), columns=columns)
+    df.to_csv(f"{slp_file}.csv", index=False)
+    logger.info(f"converted {slp_file}; flat copy written to {slp_file}.csv")
+    return df, keypoint_names
+
+
 def get_keypoint_names(df: pd.DataFrame) -> list:
     """Bodypart names, in column order, from a DLC MultiIndex DataFrame."""
     kps = df.columns[
@@ -81,7 +157,10 @@ def get_keypoint_names(df: pd.DataFrame) -> list:
 
 
 def _load_one(file_path: str) -> tuple[pd.DataFrame, list] | None:
-    """Load one prediction CSV; None for other extensions."""
+    """Load one prediction file (``.csv`` or ``.slp``); None for other
+    extensions."""
+    if file_path.endswith(".slp"):
+        return convert_slp_dlc(os.path.dirname(file_path), os.path.basename(file_path))
     if not file_path.endswith(".csv"):
         return None
     raw = pd.read_csv(file_path, header=[0, 1, 2], index_col=0)
@@ -114,7 +193,7 @@ def _paths_for_camera(file_paths, camera: str) -> list[str]:
     return [
         fp
         for fp in pool
-        if camera in os.path.basename(fp) and fp.endswith(".csv")
+        if camera in os.path.basename(fp) and fp.endswith((".csv", ".slp"))
     ]
 
 

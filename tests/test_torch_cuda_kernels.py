@@ -1,10 +1,14 @@
-"""Kernels A, B (every instance of the scan: filter and smoother algebra,
-plain and paired, over lanes) and C of the PyTorch port on the card, against
+"""Kernels A (every (D, O) instance), B (every instance of the scan: filter
+and smoother algebra, plain and paired, over lanes, D = 1 to 3) and C of
+the PyTorch port on the card, against
 their plain versions on the same inputs, at the edge shapes the full-width runs of
 chip_smoke.py do not reach: a single step, a single lane, fewer steps than
 threads, time axes one either side of a multiple of the block and of a
-segment, a long lane and a wide batch; and whether two launches of each
-kernel on the same inputs give the same bits.
+segment, a long lane and a wide batch; whether two launches of each
+kernel on the same inputs give the same bits; that the instances the
+library of kernel A reports are the ones its wrapper takes; and that scans
+beyond D = 3 take the plain version on the card, counted, as the JAX
+package takes XLA's scan there.
 
 The kernels have no CPU mode, so every test here needs a CUDA card and
 ``nvcc``; on a machine without them each one skips. On the card (where JAX is
@@ -25,6 +29,9 @@ pytestmark = pytest.mark.cuda
 # association order (segments, per-thread chunks and block sweeps against a
 # log-depth tree), in float32; entry by entry, relative to 1 + the entry's magnitude
 RTOL = 1e-5
+# kernel A's d ll/d log s on a lane against the float64 plain version,
+# relative to 1 + the lane's own |d ll| (see test_kernel_a_instances_match_plain)
+RTOL_DLL_LANE = 1e-4
 
 
 @pytest.fixture
@@ -39,13 +46,14 @@ def _steps(spec, key):
     segment holds at least one step per thread ("thr") unless the lane is
     shorter, and at most what a block stages ("tile"); at N = 300 lanes the
     partition wants one segment, so T = tile + 1 is the least T with two
-    full-size segments. ``key`` is a scan instance (kind, paired, D), or
-    "C" for kernel C."""
+    full-size segments. ``key`` is a scan instance (kind, paired, D), "C"
+    for kernel C, or ("A", D) for kernel A at D."""
     if isinstance(spec, int):
         return spec
     if key == "C":
-        fused_nll.tv_plan(1, 1, torch.device("cuda"))
-        threads, tile = fused_nll._TV_GEOMETRY
+        threads, tile = fused_nll._geometry("fused_nll_tv")
+    elif key[0] == "A":
+        threads, tile = fused_nll._geometry("fused_nll")
     else:
         threads, tile = fused_filter._geometry(*key)
     base, _, delta = spec.partition("+") if "+" in spec else spec.partition("-")
@@ -78,8 +86,22 @@ def _lanes(N, T, O, D, seed=0):
     return ys, m0, S0, A, Q, C, r, r_tv
 
 
-def _nll_operands(dev, N, T, O=2, D=2):
-    ys, m0, S0, A, Q, C, r, _ = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, O, D))
+def _ar1(N, T, O, seed):
+    """A stationary AR(1) series (N, T, O): the long cases' observations,
+    for the reason ``_nll_tv_operands`` gives."""
+    e = np.random.default_rng(seed).normal(size=(N, T, O)).astype(np.float32)
+    ys = np.empty_like(e)
+    ys[:, 0] = e[:, 0]
+    for t in range(1, T):
+        ys[:, t] = 0.95 * ys[:, t - 1] + e[:, t]
+    return ys
+
+
+def _nll_operands(dev, N, T, O=2, D=2, walk=True):
+    ys, m0, S0, A, Q, C, r, _ = _lanes(N, T, O, D)
+    if not walk:
+        ys = _ar1(N, T, O, seed=T)
+    ys, m0, S0, A, Q, C, r = (torch.as_tensor(x, device=dev) for x in (ys, m0, S0, A, Q, C, r))
     s_log = torch.linspace(-1.0, 1.0, N, device=dev)
 
     def pack(sl):
@@ -121,6 +143,71 @@ def test_kernel_a_at_d3_matches_plain(dev, N, T, O):
     _close(dll_p, want_dp)
 
 
+@pytest.mark.parametrize("D,O", [shape for shape in fused_nll._CUDA_SHAPES if shape not in ((2, 2), (3, 4))])
+@pytest.mark.parametrize("N,T,walk", [(1, 1, True), (3, "thr-1", True), (3, "thr", True), (3, "thr+1", True),
+                                      (300, "tile", True), (300, "tile+1", True), (16, 10_000, False)])
+def test_kernel_a_instances_match_plain(dev, D, O, N, T, walk):
+    """Every other instance of kernel A (n_latent 1 and 2, and D = 3 at one
+    camera's O = 2) on the grid's edge cases: one step, one segment of one
+    step per thread and either side of it, the largest segment and one past
+    it over 300 lanes, and a wide batch of long lanes (AR(1) observations).
+    d ll/d log s is held two ways. Against the float32 plain version at RTOL
+    of 1 + the batch's largest |d ll|: the lanes' s run from e^-1 to e, so on
+    the lane nearest its optimum d ll is a sum of 10,000 terms of the batch's
+    size that cancel to a few units, and two float32 orders of that sum
+    differ by about 1e-4 there. And lane by lane against the float64 plain
+    version at RTOL_DLL_LANE of 1 + the lane's own |d ll|, so that a lane of
+    a few units cannot hide an error at the batch's scale: the kernel's
+    largest such gap measured on an H100 was 1.7e-5, at (1, 8) on the 16
+    AR(1) lanes (the float32 plain version's 2.3e-6 there)."""
+    T = _steps(T, ("A", D))
+    table, dtable, y = _nll_operands(dev, N, T, O=O, D=D, walk=walk)
+    before = (fused_nll.LAUNCHES_BY_SHAPE[(D, O, False)], fused_nll.LAUNCHES_BY_SHAPE[(D, O, True)])
+    ll = fused_nll.fused_nll(table, y)
+    ll_p, dll_p = fused_nll.fused_nll_paired(table, dtable, y)
+    torch.cuda.synchronize()
+    assert (fused_nll.LAUNCHES_BY_SHAPE[(D, O, False)], fused_nll.LAUNCHES_BY_SHAPE[(D, O, True)]) == (
+        before[0] + 1, before[1] + 1)
+    want_p, want_dp = fused_nll._fused_nll_paired_plain(table, dtable, y)
+    _close(ll, want_p)
+    _close(ll_p, want_p)
+    err = float((dll_p - want_dp).abs().max() / (1.0 + want_dp.abs().max()))
+    assert err <= RTOL, err
+    want_64 = fused_nll._fused_nll_paired_plain(table.double(), dtable.double(), y.double())[1]
+    lane_err = float(((dll_p.double() - want_64).abs() / (1.0 + want_64.abs())).max())
+    assert lane_err <= RTOL_DLL_LANE, lane_err
+
+
+def test_kernel_a_library_builds_what_its_wrapper_takes(dev):
+    """The instances the library of kernel A reports (``FUSED_NLL_SHAPES``
+    in csrc/fused_nll.cu, which its C dispatch expands too) are the
+    wrapper's ``_CUDA_SHAPES``."""
+    assert fused_nll.built_shapes() == fused_nll._CUDA_SHAPES
+
+
+def test_staged_nll_at_n_latent_4_takes_the_plain_route(dev):
+    """Beyond D = 3 (n_latent 4 at two cameras: D = 4, O = 4) the loss is the
+    staged plane NLL, and its paired scan the plain version on the card,
+    counted as the plain route; no kernel launches. The final pass's two
+    scans too."""
+    table, dtable, y = _nll_operands(dev, 3, 300, O=4, D=4)
+    before = (fused_nll.PAIRED_LAUNCHES, fused_filter.LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES)
+    ll, dll = pkalman.filter_nll_paired_batched(table, dtable, y)
+    torch.cuda.synchronize()
+    assert (fused_nll.PAIRED_LAUNCHES, fused_filter.LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES) == (
+        before[0], before[1], before[2] + 1)
+    assert ll.device.type == "cuda"
+    want, want_d = pkalman._staged_nll_paired(table.cpu(), dtable.cpu(), y.cpu())
+    _close(ll.cpu(), want)
+    _close(dll.cpu(), want_d)
+    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(3, 300, 4, 4))
+    res = pkalman.kalman_smoother_parallel(ys, m0, S0, 0.95 * A, Q, C, r_tv)
+    torch.cuda.synchronize()
+    assert fused_filter.PLAIN_ROUTE_LAUNCHES == before[2] + 3 and fused_filter.LAUNCHES == before[1]
+    want_s = pkalman.kalman_smoother_parallel(*(x.cpu() for x in (ys, m0, S0, 0.95 * A, Q, C, r_tv)))
+    _close(res.smoothed_means.cpu(), want_s.smoothed_means)
+
+
 def test_staged_nll_at_12_observations_matches_plain(dev):
     """Beyond kernel A's sizes (six cameras: O = 12) the loss is the staged
     plane NLL: one paired lane-batched scan launch, no kernel A launch."""
@@ -147,11 +234,7 @@ def _nll_tv_operands(dev, N, T, walk=True):
     (scripts/torch_kernel_c_ab.py --precision prints both gaps)."""
     ys, m0, S0, A, Q, C, _, r_tv = _lanes(N, T, 8, 3)
     if not walk:
-        e = np.random.default_rng(T).normal(size=(N, T, 8)).astype(np.float32)
-        ys = np.empty_like(e)
-        ys[:, 0] = e[:, 0]
-        for t in range(1, T):
-            ys[:, t] = 0.95 * ys[:, t - 1] + e[:, t]
+        ys = _ar1(N, T, 8, seed=T)
     ys, m0, S0, A, Q, C, r_tv = (torch.as_tensor(x, device=dev) for x in (ys, m0, S0, A, Q, C, r_tv))
     s_log = torch.linspace(-1.0, 1.0, N, device=dev)
 
@@ -198,7 +281,8 @@ def test_kernel_c_clipped_noise_stays_in_step_with_plain(dev):
 
 @pytest.mark.parametrize("N,T,O,D", [(3, T, O, D) for T, O, D in [
     (1, 2, 2), (7, 2, 2), (255, 2, 2), (257, 2, 2), (300, 2, 2), (1, 8, 3), (7, 8, 3), (257, 8, 3),
-    (300, 8, 3)]] + [(N, T, 8, 3) for N, T in SEGMENT_CASES] + [(3, "thr+1", 2, 2), (300, "tile+1", 2, 2)])
+    (300, 8, 3)]] + [(N, T, 8, 3) for N, T in SEGMENT_CASES] + [(3, "thr+1", 2, 2), (300, "tile+1", 2, 2)]
+    + [(N, T, 4, 1) for N, T in SEGMENT_CASES] + [(1, 1, 2, 1)])
 def test_kernel_b_matches_plain(dev, N, T, O, D):
     T = _steps(T, ("filter", False, D))
     ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, O, D, seed=T))
@@ -223,7 +307,7 @@ def _smoother_planes(dev, N, T, O, D, seed):
 @pytest.mark.parametrize("N,T,O,D", [(3, T, O, D) for T, O, D in [
     (1, 2, 2), (7, 2, 2), (255, 2, 2), (256, 2, 2), (257, 2, 2), (1, 4, 3), (255, 4, 3), (256, 4, 3),
     (257, 4, 3), (1000, 4, 3)]] + [(N, T, 4, 3) for N, T in SEGMENT_CASES]
-    + [(3, "thr+1", 2, 2), (300, "tile+1", 2, 2)])
+    + [(3, "thr+1", 2, 2), (300, "tile+1", 2, 2)] + [(N, T, 4, 1) for N, T in SEGMENT_CASES] + [(1, 1, 2, 1)])
 def test_smoother_kernel_matches_plain(dev, N, T, O, D):
     T = _steps(T, ("smoother", False, D))
     planes, _ = _smoother_planes(dev, N, T, O, D, seed=T)
@@ -253,7 +337,8 @@ def _symmetric_cj(tangents, D):
 @pytest.mark.parametrize("kind", ["filter", "smoother"])
 @pytest.mark.parametrize("N,T,O,D", [(3, T, O, D) for T, O, D in [
     (1, 2, 2), (255, 2, 2), (257, 2, 2), (1, 4, 3), (256, 4, 3), (257, 4, 3), (1000, 12, 3)]]
-    + [(N, T, 4, 3) for N, T in SEGMENT_CASES] + [(3, "thr+1", 2, 2), (300, "tile+1", 2, 2)])
+    + [(N, T, 4, 3) for N, T in SEGMENT_CASES] + [(3, "thr+1", 2, 2), (300, "tile+1", 2, 2)]
+    + [(N, T, 4, 1) for N, T in SEGMENT_CASES])
 def test_paired_scan_kernels_match_plain(dev, kind, N, T, O, D):
     T = _steps(T, (kind, True, D))
     if kind == "smoother":
@@ -276,7 +361,8 @@ def test_paired_scan_kernels_match_plain(dev, kind, N, T, O, D):
 
 
 @pytest.mark.parametrize("instance", [(k, p, d) for k in ("filter", "smoother") for p in (False, True)
-                                      for d in (2, 3)] + ["C", "C paired"])
+                                      for d in (1, 2, 3)] + ["C", "C paired"]
+                         + [("A", d, o, p) for d, o in fused_nll._CUDA_SHAPES for p in (False, True)])
 def test_redesigned_kernels_are_bit_deterministic(dev, instance):
     """Two launches on the same inputs give the same bits: every
     association is fixed by (segment, thread), none by timing. Two lanes of
@@ -289,12 +375,21 @@ def test_redesigned_kernels_are_bit_deterministic(dev, instance):
         else:
             run = lambda: torch.stack(fused_nll.fused_nll_tv_paired(table, dtable, yr))  # noqa: E731
         assert fused_nll.tv_plan(N, T, dev)["G"] > 1
+    elif instance[0] == "A":
+        _, D, O, paired = instance
+        table, dtable, y = _nll_operands(dev, N, T, O=O, D=D, walk=False)
+        if paired:
+            run = lambda: torch.stack(fused_nll.fused_nll_paired(table, dtable, y))  # noqa: E731
+        else:
+            run = lambda: fused_nll.fused_nll(table, y)  # noqa: E731
+        assert fused_nll.nll_plan(N, T, dev)["G"] > 1
     else:
         kind, paired, D = instance
         if kind == "smoother":
-            planes, tangents = _smoother_planes(dev, N, T, 2 * D - 2, D, seed=1)
+            planes, tangents = _smoother_planes(dev, N, T, max(2 * D - 2, 2), D, seed=1)
         else:
-            ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, 2 * D - 2, D))
+            ys, m0, S0, A, Q, C, _, r_tv = (
+                torch.as_tensor(x, device=dev) for x in _lanes(N, T, max(2 * D - 2, 2), D))
             planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
             tangents = _symmetric_cj(0.1 * torch.ones_like(planes), D)
         wrapper = {"filter": (fused_filter.filter_prefix, fused_filter.filter_prefix_paired),
@@ -334,8 +429,11 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_filter.filter_prefix(planes.transpose(1, 2))
     with pytest.raises(ValueError):  # 16 planes is no smoothing element
         fused_filter.smoother_suffix(planes)
-    with pytest.raises(NotImplementedError):  # D = 1 is not instantiated
-        fused_filter.smoother_suffix(torch.zeros(2, 3, 8, device=dev))
+    with pytest.raises(NotImplementedError):  # the kernel stops at D = 3 (the wrappers take the plain route)
+        fused_filter._scan_cuda(torch.zeros(2, 36, 8, device=dev), "smoother", False)
+    with pytest.raises(NotImplementedError):  # kernel A is built for D <= 3 and even O <= 8
+        fused_nll.fused_nll(torch.zeros(2, pkalman._scalar_offsets(4, 4)[1], device=dev),
+                            torch.ones(2, 4, 16, device=dev))
     with pytest.raises(ValueError):
         fused_filter.filter_prefix_paired(planes, planes[:1])
     # a scratch buffer of the wrong shape is refused before any launch

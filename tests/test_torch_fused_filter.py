@@ -72,7 +72,7 @@ def test_plain_scan_matches_pallas_prefix_kernel_at_d3(T):
     _close(out[0, 12:21].T.reshape(T, 3, 3).numpy(), Ps_j)
 
 
-@pytest.mark.parametrize("O,D", [(2, 2), (8, 3)])
+@pytest.mark.parametrize("O,D", [(2, 2), (8, 3), (2, 1), (8, 4)])
 def test_plain_scan_matches_float64_sequential_filter(O, D):
     ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(1), 3, 173, O=O, D=D)
     params = params_from_numpy(m0, S0, A, Q, C, r)
@@ -81,6 +81,23 @@ def test_plain_scan_matches_float64_sequential_filter(O, D):
     seq = kalman_filter(y_t.double(), *(p.double() for p in params))
     _close(ms.numpy(), seq.filtered_means.numpy())
     _close(Ps.numpy(), seq.filtered_covs.numpy())
+
+
+@pytest.mark.parametrize("D", [4, 5])
+def test_plain_scan_beyond_d3_matches_jax_associative_scan(D):
+    """Beyond D = 3 the JAX package has no Pallas scan and runs
+    ``lax.associative_scan`` over its matrix-form combine; the port's plain
+    scan there (what the card runs too) takes the same combine in matrix
+    form."""
+    ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(D), 2, 120, O=2 * D, D=D)
+    A = (0.95 * A).astype(np.float32)
+    elems = vmap(jax_pk._make_filter_elements)(*(jnp.asarray(x) for x in (ys, m0, S0, A, Q, C, r)))
+    ms_j, Ps_j = vmap(jax_pk._run_filter_prefix)(elems)
+    planes = pkalman._aos_planes(*(torch.tensor(np.asarray(leaf)) for leaf in elems))
+    assert planes.shape == (2, 3 * D * D + 2 * D, 120)
+    ms, Ps = pkalman._run_filter_prefix(planes)
+    _close_entrywise(ms.numpy(), ms_j)
+    _close_entrywise(Ps.numpy(), Ps_j)
 
 
 @pytest.mark.parametrize("time_varying,O,D", [(True, 2, 2), (False, 2, 2), (True, 8, 3)])
@@ -148,7 +165,7 @@ def _aos(planes, D):
             rows[..., dd + D:].reshape(N, T, D, D))
 
 
-@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("D", [1, 2, 3])
 @pytest.mark.parametrize("T", [1, 255, 256, 257])
 def test_plain_smoother_suffix_matches_pallas_kernel_and_sequential_rts(T, D):
     """Identical smoothing elements through the JAX package's Pallas smoother
@@ -201,7 +218,7 @@ def _paired_operands(kind, D, N=3, T=130):
     return planes, tangents, fused_filter.smoother_suffix_paired, fused_filter.smoother_suffix
 
 
-@pytest.mark.parametrize("kind,D", [("filter", 3), ("smoother", 2), ("smoother", 3)])
+@pytest.mark.parametrize("kind,D", [("filter", 3), ("smoother", 2), ("smoother", 3), ("filter", 1), ("smoother", 1)])
 def test_plain_paired_scans_match_jax_jvp_of_lane_batched_kernel(kind, D):
     """(N, P, T) planes and a tangent through ``jax.jvp`` of the JAX
     package's lane-batched Pallas scan (its paired instance, interpret mode)
@@ -219,7 +236,7 @@ def test_plain_paired_scans_match_jax_jvp_of_lane_batched_kernel(kind, D):
     _close_entrywise(dout.numpy(), flip(np.asarray(dout_j)))
 
 
-@pytest.mark.parametrize("kind,D", [("filter", 2), ("filter", 3), ("smoother", 2), ("smoother", 3)])
+@pytest.mark.parametrize("kind,D", [(k, d) for d in (1, 2, 3, 4) for k in ("filter", "smoother")])
 def test_plain_paired_scans_match_finite_differences(kind, D):
     """Every paired instance's plain version: its value is the plain scan's,
     and its tangent is the central difference of the float64 plain scan."""
@@ -271,11 +288,11 @@ def test_kernel_b_wrapper_refuses_cuda_without_a_card():
         fused_filter.filter_prefix(planes.to("meta"))  # nor is any other device
     with pytest.raises(ValueError):
         fused_filter.filter_prefix(torch.zeros(2, 7, 16))  # not 3D²+2D planes
-    for P in (5, 56):  # D = 1, 4: the kernel is built for D = 2 and 3 only
-        with pytest.raises(NotImplementedError):
+    for P in (5, 33):  # D = 1 and D = 3 go on to the card
+        with pytest.raises((RuntimeError, AssertionError)):
             fused_filter.filter_prefix(_FakeCuda(torch.zeros(2, P, 16)))
-    with pytest.raises((RuntimeError, AssertionError)):  # D = 3 goes on to the card
-        fused_filter.filter_prefix(_FakeCuda(torch.zeros(2, 33, 16)))
+    with pytest.raises(NotImplementedError):  # the kernel itself is built for D <= 3 only
+        fused_filter._scan_cuda(_FakeCuda(torch.zeros(2, 56, 16)), "filter", False)
     assert fused_filter.LAUNCHES == before and fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 3)] == 0
 
 
@@ -289,8 +306,10 @@ def test_smoother_and_paired_wrappers_refuse_cuda_without_a_card():
     for P in (10, 21):  # D = 2, 3 go on to the card
         with pytest.raises((RuntimeError, AssertionError)):
             fused_filter.smoother_suffix(_FakeCuda(torch.zeros(2, P, 16)))
-    with pytest.raises(NotImplementedError):  # D = 1
+    with pytest.raises((RuntimeError, AssertionError)):  # D = 1 as well
         fused_filter.smoother_suffix(_FakeCuda(torch.zeros(2, 3, 16)))
+    with pytest.raises(NotImplementedError):  # the kernel itself stops at D = 3
+        fused_filter._scan_cuda(_FakeCuda(torch.zeros(2, 36, 16)), "smoother", False)
     with pytest.raises(ValueError):  # 16 planes is a filter element
         fused_filter.smoother_suffix(torch.zeros(2, 16, 16))
     with pytest.raises(RuntimeError):
@@ -301,4 +320,33 @@ def test_smoother_and_paired_wrappers_refuse_cuda_without_a_card():
         fused_filter._scan_cuda(_FakeCuda(torch.zeros(2, 33, 16)), "filter", True)
     assert fused_filter.LAUNCHES_BY_INSTANCE == before
     assert sorted(before) == sorted(
-        (k, p, d) for k in ("filter", "smoother") for p in (False, True) for d in (2, 3))
+        (k, p, d) for k in ("filter", "smoother") for p in (False, True) for d in (1, 2, 3))
+
+
+@pytest.mark.parametrize("kind", ["filter", "smoother"])
+def test_scans_beyond_d3_take_the_counted_plain_route_on_the_card(monkeypatch, kind):
+    """On a CUDA tensor the scans launch the kernel at D <= 3 and, beyond,
+    run the plain version (the JAX package's XLA associative scan there),
+    chosen by shape and counted in PLAIN_ROUTE_LAUNCHES; paired too."""
+    taken = []
+    monkeypatch.setattr(fused_filter, "_scan_cuda", lambda planes, k, paired: taken.append(("kernel", paired)))
+    plain_name = "filter_prefix_plain" if kind == "filter" else "smoother_suffix_plain"
+    monkeypatch.setattr(fused_filter, plain_name, lambda planes: taken.append(("plain", False)))
+    scan, scan_paired = {"filter": (fused_filter.filter_prefix, fused_filter.filter_prefix_paired),
+                         "smoother": (fused_filter.smoother_suffix, fused_filter.smoother_suffix_paired)}[kind]
+    dim = pkalman.filter_state_dim if kind == "filter" else pkalman.smoother_state_dim
+    before = fused_filter.PLAIN_ROUTE_LAUNCHES
+    for P in ((5, 16, 33, 56, 85) if kind == "filter" else (3, 10, 21, 36, 55)):
+        scan(_FakeCuda(torch.zeros(2, P, 16)))
+        assert taken[-1] == (("kernel", False) if dim(P) <= 3 else ("plain", False))
+    assert fused_filter.PLAIN_ROUTE_LAUNCHES == before + 2
+    # paired: on to the kernel's Dual instance up to D = 3 (whose operand
+    # a CPU stand-in for a CUDA tensor cannot build); beyond, the plain
+    # version's jvp, which it cannot enter either: only the route is read
+    P_small, P_large = (33, 56) if kind == "filter" else (21, 36)
+    with pytest.raises(TypeError):
+        scan_paired(_FakeCuda(torch.zeros(2, P_small, 16)), _FakeCuda(torch.zeros(2, P_small, 16)))
+    assert fused_filter.PLAIN_ROUTE_LAUNCHES == before + 2
+    with pytest.raises(Exception):
+        scan_paired(_FakeCuda(torch.zeros(2, P_large, 16)), _FakeCuda(torch.zeros(2, P_large, 16)))
+    assert fused_filter.PLAIN_ROUTE_LAUNCHES == before + 3

@@ -34,9 +34,11 @@ def _problem(rng, N, T, O, D):
     return ys, m0, S0, A, Q, C, r
 
 
-# (N, T, O, D): the singlecam shape, and the multi-camera shapes the CUDA
-# kernel is instantiated for (two, three and four cameras at D = 3)
-SHAPES = [(5, 300, 2, 2), (3, 256, 2, 2), (2, 97, 4, 3), (2, 97, 6, 3), (2, 97, 8, 3)]
+# (N, T, O, D): the singlecam shape, the multi-camera shapes at n_latent 3
+# (two, three and four cameras), and the other n_latent the CUDA kernel is
+# instantiated for (1 and 2; D = 3 with one camera's O = 2)
+SHAPES = [(5, 300, 2, 2), (3, 256, 2, 2), (2, 97, 4, 3), (2, 97, 6, 3), (2, 97, 8, 3),
+          (2, 97, 2, 1), (2, 97, 4, 1), (2, 97, 8, 1), (2, 97, 4, 2), (2, 97, 6, 2), (2, 97, 2, 3)]
 
 
 @pytest.mark.parametrize("N,T,O,D", SHAPES)
@@ -45,10 +47,13 @@ def test_plain_kernel_a_matches_jax_fused_nll(N, T, O, D):
     ll_jax = jax_nll.filter_nll_fused_batched(
         *(jnp.asarray(x) for x in (ys, m0, S0, A, Q, C, r)), interpret=True
     )
+    before = dict(fused_nll.LAUNCHES_BY_SHAPE)
     ll_port = fused_nll.filter_nll_fused_batched(
         torch.as_tensor(ys), *params_from_numpy(m0, S0, A, Q, C, r)
     )
     np.testing.assert_allclose(ll_port.numpy(), np.asarray(ll_jax), rtol=RTOL)
+    # the plain version on CPU tensors is no launch of the kernel
+    assert fused_nll.LAUNCHES_BY_SHAPE == before
 
 
 @pytest.mark.parametrize("N,T,O,D", SHAPES)
@@ -149,23 +154,25 @@ def test_kernel_a_wrappers_refuse_cuda_without_a_card():
     ys, m0, S0, A, Q, C, r = _problem(np.random.default_rng(0), 2, 16, 2, 2)
     table = pkalman._pack_scalars(torch.as_tensor(ys[:, 0]), *params_from_numpy(m0, S0, A, Q, C, r))
     y_planes = torch.as_tensor(np.ascontiguousarray(ys.transpose(0, 2, 1)))
-    before = (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES)
+    before = (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES, dict(fused_nll.LAUNCHES_BY_SHAPE))
     with pytest.raises((RuntimeError, AssertionError)):
         fused_nll.fused_nll(_FakeCuda(table), _FakeCuda(y_planes))
     with pytest.raises((RuntimeError, AssertionError)):
         fused_nll.fused_nll_paired(_FakeCuda(table), _FakeCuda(table), _FakeCuda(y_planes))
-    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES) == before
-    # shapes the CUDA kernel is not built for are refused before any launch
-    for D, O in ((3, 2), (2, 4), (1, 2)):
+    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES, fused_nll.LAUNCHES_BY_SHAPE) == before
+    # shapes the CUDA kernel is not built for are refused before any launch:
+    # beyond D = 3 or O = 8, and an odd O (observations come in x, y pairs)
+    for D, O in ((4, 4), (3, 10), (1, 3), (2, 12)):
         bad = torch.zeros(2, pkalman._scalar_offsets(D, O)[1])
         with pytest.raises(NotImplementedError):
             fused_nll.fused_nll(_FakeCuda(bad), _FakeCuda(torch.zeros(2, O, 16)))
-    # the multi-camera instances go on to the card
-    for O in (4, 6, 8):
-        tab = torch.zeros(2, pkalman._scalar_offsets(3, O)[1])
+    # every instance, singlecam and multi-camera at each n_latent, goes on
+    # to the card
+    for D, O in fused_nll._CUDA_SHAPES:
+        tab = torch.zeros(2, pkalman._scalar_offsets(D, O)[1])
         with pytest.raises((RuntimeError, AssertionError)):
             fused_nll.fused_nll_paired(_FakeCuda(tab), _FakeCuda(tab), _FakeCuda(torch.zeros(2, O, 16)))
-    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES) == before
+    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES, fused_nll.LAUNCHES_BY_SHAPE) == before
 
 
 def test_staged_nll_at_12_observations_matches_jax_staged_pipeline():
@@ -221,6 +228,13 @@ def test_nll_dispatch_takes_the_fused_kernel_up_to_8_observations(monkeypatch):
         table = torch.zeros(2, pkalman._scalar_offsets(3, O)[1])
         pkalman.filter_nll_paired_batched(table, table, torch.zeros(2, O, 16))
     assert taken == ["fused", "fused", "fused", "staged", "staged"]
+    # n_latent 1, 2 and 4 at two cameras: the fused NLL up to D = 3, as the
+    # JAX package's _use_fused_nll, and the staged path at D = 4
+    taken.clear()
+    for D in (1, 2, 4):
+        table = torch.zeros(2, pkalman._scalar_offsets(D, 4)[1])
+        pkalman.filter_nll_paired_batched(table, table, torch.zeros(2, 4, 16))
+    assert taken == ["fused", "fused", "staged"]
     # and the fused path's value is the fused NLL's
     monkeypatch.undo()
     ys, m0, S0, A, Q, C, r = _problem(np.random.default_rng(2), 2, 60, 4, 3)
@@ -230,3 +244,18 @@ def test_nll_dispatch_takes_the_fused_kernel_up_to_8_observations(monkeypatch):
     y_planes = y_t.transpose(1, 2).contiguous()
     ll, _ = pkalman.filter_nll_paired_batched(table, torch.zeros_like(table), y_planes)
     np.testing.assert_array_equal(ll.numpy(), fused_nll.filter_nll_fused_batched(y_t, *params).numpy())
+
+
+def test_cuda_shapes_are_the_sources_instance_list():
+    """The wrapper's ``_CUDA_SHAPES`` are ``FUSED_NLL_SHAPES`` of
+    csrc/fused_nll.cu, the one list the C dispatch and ``fused_nll_shapes``
+    expand (the card tests ask the built library)."""
+    import re
+    from pathlib import Path
+
+    text = (Path(fused_nll.__file__).resolve().parent.parent / "csrc" / "fused_nll.cu").read_text()
+    macro = re.search(r"#define FUSED_NLL_SHAPES\(X\)(.*?)\n\n", text, re.S).group(1)
+    listed = tuple((int(d), int(o)) for d, o in re.findall(r"X\((\d), (\d)\)", macro))
+    assert listed == fused_nll._CUDA_SHAPES
+    assert listed == tuple((D, O) for D in (1, 2, 3) for O in (2, 4, 6, 8))
+    assert text.count("FUSED_NLL_SHAPES(") == 3  # the definition, the dispatch and fused_nll_shapes

@@ -1,7 +1,10 @@
-"""The lane x segment grid of the scan kernel and kernel C, on the CPU: the
-partition of a lane's steps into segments (one thread block each) and the
-wrappers' check of their scratch buffers. The kernels themselves run only on
-a card (tests/test_torch_cuda_kernels.py)."""
+"""The lane x segment grid of the scan kernel and kernels A and C, on the
+CPU: the partition of a lane's steps into segments (one thread block each)
+and the wrappers' check of their scratch buffers. The kernels themselves run
+only on a card (tests/test_torch_cuda_kernels.py)."""
+
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -9,8 +12,19 @@ import torch
 from eks_tpu_torch.ops.fused_filter import check_scratch, segment_partition
 
 # (threads per block, most steps per segment) of the built instances: the
-# scan's float filter at D = 2 and its Dual filter at D = 3, and kernel C
-GEOMETRIES = [(128, 1024), (128, 256), (128, 1024)]
+# scan's float filter at D = 2 and its Dual filter at D = 3, and kernels C
+# and A (every instance of A shares one geometry)
+GEOMETRIES = [(128, 1024), (128, 256), (128, 1024), (128, 1024)]
+CSRC = Path(__file__).resolve().parent.parent / "eks_tpu_torch" / "csrc"
+
+
+def _source_geometry(name: str) -> tuple:
+    """(NT, NT * CH) as a fused NLL source declares them: what its
+    ``*_geometry`` entry point returns to the wrapper on a card."""
+    text = (CSRC / name).read_text()
+    nt = int(re.search(r"constexpr int NT = (\d+);", text).group(1))
+    ch = int(re.search(r"constexpr int CH = (\d+);", text).group(1))
+    return nt, nt * ch
 
 
 @pytest.mark.parametrize("min_steps,max_steps", GEOMETRIES)
@@ -48,6 +62,31 @@ def test_partition_aims_at_two_blocks_per_sm():
     # a short lane is one segment; a wide batch one segment per lane
     assert segment_partition(3, 100, 132, 128, 512) == (1, 100)
     assert segment_partition(500, 300, 132, 128, 512) == (1, 300)
+
+
+@pytest.mark.parametrize("source", ["fused_nll.cu", "fused_nll_tv.cu"])
+def test_fused_nll_sources_declare_the_geometry_held_here(source):
+    assert _source_geometry(source) == (128, 1024)
+
+
+def test_kernel_a_partition_at_the_main_paths():
+    """Kernel A's plan (``fused_nll.nll_plan``: the partition at the
+    geometry of csrc/fused_nll.cu and the card's SM count; 132 on an H100
+    SXM) for the optimizers' lanes."""
+    geo = _source_geometry("fused_nll.cu")
+    # the headline's 20 lanes: 13 segments of 770 steps (6 a thread), 260
+    # blocks in one wave; the multi-camera sessions' 10 lanes: 26 of 385
+    assert segment_partition(20, 10_000, 132, *geo) == (13, 770)
+    assert segment_partition(10, 10_000, 132, *geo) == (26, 385)
+    # edges: a lane shorter than a block's threads is one segment; one step
+    # a thread caps G below the lanes' share; a long lane is cut into
+    # segments no longer than the tile; a wide batch takes one segment each
+    assert segment_partition(20, 127, 132, *geo) == (1, 127)
+    assert segment_partition(20, 129, 132, *geo) == (2, 65)
+    assert segment_partition(10, 128 * 26, 132, *geo) == (26, 128)
+    assert segment_partition(10, 128 * 26 - 1, 132, *geo) == (26, 128)
+    assert segment_partition(1, 1_000_000, 132, *geo) == (977, 1024)
+    assert segment_partition(500, 10_000, 132, *geo) == (10, 1000)
 
 
 @pytest.mark.parametrize("args", [(0, 10, 132, 128, 512), (2, 0, 132, 128, 512), (2, 10, 0, 128, 512),
