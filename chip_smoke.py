@@ -62,7 +62,10 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
  14. runs ``ensemble_kalman_smoother_multicam`` with auto-tuned s on a
      two-camera session (10,000 frames x 10 keypoints x 2 cameras x 5 seeds,
      seed 0), counting launches, checks its final pass against the float64
-     sequential smoother, and profiles a repeat of it;
+     sequential smoother (``seq_smoother_f64``: each step's solves batched
+     over the lanes through LAPACK, seconds where the port's unrolled
+     sequential smoother takes minutes at 12 observations), and profiles a
+     repeat of it;
  15. runs the same recipe at six cameras (12 observations), where the
      optimizer's loss is the staged plane NLL over the paired lane-batched
      scan, checks its final pass against the float64 sequential smoother,
@@ -78,7 +81,36 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      with the stop rule off, trajectory against trajectory; with it on, each
      lane's s against the CPU's trajectory at the iteration where that lane
      stopped on the card, printing the lanes' stop iterations on the card,
-     the CPU and a float64 CPU run; and prints the seconds the phase took.
+     the CPU and a float64 CPU run; and prints the seconds the phase took;
+ 18. runs ``fit_eks_multicam`` with the calibration on the bundled
+     ``data/multicam`` session, auto s, against the committed goldens
+     ``multicam_cal_cam0`` (5e-4) and ``multicam_cal_3d`` (1e-4), and with
+     s = 10 on its 200-frame crop (``tests/integration/cropping.py``)
+     against ``fast_multicam_cal_cam0`` and ``fast_multicam_cal_3d``;
+ 19. on the JAX package's calibrated recipe (bench.py: 10,000 frames x 5
+     keypoints x 3 cameras x 5 seeds, seed 0, made with the port's
+     ``Camera``) holds the scan kernel against its plain version on every
+     operand one Adam iteration and the final pass give it (5 lanes: the
+     three paired D = 3 filter sweeps, the 13 relinearized filter tables,
+     the smoother table); runs ``ensemble_kalman_smoother_multicam(
+     camgroup=...)`` with auto-tuned s, counting launches (3 paired D = 3
+     filter scans an Adam iteration; 13 filter scans and 1 smoother scan in
+     the final pass), checks its final pass against the float64 sequential
+     EKF smoother (1e-4 in 3-D, 1e-2 px; printing the filtered-means
+     control), holds its s on two keypoints against a CPU run of the plain
+     path, both capped at a few Adam iterations, by phase 17's rule, and
+     profiles a capped repeat;
+ 20. runs ``ensemble_kalman_smoother_singlecam_sessions`` on four headline
+     sessions (seed 1) as 80 lanes of one run, first holding kernel A at
+     (2, 2) paired and the D = 2 filter and smoother scans against their
+     plain versions on the operands that run gives them (80 lanes), then
+     counting launches, holding every session's s and table against its
+     solo run (5e-4 of 1 + |solo|) and each batched and solo table against
+     the float64 sequential smoother at its own s (printing two controls),
+     and ``fit_eks_singlecam`` with s_frames [(0, 250)] on the bundled
+     session against the committed ``singlecam_auto`` golden (1e-4), and
+     profiles a repeat of the batched run. Phases 18-20 print their
+     seconds; 18 and 19 run right after the build (1).
 
 Each phase prints one JSON line; any failure raises, so the exit code is not
 0. The last lines are the main paths' launch counts, the card's name and
@@ -89,6 +121,7 @@ a nonzero code before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -112,6 +145,15 @@ T_MC, K_MC, SEEDS_MC, CAMS_MC, CAMS_MC_WIDE, CAP_MC_WIDE = 10_000, 10, 5, 2, 6, 
 # the two-camera session at other latent sizes (phase 17), and how many of its
 # keypoints the capped CPU run of the plain path takes to hold s against
 N_LATENTS, NL_CHECK_LANES = (1, 2, 4), 3
+
+# calibrated workload (the JAX package's bench.py: bench_multicam_calibrated
+# and _calibrated_rig): 10,000 frames x 5 keypoints x 3 cameras x 5 seeds
+# (O = 6, D = 3); how many of its keypoints the capped CPU run of the plain
+# path takes to hold s against, at how many Adam iterations, and the Adam
+# iterations of the profiled repeat
+T_CAL, K_CAL, CAMS_CAL, SEEDS_CAL, CAL_CHECK_LANES, CAP_CAL, CAP_CAL_PROF = 10_000, 5, 3, 5, 2, 3, 4
+# singlecam sessions (bench.py: bench_sessions): four headline sessions
+N_SC_SESSIONS = 4
 
 # pupil workload (the JAX package's bench.py: bench_pupil and
 # bench_pupil_sessions): 10,000 frames x 5 seeds, 8 sessions; how many of the
@@ -173,8 +215,31 @@ RTOL_DLL_MC = {2: 3e-4, 6: 1e-3}
 RTOL_DLL_A = {1: 4e-3, 2: 2e-3, 3: 1e-3, "lanes": 1e-5}
 DLL_GAP_FACTOR = 2.0
 
+# the calibrated final pass against the float64 sequential EKF smoother
+# (phase 19), absolute, in 3-D units and in pixels. On an H100 the final
+# pass was 1.0e-6 and 3.8e-4 px from it, and the control (the float64
+# filtered means in place of the smoothed ones, what a final pass that
+# skipped its smoother would give) 7.5e-3 and 1.5 px: the limits sit 100
+# and 26 times above the first, 75 and 150 times under the second
+SEQ_ATOL_CAL_3D = 1e-4
+SEQ_ATOL_CAL_PX = 1e-2
+# the sessions' batched and solo tables against the float64 sequential
+# smoother at each run's s (phase 20), absolute, by column. On an H100 the
+# eight tables were up to 3.5e-4 (x, y) and 6.2e-4 (posterior variances)
+# from it; the controls, the float64 smoother at s 1 % off, 8.8e-3 and
+# 2.9e-3, and the filtered means 1.8 (x, y). Each limit sits about midway
+# (geometrically) between the two
+SEQ_ATOL_SESSIONS = {"xy": 2e-3, "posterior_var": 1.5e-3}
+
+
+_T_START = time.perf_counter()
+
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets the script's seconds so
+    far (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -410,6 +475,75 @@ def make_pupil_session(np, rng):
     return arr
 
 
+def calibrated_rig(np, rng):
+    """The JAX package's bench.py::_calibrated_rig with the port's Camera:
+    three cameras 0.4 rad apart around a 3-D random walk of K_CAL keypoints,
+    each model's views with unit pixel noise. Returns (CameraGroup,
+    (SEEDS_CAL, CAMS_CAL, T_CAL, K_CAL, 3) float32 predictions)."""
+    import torch
+    from eks_tpu_torch.geometry import Camera, CameraGroup
+
+    cams = [Camera(name=f"cam{c}", matrix=np.array([[900.0, 0, 320], [0, 900.0, 240], [0, 0, 1]]),
+                   dist=np.array([-0.05, 0.01, 0.0, 0.0, 0.0]), rvec=np.array([0.0, 0.4 * (c - 1), 0.0]),
+                   tvec=np.array([0.25 * (c - 1), 0.0, 2.5])) for c in range(CAMS_CAL)]
+    group = CameraGroup(cams)
+    X = rng.normal(size=(T_CAL, K_CAL, 3)).cumsum(axis=0) * 0.002
+    arr = np.zeros((SEEDS_CAL, CAMS_CAL, T_CAL, K_CAL, 3), dtype=np.float32)
+    for c, cam in enumerate(cams):
+        uv = cam.projection_fn("cpu", torch.float64)(torch.as_tensor(X.reshape(-1, 3))).numpy()
+        arr[:, c, :, :, :2] = uv.reshape(T_CAL, K_CAL, 2)[None] + rng.normal(size=(SEEDS_CAL, T_CAL, K_CAL, 2))
+    arr[..., 2] = rng.uniform(0.8, 1.0, size=(SEEDS_CAL, CAMS_CAL, T_CAL, K_CAL))
+    return group, arr
+
+
+def fd_jacobian(torch, h_fn, m):
+    """Jacobians (N, O, D) of ``h_fn`` at the float64 points m (N, D) by
+    central differences, one batched call of ``h_fn`` on the 2D shifted
+    points: truncation and rounding errors near 1e-10 relative."""
+    D = m.shape[-1]
+    step = 1e-6 * (1.0 + m.abs())[:, None, :] * torch.eye(D, dtype=m.dtype)  # (N, D, D)
+    hv = h_fn(torch.cat([m[:, None] + step, m[:, None] - step], dim=1))  # (N, 2D, O)
+    return ((hv[:, :D] - hv[:, D:]) / (2.0 * step.sum(dim=-1, keepdim=True))).transpose(-1, -2)
+
+
+def seq_smoother_f64(torch, ys, m0, S0, A, Q, C, r, h_fn=None, filtered=False):
+    """Smoothed means (N, T, D) and covariances (N, T, D, D) of the float64
+    sequential (extended) Kalman filter and RTS smoother over N lanes on the
+    host, every step's solves batched over the lanes through LAPACK
+    (``torch.linalg``): the float64 oracle of the multi-camera final passes
+    and of the sessions' tables. The recursion of the port's
+    ``ops/kalman.py`` (y_0 against the prior, the update P - K S Kᵀ; with
+    ``h_fn`` the emission linearized at each predicted mean, its Jacobian by
+    ``fd_jacobian``), whose unrolled O x O algebra and per-step ``jacfwd``
+    take minutes of host time per 10,000 steps. With ``filtered`` the
+    filtered means (N, T, D) come third."""
+    T = ys.shape[1]
+    At = A.transpose(-1, -2)
+    m, P, ms, Ps = m0, S0, [], []
+    for t in range(T):
+        if h_fn is None:
+            H, hx = C, (C @ m[..., None])[..., 0]
+        else:
+            H, hx = fd_jacobian(torch, h_fn, m), h_fn(m)
+        S = H @ P @ H.transpose(-1, -2) + torch.diag_embed(r[:, t])
+        K = torch.cholesky_solve(H @ P, torch.linalg.cholesky(S)).transpose(-1, -2)
+        m = m + (K @ (ys[:, t] - hx)[..., None])[..., 0]
+        P = P - K @ S @ K.transpose(-1, -2)
+        ms.append(m)
+        Ps.append(P)
+        m, P = (A @ m[..., None])[..., 0], A @ P @ At + Q
+    m_s, P_s, out_m, out_P = ms[-1], Ps[-1], [ms[-1]], [Ps[-1]]
+    for t in range(T - 2, -1, -1):
+        P_pred = A @ Ps[t] @ At + Q
+        G = torch.linalg.solve(P_pred, A @ Ps[t]).transpose(-1, -2)
+        m_s = ms[t] + (G @ (m_s - (A @ ms[t][..., None])[..., 0])[..., None])[..., 0]
+        P_s = Ps[t] + G @ (P_s - P_pred) @ G.transpose(-1, -2)
+        out_m.append(m_s)
+        out_P.append(P_s)
+    smoothed = torch.stack(out_m[::-1], dim=1), torch.stack(out_P[::-1], dim=1)
+    return smoothed + (torch.stack(ms, dim=1),) if filtered else smoothed
+
+
 def lane_errs(a, b) -> tuple:
     """(max |a - b|, max |a - b| / (1 + |b|)) over the lanes where both are
     finite, and whether the two are finite on the same lanes."""
@@ -423,6 +557,26 @@ def lane_errs(a, b) -> tuple:
     return float(diff.max()), float((diff / (1.0 + b[both].abs())).max()), bool((fa == fb).all())
 
 
+@contextlib.contextmanager
+def recording(module, name: str, calls: list, first_only: bool = False):
+    """While open, each call of ``module.name`` (a kernel's wrapper, which
+    the port looks up at call time) appends its tensor arguments, cloned,
+    to ``calls`` (only the first call with ``first_only``) and then runs as
+    before: the operands a main path gives the kernel."""
+    wrapper = getattr(module, name)
+
+    def record(*args):
+        if not (first_only and calls):
+            calls.append(tuple(a.clone() for a in args))
+        return wrapper(*args)
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, wrapper)
+
+
 def rel_err(a, b) -> tuple:
     """(max |a - b|, max |a - b| / (1 + |b|)), both entry by entry: per lane
     for kernel A's (N,) outputs, per plane and step for kernel B's."""
@@ -432,6 +586,7 @@ def rel_err(a, b) -> tuple:
 
 def main() -> int:
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -496,9 +651,10 @@ def main() -> int:
         planes_, tangents_ = torch.func.jvp(make, (sl,), (torch.ones_like(sl),))
         return planes_.contiguous(), tangents_.contiguous()
 
-    def scan_check(kind, planes, tangents=None):
+    def scan_check(kind, planes, tangents=None, timed=True):
         """One instance against its plain version (and both against the
-        float64 plain version) on these operands, with times and bound."""
+        float64 plain version) on these operands, with times and bound
+        unless not ``timed``."""
         paired = tangents is not None
         n_l, n_p, n_t = planes.shape
         if kind == "smoother":
@@ -538,11 +694,14 @@ def main() -> int:
             "max_abs_err": e_abs, "rel_err": e_rel,
             "rel_err_kernel_vs_f64_plain": rel_err(out_k.double(), out_64)[1],
             "rel_err_plain_vs_f64_plain": rel_err(out_p.double(), out_64)[1],
-            "ms": time_cuda(torch, run_k, 50), "enqueue_ms": enqueue_ms(torch, run_k, 50),
-            "device_ms": device_ms(torch, run_k, 20)[0],
-            "plain_ms": time_cuda(torch, run_p, 1 if paired else 3),
             "bound_ms": bound[0], "bound_by": bound[1],
         }
+        if timed:
+            res.update({
+                "ms": time_cuda(torch, run_k, 50), "enqueue_ms": enqueue_ms(torch, run_k, 50),
+                "device_ms": device_ms(torch, run_k, 20)[0],
+                "plain_ms": time_cuda(torch, run_p, 1 if paired else 3),
+            })
         res["ok"] = res["deterministic"] and e_rel <= RTOL_SCAN_NEW and bool(torch.isfinite(out_k).all())
         return res
 
@@ -578,6 +737,258 @@ def main() -> int:
                                                                      f"totals_kernelIN3eks4DualELi{d}EE"))}
 
     rng = np.random.default_rng(0)
+
+    fields = ["x", "y", "likelihood"]
+
+    # the golden comparison of the golden phases, and the capped optimizer
+    # runs phases 17 and 19 hold against the CPU's plain path
+    def golden_gap(df_got, name):
+        ref_g = pd.read_csv(os.path.join(REPO, "tests", "integration", "golden", f"{name}.csv"),
+                            header=[0, 1, 2], index_col=0)
+        same = [tuple(map(str, c)) for c in df_got.columns] == [tuple(map(str, c)) for c in ref_g.columns]
+        if df_got.shape != ref_g.shape:
+            return math.inf, same
+        return float(np.abs(df_got.to_numpy() - ref_g.to_numpy()).max()), same
+
+    core_log = logging.getLogger("eks_tpu_torch.core")
+
+    class BlockIters(logging.Handler):
+        """The Adam iterations each block of the s-optimizer took, read
+        from the optimizer's DEBUG report ("... after N iters ...")."""
+
+        def __init__(self):
+            super().__init__(logging.DEBUG)
+            self.iters = []
+
+        def emit(self, record):
+            m = re.search(r"after (\d+) iters", record.getMessage())
+            if m:
+                self.iters.append(int(m.group(1)))
+
+    def capped_opt(ops_dev, tol, cap, run=None):
+        """(s, Adam iterations per lane, seconds) of ``run(ops_dev, tol,
+        cap)``, by default the optimizer and final pass on ``ops_dev``,
+        capped at ``cap`` iterations."""
+        handler, level, propagate = BlockIters(), core_log.level, core_log.propagate
+        core_log.addHandler(handler)
+        core_log.setLevel(logging.DEBUG)
+        core_log.propagate = False
+        try:
+            t0 = time.perf_counter()
+            if run is None:
+                s_cap = run_kalman_smoother(*ops_dev, safety_cap=cap, tol=tol)[0]
+            else:
+                s_cap = run(ops_dev, tol, cap)
+            seconds = time.perf_counter() - t0
+        finally:
+            core_log.removeHandler(handler)
+            core_log.setLevel(level)
+            core_log.propagate = propagate
+        if len(handler.iters) != len(s_cap):
+            raise AssertionError(f"the optimizer reported {len(handler.iters)} blocks for {len(s_cap)} lanes")
+        return s_cap, np.array(handler.iters), seconds
+
+    def s_gap(a, b):
+        return np.abs(a / b - 1.0)
+
+    # phases 18 and 19 run first: in a process that had run the other phases
+    # before them, the calibrated path's Adam iterations, all host time in
+    # forward-mode Python decompositions, ran 2.5-3.5 times as long on an
+    # H100 (not explained yet), and the script overran its time limit
+    # --------------------------------------------------------------- 18 ---
+    # the calibrated family through the bundled data/multicam session and its
+    # calibration, against the committed goldens: auto s on the whole
+    # session, and s = 10 on the 200-frame crop the fast goldens were made on
+    from tests.integration.cropping import make_cropped_session
+
+    t_phase = time.perf_counter()
+    cal_golden = {}
+    cal_src = os.path.join(REPO, "data", "multicam")
+    with tempfile.TemporaryDirectory() as tmp:
+        crop = make_cropped_session(cal_src, os.path.join(tmp, "crop"))
+        for tag, src, kw, names in (
+                ("auto", cal_src, {}, ("multicam_cal_cam0", "multicam_cal_3d")),
+                ("fast_fixed", crop, dict(smooth_param=10.0), ("fast_multicam_cal_cam0", "fast_multicam_cal_3d"))):
+            t0 = time.perf_counter()
+            dfs_g, s_g, _, _, df3_g = eks_tpu_torch.fit_eks_multicam(
+                src, os.path.join(tmp, tag), calibration=os.path.join(src, "calibration.toml"), device="cuda", **kw)
+            wall_g = time.perf_counter() - t0
+            for df, name, atol in ((dfs_g[0], names[0], 5e-4), (df3_g, names[1], 1e-4)):
+                gap, same_cols = golden_gap(df, name)
+                cal_golden[name] = {"max_abs_err": gap, "atol": atol, "columns_match": same_cols,
+                                    "s": [float(x) for x in s_g], "wall_s": wall_g}
+    emit({"phase": "golden_multicam_calibrated", "goldens": cal_golden, "seconds": time.perf_counter() - t_phase})
+    for name, res in cal_golden.items():
+        if not (res["columns_match"] and res["max_abs_err"] <= res["atol"]):
+            raise AssertionError(f"{name} golden mismatch: {res}")
+
+    # --------------------------------------------------------------- 19 ---
+    # the calibrated family at full width (bench.py's recipe): the optimizer's
+    # loss is the iterated-EKF plane NLL, three paired D = 3 filter scans an
+    # Adam iteration from the triangulated trajectories; the final pass 13
+    # filter scans (12 relinearizations from the prior and the last) and one
+    # smoother scan. First the scan kernel on those scans' operands; the
+    # optimizer and final pass capped, timed and under the profiler (the
+    # timed run's warm-up); then the timed run; its final pass against the
+    # float64 sequential EKF smoother at the tuned s;
+    # its s on two keypoints against the plain path on the CPU, both capped,
+    # by phase 17's rule
+    from eks_tpu_torch import core
+    from eks_tpu_torch.geometry import make_projection_from_camgroup, stack_camera_params
+
+    t_phase = time.perf_counter()
+    cal_group, cal_arr = calibrated_rig(np, np.random.default_rng(0))
+    cal_ma = MarkerArray(cal_arr, data_fields=fields)
+    cal_kps, cal_cams = [f"kp{i}" for i in range(K_CAL)], [c.name for c in cal_group.cameras]
+
+    def cal_run():
+        reset_counts()
+        tm = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eks_tpu_torch.ensemble_kalman_smoother_multicam(
+            cal_ma, cal_kps, cal_cams, camgroup=cal_group, device="cuda", timings=tm)
+        return out, time.perf_counter() - t0, tm, read_counts()
+
+    # the optimizer's operands, from the same prep on the card
+    cal_params = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in stack_camera_params(cal_group)]
+    cal_t = torch.as_tensor(cal_arr, device=dev)
+    _, ys_cal, ev_cal, m0_cal, S0_cal, A_cal, Q_cal, x3_cal = multicam._prep_multicam_nonlinear(
+        cal_t[..., 0], cal_t[..., 1], cal_t[..., 2], SEEDS_CAL, "median", "confidence_weighted_var", *cal_params)
+    h_card = make_projection_from_camgroup(cal_group, device=dev)[0]
+    h_cpu = make_projection_from_camgroup(cal_group, device="cpu")[0]
+    h_64 = make_projection_from_camgroup(cal_group, device="cpu", dtype=torch.float64)[0]
+
+    # where a calibrated iteration's time goes, and the warm-up of the timed
+    # run below: the optimizer and final pass of the whole session capped,
+    # once plain and once under the profiler (device activity only)
+    ops_cal_all = (ys_cal, m0_cal, S0_cal, A_cal, A_cal, Q_cal, ev_cal.transpose(0, 1))
+
+    # the operands the calibrated path gives the scan kernel (5 lanes), from
+    # one Adam iteration of the whole session's optimizer (its three sweeps'
+    # information-form planes and their tangents) and its final pass (the 13
+    # relinearized covariance-form filter tables and the smoother's), each
+    # held against the plain version, the last of each kind timed
+    cal_calls = {"filter_prefix_paired": [], "filter_prefix": [], "smoother_suffix": []}
+    with contextlib.ExitStack() as stack:
+        for name, calls in cal_calls.items():
+            stack.enter_context(recording(fused_filter, name, calls))
+        run_kalman_smoother(*ops_cal_all, safety_cap=1, h_fn=h_card, x_init=x3_cal)
+    cal_scans = {name: [scan_check("smoother" if name == "smoother_suffix" else "filter", *args,
+                                   timed=i == len(calls) - 1) for i, args in enumerate(calls)]
+                 for name, calls in cal_calls.items()}
+    del cal_calls
+    emit({"phase": "calibrated_scan_operands", "rtol": RTOL_SCAN_NEW,
+          **{name: {"calls": len(res), "rel_err": [r["rel_err"] for r in res],
+                    "rel_err_kernel_vs_f64_plain": [r["rel_err_kernel_vs_f64_plain"] for r in res],
+                    "rel_err_plain_vs_f64_plain": [r["rel_err_plain_vs_f64_plain"] for r in res],
+                    "timed": res[-1]} for name, res in cal_scans.items()}})
+    if [len(v) for v in cal_scans.values()] != [3, 13, 1] or not all(r["ok"] for v in cal_scans.values() for r in v):
+        raise AssertionError("a scan instance disagrees with its plain version on the calibrated path's operands")
+
+    def capped_cal():
+        tm_c = {}
+        run_kalman_smoother(*ops_cal_all, safety_cap=CAP_CAL_PROF, h_fn=h_card, x_init=x3_cal, timings=tm_c)
+        torch.cuda.synchronize()
+        return tm_c
+
+    t0 = time.perf_counter()
+    tm_cc = capped_cal()
+    capped_wall_cal = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        capped_cal()
+        prof_wall = time.perf_counter() - t0
+    emit({
+        "phase": "multicam_calibrated_profile", "adam_iters": tm_cc.get("adam_iters"),
+        "profiled_wall_s": prof_wall, "unprofiled_wall_s": capped_wall_cal,
+        "unprofiled_optimizer_s": tm_cc.get("optimizer"), "unprofiled_final_pass_s": tm_cc.get("final_pass"),
+        **device_profile(torch, prof, capped_wall_cal, tm_cc.get("adam_iters")),
+    })
+
+    (dfs_cal, s_cal, df3_cal), wall_cal, tm_cal, launches_cal = cal_run()
+    iters_cal = tm_cal.get("adam_iters", 0)
+    finite_cal = all(np.isfinite(d.to_numpy()).all() and d.shape == (T_CAL, K_CAL * 9) for d in dfs_cal) \
+        and bool(np.isfinite(df3_cal.to_numpy()).all()) and bool(np.isfinite(s_cal).all())
+    kernels_cal = (launches_cal["prefix_scan_filter_paired_d3"] == 3 * iters_cal > 0
+                   and launches_cal["prefix_scan_filter_d3"] == 13 and launches_cal["prefix_scan_smoother_d3"] == 1
+                   and launches_cal["plain_route"] == 0 and launches_cal["fused_nll_paired"] == 0)
+
+    # the final pass against the float64 sequential EKF smoother
+    d64 = dict(dtype=torch.float64, device="cpu")
+    t0 = time.perf_counter()
+    ref_cal, _, filt_cal = seq_smoother_f64(
+        torch, ys_cal.to(**d64), m0_cal.to(**d64), S0_cal.to(**d64), A_cal.to(**d64),
+        torch.as_tensor(s_cal, **d64)[:, None, None] * Q_cal.to(**d64), None,
+        torch.clamp(ev_cal, min=1e-12).to(**d64), h_fn=h_64, filtered=True)
+    ref_cal_s = time.perf_counter() - t0
+    xyz_got = df3_cal.to_numpy().reshape(T_CAL, K_CAL, 6)[..., :3]
+    xyz_ref = ref_cal.transpose(0, 1).numpy()
+    seq_gap_cal = float(np.abs(xyz_got - xyz_ref).max())
+    pix_ref = h_64(ref_cal).numpy()  # (K, T, 2C)
+    pix_gap_cal = max(float(np.abs(d.to_numpy().reshape(T_CAL, K_CAL, 9)[..., :2]
+                                   - pix_ref[:, :, 2 * i:2 * i + 2].transpose(1, 0, 2)).max())
+                      for i, d in enumerate(dfs_cal))
+    # the control: how far a final pass that returned the filtered means
+    # instead of the smoothed ones would be, in 3-D and in pixels
+    ctl_cal = {"max_abs_err_3d": float((filt_cal - ref_cal).abs().max()),
+               "max_abs_err_pixels": float((h_64(filt_cal) - h_64(ref_cal)).abs().max())}
+
+    # s on two keypoints, on the card and through the plain versions on the
+    # CPU, capped, from the same operands: the stop rule off (trajectory
+    # against trajectory), and on (each lane against the CPU's trajectory at
+    # the iteration where it stopped on the card)
+    def cal_opt(h):
+        def run(ops, tol, cap):
+            ys_o, m0_o, S0_o, A_o, Q_o, ev_o, x_o = ops
+            g = core._device_s_guesses(ev_o)
+            guess = torch.where(torch.isfinite(g) & (g > 0.0), g, torch.full_like(g, 2.0))
+            return core.optimize_smooth_param(ys_o, m0_o, S0_o, A_o, A_o, Q_o, ev_o, None, None, guess,
+                                              tol=tol, safety_cap=cap, h_fn=h, x_init=x_o).cpu().numpy()
+        return run
+
+    sub = slice(0, CAL_CHECK_LANES)
+    ops_cal = (ys_cal[sub], m0_cal[sub], S0_cal[sub], A_cal[sub], Q_cal[sub], ev_cal[sub].transpose(0, 1),
+               x3_cal[sub])
+    ops_cal_cpu = tuple(x.cpu() for x in ops_cal)
+    traj_card = capped_opt(ops_cal, -1.0, CAP_CAL, cal_opt(h_card))
+    traj_cpu = {CAP_CAL: capped_opt(ops_cal_cpu, -1.0, CAP_CAL, cal_opt(h_cpu))}
+    s_gap_cal = float(s_gap(traj_card[0], traj_cpu[CAP_CAL][0]).max())
+    stop_card = capped_opt(ops_cal, 1e-2, CAP_CAL, cal_opt(h_card))
+    at_stop = np.empty(CAL_CHECK_LANES)
+    for c in sorted(set(stop_card[1].tolist())):
+        if c not in traj_cpu:
+            traj_cpu[c] = capped_opt(ops_cal_cpu, -1.0, c, cal_opt(h_cpu))
+        at_stop[stop_card[1] == c] = traj_cpu[c][0][stop_card[1] == c]
+    s_gap_stop_cal = float(s_gap(stop_card[0], at_stop).max())
+    emit({
+        "phase": "multicam_calibrated_auto_s", "frames": T_CAL, "keypoints": K_CAL, "cameras": CAMS_CAL,
+        "seeds": SEEDS_CAL, "wall_s": wall_cal, "prep_s": tm_cal.get("prep"),
+        "optimizer_s": tm_cal.get("optimizer"), "final_pass_s": tm_cal.get("final_pass"),
+        "package_s": tm_cal.get("package"), "adam_iters": iters_cal,
+        "us_per_adam_iter": tm_cal["optimizer"] / iters_cal * 1e6 if iters_cal else None,
+        "s_min": float(np.min(s_cal)), "s_median": float(np.median(s_cal)), "s_max": float(np.max(s_cal)),
+        "finite": bool(finite_cal), "launches": {k: v for k, v in launches_cal.items() if v},
+        "paired_filter_d3_per_adam_iter": launches_cal["prefix_scan_filter_paired_d3"] / iters_cal if iters_cal else None,
+        "kernels_ran": bool(kernels_cal), "max_abs_err_3d_vs_f64_sequential_ekf": seq_gap_cal,
+        "seq_atol_3d": SEQ_ATOL_CAL_3D, "max_abs_err_pixels_vs_f64_sequential_ekf": pix_gap_cal,
+        "seq_atol_pixels": SEQ_ATOL_CAL_PX, "control_filtered_vs_f64_smoothed": ctl_cal,
+        "f64_sequential_ekf_s": ref_cal_s,
+        "capped_iters": CAP_CAL, "capped_lanes": CAL_CHECK_LANES, "s_rtol": 5e-4,
+        "s_rel_gap_card_vs_cpu_plain_capped": s_gap_cal, "cpu_plain_capped_s": traj_cpu[CAP_CAL][2],
+        "with_stop_rule": {"s_rel_gap_card_vs_cpu_trajectory_at_card_stop": s_gap_stop_cal,
+                           "lane_iters_card": stop_card[1].tolist()},
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    if not finite_cal:
+        raise AssertionError("calibrated output is not finite or has the wrong shape")
+    if not kernels_cal:
+        raise AssertionError(f"the calibrated path did not run through its kernels as expected: {launches_cal}")
+    if seq_gap_cal > SEQ_ATOL_CAL_3D or pix_gap_cal > SEQ_ATOL_CAL_PX:
+        raise AssertionError(f"calibrated final pass is {seq_gap_cal} (3-D), {pix_gap_cal} (pixels) from the "
+                             "float64 sequential EKF smoother")
+    if s_gap_cal > 5e-4 or s_gap_stop_cal > 5e-4:
+        raise AssertionError(f"calibrated s on the card is off the CPU's plain path: {s_gap_cal}, {s_gap_stop_cal}")
 
     # ---------------------------------------------------------------- 2 ---
     N, T, O, D = K_HEAD, T_HEAD, 2, 2
@@ -662,7 +1073,6 @@ def main() -> int:
     # --------------------------------------------------------------- 3b ---
     # kernel B at D = 3, on the pupil final pass's own elements: the eight
     # sessions of phases 8-9 at the optimizer's starting parameters
-    fields = ["x", "y", "likelihood"]
     prng = np.random.default_rng(0)
     pupil_mas = [MarkerArray(make_pupil_session(np, prng), data_fields=fields) for _ in range(N_SESSIONS)]
     names = ibl_pupil.BODYPART_LIST
@@ -797,8 +1207,6 @@ def main() -> int:
     # profiler (device activity only), for the device's busy time and what
     # runs on it. The profiler slows the host, so the idle share is taken
     # against the unprofiled wall of phase 5, on the same inputs.
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eks_tpu_torch.ensemble_kalman_smoother_singlecam(ma, kps, device="cuda")
@@ -957,11 +1365,10 @@ def main() -> int:
 
     A64, Q64 = ibl_pupil._pupil_model(t64([s_solo[0]]), t64([s_solo[1]]), t64([dv0]), t64([xv0]), t64([yv0]))
     t0 = time.perf_counter()
-    ref = kalman_smoother(t64(yobs0)[None], t64(m00)[None], t64(S00)[None], A64, Q64,
-                          t64(ibl_pupil.PUPIL_C)[None], t64(np.clip(vars0, 1e-12, None))[None])
+    ref_m, ref_P = seq_smoother_f64(torch, t64(yobs0)[None], t64(m00)[None], t64(S00)[None], A64, Q64,
+                                    t64(ibl_pupil.PUPIL_C)[None], t64(np.clip(vars0, 1e-12, None))[None])
     ref_s = time.perf_counter() - t0
-    df_ref = ibl_pupil._pupil_package(names, ref.smoothed_means[0].numpy(), ref.smoothed_covs[0].numpy(),
-                                      preds0, vars0, likes0, mx0, my0)
+    df_ref = ibl_pupil._pupil_package(names, ref_m[0].numpy(), ref_P[0].numpy(), preds0, vars0, likes0, mx0, my0)
     xy = [c for c in df.columns if c[2] in ("x", "y")]
     seq_gap = float(np.abs(df[xy].to_numpy() - df_ref[xy].to_numpy()).max())
     emit({
@@ -1291,14 +1698,6 @@ def main() -> int:
     # --------------------------------------------------------------- 13 ---
     # the mirrored and paw families through the bundled files, against the
     # committed goldens at the reference's contract
-    def golden_gap(df_got, name):
-        ref_g = pd.read_csv(os.path.join(REPO, "tests", "integration", "golden", f"{name}.csv"),
-                            header=[0, 1, 2], index_col=0)
-        same = [tuple(map(str, c)) for c in df_got.columns] == [tuple(map(str, c)) for c in ref_g.columns]
-        if df_got.shape != ref_g.shape:
-            return math.inf, same
-        return float(np.abs(df_got.to_numpy() - ref_g.to_numpy()).max()), same
-
     golden_res = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, kw in (("mirrored_fixed", dict(smooth_param=3.0)), ("mirrored_auto_inflate", dict(inflate_vars=True))):
@@ -1343,11 +1742,11 @@ def main() -> int:
         d64 = dict(dtype=torch.float64, device="cpu")
         s64 = torch.as_tensor(s_c, **d64)
         t0 = time.perf_counter()
-        ref = kalman_smoother(ys_c.to(**d64), m0_c.to(**d64), S0_c.to(**d64), A_c.to(**d64),
-                              s64[:, None, None] * Q_c.to(**d64), C_c.to(**d64),
-                              torch.clamp(ev_c, min=1e-12).to(**d64))
+        ref, _ = seq_smoother_f64(torch, ys_c.to(**d64), m0_c.to(**d64), S0_c.to(**d64), A_c.to(**d64),
+                                  s64[:, None, None] * Q_c.to(**d64), C_c.to(**d64),
+                                  torch.clamp(ev_c, min=1e-12).to(**d64))
         ref_s = time.perf_counter() - t0
-        y_ref = torch.einsum("koj,ktj->kto", C_c.to(**d64), ref.smoothed_means)  # (K, T, 2C)
+        y_ref = torch.einsum("koj,ktj->kto", C_c.to(**d64), ref)  # (K, T, 2C)
         gap = 0.0
         for i, d in enumerate(dfs_c):
             got_xy = d.to_numpy().reshape(T_MC, K_MC, 9)[..., :2]
@@ -1475,43 +1874,6 @@ def main() -> int:
     # float64 CPU run with the rule on is printed beside it as the witness of
     # how far float32's stop alone moves s
     t_phase = time.perf_counter()
-    core_log = logging.getLogger("eks_tpu_torch.core")
-
-    class BlockIters(logging.Handler):
-        """The Adam iterations each block of the s-optimizer took, read
-        from the optimizer's DEBUG report ("... after N iters ...")."""
-
-        def __init__(self):
-            super().__init__(logging.DEBUG)
-            self.iters = []
-
-        def emit(self, record):
-            m = re.search(r"after (\d+) iters", record.getMessage())
-            if m:
-                self.iters.append(int(m.group(1)))
-
-    def capped_opt(ops_dev, tol, cap):
-        """(s, Adam iterations per lane, seconds) of the optimizer and final
-        pass on ``ops_dev``, capped at ``cap`` iterations."""
-        handler, level, propagate = BlockIters(), core_log.level, core_log.propagate
-        core_log.addHandler(handler)
-        core_log.setLevel(logging.DEBUG)
-        core_log.propagate = False
-        try:
-            t0 = time.perf_counter()
-            s_cap, _, _ = run_kalman_smoother(*ops_dev, safety_cap=cap, tol=tol)
-            seconds = time.perf_counter() - t0
-        finally:
-            core_log.removeHandler(handler)
-            core_log.setLevel(level)
-            core_log.propagate = propagate
-        if len(handler.iters) != len(s_cap):
-            raise AssertionError(f"the optimizer reported {len(handler.iters)} blocks for {len(s_cap)} lanes")
-        return s_cap, np.array(handler.iters), seconds
-
-    def s_gap(a, b):
-        return np.abs(a / b - 1.0)
-
     nl_res, launches_nl = {}, {}
     for k in N_LATENTS:
         _, ys_k, ev_k, m0_k, S0_k, A_k, Q_k, C_k, _ = mc_prep(CAMS_MC, k)
@@ -1582,6 +1944,175 @@ def main() -> int:
             raise AssertionError(f"n_latent {k}: with the stop rule, s on the card is off the CPU's plain "
                                  f"trajectory: {v['with_stop_rule']}")
 
+    # --------------------------------------------------------------- 20 ---
+    # singlecam sessions: four headline sessions stacked as 80 lanes of one
+    # run (kernel A at (2, 2) paired over 80 lanes), each held against its
+    # solo run and against the float64 sequential smoother; and auto s with
+    # s_frames on the bundled session against the committed golden
+    t_phase = time.perf_counter()
+    srng = np.random.default_rng(1)
+    sc_mas = [MarkerArray(make_session(np, srng), data_fields=fields) for _ in range(N_SC_SESSIONS)]
+    sc_kps = [[f"kp{i}" for i in range(K_HEAD)]] * N_SC_SESSIONS
+    # the warm-up run records the operands the path gives its kernels at 80
+    # lanes: kernel A paired's first Adam iteration, the final pass's filter
+    # and smoother elements
+    sc_calls = {"fused_nll_paired": [], "filter_prefix": [], "smoother_suffix": []}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recording(fused_nll, "fused_nll_paired", sc_calls["fused_nll_paired"], first_only=True))
+        for name in ("filter_prefix", "smoother_suffix"):
+            stack.enter_context(recording(fused_filter, name, sc_calls[name]))
+        eks_tpu_torch.ensemble_kalman_smoother_singlecam_sessions(sc_mas, sc_kps, device="cuda")
+    reset_counts()
+    tm_sc = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc_batched = eks_tpu_torch.ensemble_kalman_smoother_singlecam_sessions(sc_mas, sc_kps, device="cuda",
+                                                                          timings=tm_sc)
+    wall_sc = time.perf_counter() - t0
+    launches_sc = read_counts()
+    iters_sc = tm_sc.get("adam_iters", 0)
+
+    # kernel A paired at (2, 2) over the 80 lanes, and the D = 2 scans at 80
+    # lanes, against their plain versions on those operands
+    tab_s, dtab_s, y_s = sc_calls["fused_nll_paired"][0]
+    sa_k = fused_nll.fused_nll_paired(tab_s, dtab_s, y_s)
+    sa_p = fused_nll._fused_nll_paired_plain(tab_s, dtab_s, y_s)
+    torch.cuda.synchronize()
+    n_s, t_s = y_s.shape[0], y_s.shape[2]
+    b_as = bound_ms((n_s * 2 * t_s + 2 * n_s * tab_s.shape[1]) * 4 + 2 * n_s * 4, nll_ops(n_s, t_s, 2, 2, True))
+    a80 = {
+        "lanes": n_s, "T": t_s, "rtol": RTOL_NLL, "paired_ll_max_abs_err": rel_err(sa_k[0], sa_p[0])[0],
+        "paired_ll_rel_err": rel_err(sa_k[0], sa_p[0])[1], "paired_dll_max_abs_err": rel_err(sa_k[1], sa_p[1])[0],
+        "paired_dll_rel_err": rel_err(sa_k[1], sa_p[1])[1], "segments_G": fused_nll.nll_plan(n_s, t_s, dev)["G"],
+        "deterministic": deterministic(lambda: torch.stack(fused_nll.fused_nll_paired(tab_s, dtab_s, y_s)),
+                                       torch.stack(sa_k)),
+        "ms": time_cuda(torch, lambda: fused_nll.fused_nll_paired(tab_s, dtab_s, y_s), 50),
+        "device_ms": device_ms(torch, lambda: fused_nll.fused_nll_paired(tab_s, dtab_s, y_s), 20)[0],
+        "plain_ms": time_cuda(torch, lambda: fused_nll._fused_nll_paired_plain(tab_s, dtab_s, y_s), 3),
+        "bound_ms": b_as[0], "bound_by": b_as[1],
+    }
+    a80["ok"] = (max(a80["paired_ll_rel_err"], a80["paired_dll_rel_err"]) <= RTOL_NLL and a80["deterministic"]
+                 and bool(torch.isfinite(sa_k[1]).all()))
+    sc_scans = {name: scan_check("smoother" if name == "smoother_suffix" else "filter", *calls[0])
+                for name, calls in sc_calls.items() if name != "fused_nll_paired"}
+    del sc_calls, tab_s, dtab_s, y_s
+    emit({"phase": "singlecam_sessions_kernels", "fused_nll_paired_d2_o2": a80, **sc_scans})
+    if not (a80["ok"] and all(r["ok"] for r in sc_scans.values())):
+        raise AssertionError("a kernel disagrees with its plain version on the sessions path's operands")
+
+    sc_s_gap, sc_table_gap, sc_solo_walls, sc_solo = [], [], [], []
+    sc_label_gap = np.zeros(9)
+    for (df_b, s_b), ma_i, kps_i in zip(sc_batched, sc_mas, sc_kps):
+        t0 = time.perf_counter()
+        df_i, s_i = eks_tpu_torch.ensemble_kalman_smoother_singlecam(ma_i, kps_i, device="cuda")
+        sc_solo_walls.append(time.perf_counter() - t0)
+        sc_solo.append((df_i, s_i))
+        sc_s_gap.append(float(np.max(np.abs(s_b / s_i - 1.0))))
+        b_np, i_np = df_b.to_numpy(), df_i.to_numpy()
+        sc_table_gap.append(float(np.max(np.abs(b_np - i_np) / (1.0 + np.abs(i_np)))))
+        sc_label_gap = np.maximum(sc_label_gap, np.abs(b_np - i_np).reshape(T_HEAD, K_HEAD, 9).max(axis=(0, 1)))
+    # every session's batched and solo tables against the float64
+    # sequential smoother at that run's s (all 80 lanes in one call each);
+    # and, as controls, the float64 filtered means in place of the smoothed
+    # ones, and the float64 smoother at s 1 % off
+    sc_ops = []
+    for ma_i in sc_mas:
+        raw_i = torch.as_tensor(ma_i.array[:, 0], dtype=torch.float32, device=dev)
+        stats_i, ys_i, means_i, S0s_i = _prep_singlecam(raw_i[..., 0], raw_i[..., 1], raw_i[..., 2], SEEDS_HEAD,
+                                                        "median", "confidence_weighted_var")
+        sc_ops.append((ys_i, S0s_i, torch.clamp(stats_i[..., 2:4].transpose(0, 1), min=1e-12), means_i))
+    ys80, S080, r80 = (torch.cat([o[j] for o in sc_ops]).to(**d64) for j in range(3))
+    means80 = torch.cat([o[3] for o in sc_ops]).to(**d64)  # (80, 2)
+    n80 = ys80.shape[0]
+
+    def f64_tables(*s80s):
+        """For each (80,) s: (x, y (80, T, 2), posterior variances (80, T, 2),
+        filtered x, y) of the float64 sequential smoother at the lanes' s,
+        all in one call (its cost is per step, not per lane)."""
+        n = len(s80s)
+
+        def rep(x):
+            return x.repeat((n,) + (1,) * (x.dim() - 1))
+
+        eye = torch.eye(2, **d64).expand(n * n80, 2, 2)
+        s_all = torch.as_tensor(np.concatenate(s80s), **d64)
+        m, P, f = seq_smoother_f64(torch, rep(ys80), torch.zeros(n * n80, 2, **d64), rep(S080), eye,
+                                   s_all[:, None, None] * eye, eye, rep(r80), filtered=True)
+        mu = rep(means80)[:, None]
+        xy, var, fxy = m + mu, torch.diagonal(P, dim1=-2, dim2=-1), f + mu
+        return [(xy[i * n80:(i + 1) * n80], var[i * n80:(i + 1) * n80], fxy[i * n80:(i + 1) * n80])
+                for i in range(n)]
+
+    def table_gaps(tables, xy_ref, var_ref):
+        """Per session, the largest |x, y| and |posterior variance| gaps of
+        (T, K * 9) tables from the (80, T, 2) references."""
+        res = []
+        for i, table in enumerate(tables):
+            t9 = torch.tensor(table.reshape(T_HEAD, K_HEAD, 9), **d64).transpose(0, 1)
+            lanes = slice(i * K_HEAD, (i + 1) * K_HEAD)
+            res.append({"xy": float((t9[..., :2] - xy_ref[lanes]).abs().max()),
+                        "posterior_var": float((t9[..., 7:9] - var_ref[lanes]).abs().max())})
+        return res
+
+    t0 = time.perf_counter()
+    s_b80 = np.concatenate([s for _, s in sc_batched])
+    (xy_b, var_b, filt_b), (xy_i, var_i, _), (xy_off, var_off, _) = f64_tables(
+        s_b80, np.concatenate([s for _, s in sc_solo]), s_b80 * 1.01)
+    sc_vs_f64 = {"batched": table_gaps([df.to_numpy() for df, _ in sc_batched], xy_b, var_b),
+                 "solo": table_gaps([df.to_numpy() for df, _ in sc_solo], xy_i, var_i)}
+    sc_controls = {"filtered_xy": float((filt_b - xy_b).abs().max()),
+                   "s_1_percent_off": {"xy": float((xy_off - xy_b).abs().max()),
+                                       "posterior_var": float((var_off - var_b).abs().max())}}
+    sc_f64_s = time.perf_counter() - t0
+    sc_f64_worst = {k: max(g[k] for runs in sc_vs_f64.values() for g in runs) for k in ("xy", "posterior_var")}
+    finite_sc = all(np.isfinite(df.to_numpy()).all() and df.shape == (T_HEAD, K_HEAD * 9) for df, _ in sc_batched)
+    kernels_sc = (launches_sc[a_key(2, 2, True)] == iters_sc > 0 and launches_sc["prefix_scan_filter"] == 1
+                  and launches_sc["prefix_scan_smoother"] == 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        df_auto, s_auto, _, _ = eks_tpu_torch.fit_eks_singlecam(
+            os.path.join(REPO, "data", "singlecam"), os.path.join(tmp, "out.csv"), s_frames=[(0, 250)],
+            device="cuda")
+        wall_auto = time.perf_counter() - t0
+    gap_auto, cols_auto = golden_gap(df_auto, "singlecam_auto")
+    emit({
+        "phase": "singlecam_sessions", "sessions": N_SC_SESSIONS, "frames": T_HEAD, "keypoints": K_HEAD,
+        "lanes": N_SC_SESSIONS * K_HEAD, "wall_s": wall_sc, "solo_walls_s": sc_solo_walls,
+        "prep_s": tm_sc.get("prep"), "optimizer_s": tm_sc.get("optimizer"), "final_pass_s": tm_sc.get("final_pass"),
+        "package_s": tm_sc.get("package"), "adam_iters": iters_sc,
+        "us_per_adam_iter": tm_sc["optimizer"] / iters_sc * 1e6 if iters_sc else None,
+        "finite": bool(finite_sc), "launches": {k: v for k, v in launches_sc.items() if v},
+        "kernels_ran": bool(kernels_sc), "s_rel_gap_vs_solo": sc_s_gap, "table_rel_gap_vs_solo": sc_table_gap,
+        "table_abs_gap_vs_solo_by_label": dict(zip(eks_tpu_torch.models.singlecam.OUTPUT_LABELS,
+                                                   sc_label_gap.tolist())),
+        "rtol": 5e-4, "abs_gap_vs_f64_sequential": sc_vs_f64, "f64_atol": SEQ_ATOL_SESSIONS,
+        "f64_controls": sc_controls, "f64_sequential_s": sc_f64_s,
+        "golden_singlecam_auto": {"max_abs_err": gap_auto, "atol": 1e-4, "columns_match": cols_auto,
+                                  "s": [float(x) for x in s_auto], "wall_s": wall_auto},
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    if not finite_sc:
+        raise AssertionError("a singlecam session's output is not finite or has the wrong shape")
+    if not kernels_sc:
+        raise AssertionError(f"the sessions path did not run through its kernels: {launches_sc}")
+    if max(sc_s_gap + sc_table_gap) > 5e-4:
+        raise AssertionError(f"sessions differ from their solo runs: s {sc_s_gap}, tables {sc_table_gap}")
+    if any(sc_f64_worst[k] > SEQ_ATOL_SESSIONS[k] for k in SEQ_ATOL_SESSIONS):
+        raise AssertionError(f"a session's table is off the float64 sequential smoother: {sc_vs_f64}")
+    if not (cols_auto and gap_auto <= 1e-4):
+        raise AssertionError(f"singlecam_auto golden mismatch: {gap_auto}")
+
+    # -------------------------------------------------------------- 20b ---
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eks_tpu_torch.ensemble_kalman_smoother_singlecam_sessions(sc_mas, sc_kps, device="cuda")
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    emit({
+        "phase": "singlecam_sessions_profile", "profiled_wall_s": prof_wall, "unprofiled_wall_s": wall_sc,
+        **device_profile(torch, prof, wall_sc, iters_sc),
+    })
+
     # --------------------------------------------------------------- 10 ---
     # the main paths run kernels A and C in their paired forms only (the
     # optimizers' forward-mode gradients); the plain forms' numbers are in
@@ -1600,7 +2131,8 @@ def main() -> int:
     c1, b31 = c_res[1], b3[1]
     path_counts = {"headline": launches, "pupil": launches_pupil, "pupil_sessions": launches_sessions,
                    "multicam": launches_mc, "multicam_six_cameras": launches_w,
-                   **{f"multicam_n_latent_{k}": launches_nl[k] for k in N_LATENTS}}
+                   **{f"multicam_n_latent_{k}": launches_nl[k] for k in N_LATENTS},
+                   "multicam_calibrated": launches_cal, "singlecam_sessions": launches_sc}
     src = "eks_tpu_torch/csrc/"
 
     def counted(key):
@@ -1618,7 +2150,8 @@ def main() -> int:
     }, {
         "name": "prefix_scan_filter", "route": "cuda", "source": src + "prefix_scan.cu",
         "replaces": "eks_tpu/ops/pallas_filter.py:187",
-        "launches": launches["prefix_scan_filter"], "max_abs_err": e_b,
+        "launches": launches["prefix_scan_filter"],
+        "launches_by_path": counted("prefix_scan_filter")["launches_by_path"], "max_abs_err": e_b,
         "ms": ms_b, "device_ms": dev_b, "plain_ms": ms_b_plain, "bound_ms": b_b[0], "bound_by": b_b[1],
         "library_ms": None,
     }, {
@@ -1639,6 +2172,7 @@ def main() -> int:
         "max_abs_err": b31["max_abs_err"], "ms": b31["ms"], "device_ms": b31["device_ms"],
         "plain_ms": b31["plain_ms"],
         "launches_multicam": launches_mc["prefix_scan_filter_d3"],
+        "launches_by_path": counted("prefix_scan_filter_d3")["launches_by_path"],
         "bound_ms": b31["bound_ms"], "bound_by": b31["bound_by"], "library_ms": None,
     }, {
         "name": "fused_nll_paired_d3_o4", "route": "cuda", "source": src + "fused_nll.cu",
@@ -1650,7 +2184,8 @@ def main() -> int:
     }, {
         "name": "prefix_scan_smoother", "route": "cuda", "source": src + "prefix_scan.cu",
         "replaces": "eks_tpu/ops/pallas_filter.py:136", "path": "headline",
-        "launches": launches["prefix_scan_smoother"], "max_abs_err": sm2["max_abs_err"],
+        "launches": launches["prefix_scan_smoother"],
+        "launches_by_path": counted("prefix_scan_smoother")["launches_by_path"], "max_abs_err": sm2["max_abs_err"],
         "ms": sm2["ms"], "device_ms": sm2["device_ms"], "plain_ms": sm2["plain_ms"], "bound_ms": sm2["bound_ms"],
         "bound_by": sm2["bound_by"], "library_ms": None,
     }, {
@@ -1659,13 +2194,16 @@ def main() -> int:
         "launches": launches_mc["prefix_scan_smoother_d3"],
         "launches_pupil": launches_pupil["prefix_scan_smoother_d3"],
         "launches_six_cameras": launches_w["prefix_scan_smoother_d3"],
+        "launches_by_path": counted("prefix_scan_smoother_d3")["launches_by_path"],
         "max_abs_err": sm3["max_abs_err"], "ms": sm3["ms"], "device_ms": sm3["device_ms"],
         "plain_ms": sm3["plain_ms"],
         "bound_ms": sm3["bound_ms"], "bound_by": sm3["bound_by"], "library_ms": None,
     }, {
         "name": "prefix_scan_filter_paired_d3", "route": "cuda", "source": src + "prefix_scan.cu",
         "replaces": "eks_tpu/ops/pallas_filter.py:252", "path": "multicam_six_cameras",
-        "launches": launches_w["prefix_scan_filter_paired_d3"], "max_abs_err": fp3["max_abs_err"],
+        "launches": launches_w["prefix_scan_filter_paired_d3"],
+        "launches_by_path": counted("prefix_scan_filter_paired_d3")["launches_by_path"],
+        "max_abs_err": fp3["max_abs_err"],
         "ms": fp3["ms"], "device_ms": fp3["device_ms"], "plain_ms": fp3["plain_ms"], "bound_ms": fp3["bound_ms"],
         "bound_by": fp3["bound_by"], "library_ms": None,
     }] + [{
@@ -1678,6 +2216,33 @@ def main() -> int:
         ("prefix_scan_smoother_paired_d2", "prefix_scan_smoother_paired_d2", "headline", sp2),
         ("prefix_scan_smoother_paired_d3", "prefix_scan_smoother_paired_d3", "two_cameras", sp3),
         ("prefix_scan_smoother_paired_d3_1_lane", "prefix_scan_smoother_paired_d3", "pupil", sm_pupil_paired))]
+    # the instances at the shapes of the sessions path (80 lanes) and of the
+    # calibrated path (5 lanes), held in phases 19 and 20 on those paths' own
+    # operands; `launches` is that path's count of the instance
+    kernels += [{
+        "name": "fused_nll_paired_80_lanes", "route": "cuda", "source": src + "fused_nll.cu",
+        "replaces": "eks_tpu/ops/pallas_nll.py:171", "path": "singlecam_sessions", "shape": [2, 2], "lanes": 80,
+        "launches": launches_sc[a_key(2, 2, True)],
+        "max_abs_err": max(a80["paired_ll_max_abs_err"], a80["paired_dll_max_abs_err"]), "ms": a80["ms"],
+        "device_ms": a80["device_ms"], "plain_ms": a80["plain_ms"], "bound_ms": a80["bound_ms"],
+        "bound_by": a80["bound_by"], "library_ms": None,
+    }] + [{
+        "name": name, "route": "cuda", "source": src + "prefix_scan.cu", "replaces": replaces, "path": path,
+        "lanes": r["lanes"], "launches": counts[key], "max_abs_err": max(x["max_abs_err"] for x in rs),
+        "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+    } for name, key, replaces, path, counts, rs in (
+        ("prefix_scan_filter_80_lanes", "prefix_scan_filter", "eks_tpu/ops/pallas_filter.py:187",
+         "singlecam_sessions", launches_sc, [sc_scans["filter_prefix"]]),
+        ("prefix_scan_smoother_80_lanes", "prefix_scan_smoother", "eks_tpu/ops/pallas_filter.py:136",
+         "singlecam_sessions", launches_sc, [sc_scans["smoother_suffix"]]),
+        ("prefix_scan_filter_paired_d3_calibrated", "prefix_scan_filter_paired_d3", "eks_tpu/ops/pallas_filter.py:252",
+         "multicam_calibrated", launches_cal, cal_scans["filter_prefix_paired"]),
+        ("prefix_scan_filter_d3_calibrated", "prefix_scan_filter_d3", "eks_tpu/ops/pallas_filter.py:187",
+         "multicam_calibrated", launches_cal, cal_scans["filter_prefix"]),
+        ("prefix_scan_smoother_d3_calibrated", "prefix_scan_smoother_d3", "eks_tpu/ops/pallas_filter.py:136",
+         "multicam_calibrated", launches_cal, cal_scans["smoother_suffix"]),
+    ) for r in (rs[-1],)]
     # kernel A's plain forms (on no path: the optimizers run the paired ones)
     # at the two shapes of phases 2 and 12, and both forms of its other
     # instances (phase 16): at (1, 4) and (2, 4) the paired form is on the

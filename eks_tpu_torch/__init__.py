@@ -30,7 +30,9 @@ from eks_tpu_torch.models.multicam import (  # noqa: E402
 )
 from eks_tpu_torch.models.singlecam import (  # noqa: E402
     ensemble_kalman_smoother_singlecam,
+    ensemble_kalman_smoother_singlecam_sessions,
     fit_eks_singlecam,
+    fit_eks_singlecam_sessions,
 )
 
 __all__ = [
@@ -39,10 +41,12 @@ __all__ = [
     "ensemble_kalman_smoother_ibl_pupil_sessions",
     "ensemble_kalman_smoother_multicam",
     "ensemble_kalman_smoother_singlecam",
+    "ensemble_kalman_smoother_singlecam_sessions",
     "fit_eks_mirrored_multicam",
     "fit_eks_multicam",
     "fit_eks_multicam_ibl_paw",
     "fit_eks_pupil",
     "fit_eks_pupil_sessions",
     "fit_eks_singlecam",
+    "fit_eks_singlecam_sessions",
 ]

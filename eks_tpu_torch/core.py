@@ -1,5 +1,5 @@
 """Ensemble statistics, smoothing-parameter optimization and the smoother
-driver: the linear, single-device part of ``eks_tpu/core.py``.
+driver: the single-device part of ``eks_tpu/core.py``.
 
 Semantics kept from the JAX package:
   * ensemble: median/mean consensus (the median through a compare-exchange
@@ -21,7 +21,12 @@ Semantics kept from the JAX package:
 The loss runs through the fused NLL (kernel A, paired form) on the card, or
 at more than eight observations through the staged plane NLL and the paired
 lane-batched scan; its derivative is forward-mode, from the scalar table's
-tangent.
+tangent. With a nonlinear emission ``h_fn`` (the calibrated multi-camera
+family) the loss is the iterated-EKF plane NLL, relinearized
+``_EKF_OPT_SWEEPS_WARM + 1`` times per evaluation from a given linearization
+trajectory ``x_init`` (``_EKF_OPT_SWEEPS_COLD + 1`` from the broadcast
+prior), each sweep one paired lane-batched scan; the final pass is the
+iterated parallel EKF smoother, started from the broadcast prior.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from eks_tpu_torch.marker_array import MarkerArray
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
 from eks_tpu_torch.ops.pkalman import (
     _pack_scalars,
+    ekf_nll_paired_batched,
+    eks_parallel,
     filter_nll_paired_batched,
     kalman_smoother_parallel,
 )
@@ -44,7 +51,13 @@ from eks_tpu_torch.utils import crop_frames
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ensemble", "run_kalman_smoother", "optimize_smooth_param"]
+__all__ = [
+    "compute_initial_guesses",
+    "constant_R_from_timevarying",
+    "ensemble",
+    "optimize_smooth_param",
+    "run_kalman_smoother",
+]
 
 _NOT_PORTED = "is not ported to eks_tpu_torch yet (see ROADMAP.md, queue 1)"
 
@@ -196,6 +209,24 @@ def ensemble(
     )
 
 
+def compute_initial_guesses(ensemble_vars: np.ndarray | list) -> float:
+    """Initial guess for ``s`` on the host: std of frame-to-frame
+    ensemble-variance changes over the first 2000 frames, rounded to 5 dp."""
+    ev = np.asarray(ensemble_vars)[:2000]
+    if ev.shape[0] < 2:
+        raise ValueError("Initial-s heuristic needs at least two frames of ensemble variance.")
+    diffs = ev[1:] - ev[:-1]
+    return float(round(np.nanstd(diffs), 5))
+
+
+def constant_R_from_timevarying(R_t_np: np.ndarray, min_var: float = 1e-4) -> np.ndarray:
+    """(T, O, O) time-varying R -> constant diagonal R on the host: the time
+    median of the per-step diagonals, floored at ``min_var``."""
+    diag_ts = np.diagonal(R_t_np, axis1=-2, axis2=-1)
+    med = np.clip(np.nanmedian(diag_ts, axis=0), min_var, np.inf)
+    return np.diag(med).astype(R_t_np.dtype)
+
+
 def _device_constant_r(ev_kto: torch.Tensor, min_var: float) -> torch.Tensor:
     """(K, T, O) variances -> (K, O) constant diagonal R: the time median of
     the variances floored at 1e-12, floored again at ``min_var``."""
@@ -275,54 +306,84 @@ def _joint_masked_adam(loss_and_grad, init: torch.Tensor, lr: float, tol: float,
     return s_log, prev_loss, iters
 
 
+def _block_nll_sums(lls, dlls, maskF, n_blocks, b_max):
+    """Per-block sums of the masked member NLLs and their derivatives;
+    non-finite member NLLs count as 1e12 with a zero derivative."""
+    finite = torch.isfinite(lls)
+    nll = torch.where(finite, -lls, torch.full_like(lls, 1e12))
+    dnll = torch.where(finite, -dlls, torch.zeros_like(dlls))
+    return (
+        (nll * maskF).reshape(n_blocks, b_max).sum(dim=1),
+        (dnll * maskF).reshape(n_blocks, b_max).sum(dim=1),
+    )
+
+
+# relinearization sweeps of the EKF loss: from a good linearization
+# trajectory (the calibrated family's triangulated 3-D points) 2 warm sweeps
+# sit at the sequential-EKF fixed point that 12 cold sweeps reach from the
+# broadcast prior; each evaluation runs one sweep more than these
+_EKF_OPT_SWEEPS_WARM = 2
+_EKF_OPT_SWEEPS_COLD = 12
+
+
 def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
                            lr, s_lo, s_hi, tol, safety_cap, sequential=False,
-                           timings=None):
+                           timings=None, h_fn=None, xB=None):
     """Tune one log s per block: every iteration evaluates all
     n_blocks * B_max member filters at once and sums the masked member NLLs
     per block. On the card that is one paired kernel A launch up to D = 3
     and O = 8 observations, and beyond (five cameras or more) the staged
-    plane NLL with one paired lane-batched scan launch. Non-finite member
-    NLLs count as 1e12 with a zero gradient."""
+    plane NLL with one paired lane-batched scan launch. With a nonlinear
+    emission ``h_fn`` (``CB`` is not read) it is the iterated-EKF NLL
+    (``pkalman.ekf_nll_paired_batched``: one paired lane-batched scan per
+    sweep), relinearized from ``xB`` (n_blocks, B_max, T, D), or from the
+    broadcast prior where that is None. ``sequential`` takes the
+    float64-oracle sequential filter instead. Non-finite member NLLs count
+    as 1e12 with a zero gradient."""
     n_blocks, b_max = yB.shape[:2]
     n_flat = n_blocks * b_max
-    D = m0B.shape[-1]
+    T, D = yB.shape[2], m0B.shape[-1]
 
     def flat(x):
         return x.reshape((n_flat,) + tuple(x.shape[2:]))
 
-    yF, rF, m0F, S0F, AF, CF = map(flat, (yB, rB, m0B, S0B, AB, CB))
+    yF, rF, m0F, S0F, AF = map(flat, (yB, rB, m0B, S0B, AB))
+    CF = None if h_fn is not None else flat(CB)
     maskF = flat(maskB)
-    y_planes = yF.transpose(1, 2).contiguous()
 
-    def member_lls(s_log):
+    def scaled_q(s_log):
         s = torch.exp(torch.clamp(s_log, s_lo, s_hi))
-        sQ = (s[:, None, None, None] * QB).reshape(n_flat, D, D)
-        if sequential:
-            return kalman_filter(yF, m0F, S0F, AF, sQ, CF, rF).log_likelihood
-        return _pack_scalars(yF[:, 0], m0F, S0F, AF, sQ, CF, rF)
+        return (s[:, None, None, None] * QB).reshape(n_flat, D, D)
+
+    # the members' (ll, d ll / d log s) from s Q and its tangent
+    if sequential:
+        def member_lls(sQ, dsQ):
+            return torch.func.jvp(
+                lambda q: kalman_filter(yF, m0F, S0F, AF, q, CF, rF, h_fn=h_fn).log_likelihood, (sQ,), (dsQ,))
+    elif h_fn is not None:
+        if xB is None:
+            xF, n_sweeps = m0F[:, None].expand(n_flat, T, D), _EKF_OPT_SWEEPS_COLD + 1
+        else:
+            xF, n_sweeps = flat(xB), _EKF_OPT_SWEEPS_WARM + 1
+
+        def member_lls(sQ, dsQ):
+            return ekf_nll_paired_batched(yF, m0F, S0F, AF, sQ, dsQ, h_fn, rF, xF, n_sweeps=n_sweeps)
+    else:
+        y_planes = yF.transpose(1, 2).contiguous()
+
+        def member_lls(sQ, dsQ):
+            table, dtable = torch.func.jvp(lambda q: _pack_scalars(yF[:, 0], m0F, S0F, AF, q, CF, rF),
+                                           (sQ,), (dsQ,))
+            return filter_nll_paired_batched(table.contiguous(), dtable.contiguous(), y_planes)
 
     def loss_and_grad(s_log):
-        tangent = torch.ones_like(s_log)
-        if sequential:
-            lls, dlls = torch.func.jvp(member_lls, (s_log,), (tangent,))
-        else:
-            table, dtable = torch.func.jvp(member_lls, (s_log,), (tangent,))
-            lls, dlls = filter_nll_paired_batched(table.contiguous(), dtable.contiguous(), y_planes)
-        finite = torch.isfinite(lls)
-        nll = torch.where(finite, -lls, torch.full_like(lls, 1e12))
-        dnll = torch.where(finite, -dlls, torch.zeros_like(dlls))
-        return (
-            (nll * maskF).reshape(n_blocks, b_max).sum(dim=1),
-            (dnll * maskF).reshape(n_blocks, b_max).sum(dim=1),
-        )
+        sQ, dsQ = torch.func.jvp(scaled_q, (s_log,), (torch.ones_like(s_log),))
+        return _block_nll_sums(*member_lls(sQ, dsQ), maskF, n_blocks, b_max)
 
     return _joint_masked_adam(loss_and_grad, s_log_init, lr, tol, safety_cap, timings)
 
 
-def _check_supported(h_fn, devices, partition):
-    if h_fn is not None:
-        raise NotImplementedError(f"a nonlinear emission (h_fn) {_NOT_PORTED}")
+def _check_supported(devices, partition):
     if devices is not None and devices > 1:
         raise NotImplementedError(f"devices > 1 {_NOT_PORTED}")
     if partition != "keypoint":
@@ -345,12 +406,16 @@ def optimize_smooth_param(
     tol: float = 1e-2,
     safety_cap: int = 300,
     min_R_var: float = 1e-4,
+    h_fn=None,
     sequential: bool = False,
+    x_init: torch.Tensor | None = None,  # (K, T, D) EKF linearization init
     timings: dict | None = None,
 ) -> torch.Tensor:
     """Optimize ``s`` per block; returns per-keypoint s (K,) on the device
     of ``ys``. Keypoints missing from a partial ``blocks`` list become
-    singleton blocks."""
+    singleton blocks. With ``h_fn`` (a nonlinear emission) the loss is the
+    iterated EKF's, relinearized from ``x_init`` (the calibrated family's
+    triangulated trajectories, cropped with ``ys``) when given."""
     K = ys.shape[0]
     dev = ys.device
     if not blocks:
@@ -383,11 +448,12 @@ def optimize_smooth_param(
     s_log_init = torch.log(torch.clamp(s0, 1e-6, 1e3))
 
     s_lo, s_hi = s_bounds_log
+    opts = dict(lr=float(lr), s_lo=float(s_lo), s_hi=float(s_hi), tol=float(tol),
+                safety_cap=int(safety_cap), sequential=sequential, timings=timings)
+    xB = None if x_init is None else crop_frames(x_init, s_frames, dim=1)[idx_t]
     s_log_f, last_loss, iters = _optimize_blocks_joint(
         y_cropped[idx_t], r_const[idx_t], m0s[idx_t], S0s[idx_t], As[idx_t],
-        Qs[idx_t], Cs[idx_t], mask_t, s_log_init,
-        lr=float(lr), s_lo=float(s_lo), s_hi=float(s_hi), tol=float(tol),
-        safety_cap=int(safety_cap), sequential=sequential, timings=timings,
+        Qs[idx_t], Cs[idx_t], mask_t, s_log_init, h_fn=h_fn, xB=xB, **opts,
     )
     if logger.isEnabledFor(logging.DEBUG):
         s_host, ll_host, it_host = (x.cpu().numpy() for x in (s_log_f, last_loss, iters))
@@ -408,12 +474,18 @@ def optimize_smooth_param(
 # --------------------------------------------------------------------------- #
 # final smoothing pass
 # --------------------------------------------------------------------------- #
-def _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, sequential=False):
+def _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, h_fn=None, sequential=False):
     """Smoothed means (K, T, D) and covariances (K, T, D, D) of every lane
-    with process noise ``s_k * Q_k`` and time-varying diagonal R ``rs``."""
+    with process noise ``s_k * Q_k`` and time-varying diagonal R ``rs``.
+    With ``h_fn`` the iterated parallel EKF smoother, from the broadcast
+    prior (12 relinearizations, then the last)."""
     sQ = s_finals[:, None, None] * Qs
-    smoother = kalman_smoother if sequential else kalman_smoother_parallel
-    res = smoother(ys, m0s, S0s, As, sQ, Cs, rs)
+    if sequential:
+        res = kalman_smoother(ys, m0s, S0s, As, sQ, Cs, rs, h_fn=h_fn)
+    elif h_fn is not None:
+        res = eks_parallel(ys, m0s, S0s, As, sQ, h_fn, rs)
+    else:
+        res = kalman_smoother_parallel(ys, m0s, S0s, As, sQ, Cs, rs)
     return res.smoothed_means, res.smoothed_covs
 
 
@@ -439,15 +511,19 @@ def run_kalman_smoother(
     safety_cap: int = 300,
     h_fn=None,
     sequential: bool = False,
+    x_init: torch.Tensor | None = None,  # (K, T, D) EKF linearization init
     devices: int | None = None,
     partition: Literal["keypoint", "time"] = "keypoint",
     timings: dict | None = None,
 ) -> tuple[np.ndarray, torch.Tensor, torch.Tensor]:
     """Tune ``s`` (unless given) and run the final smoother for K keypoints.
 
-    Linear model per keypoint: ``x_{t+1} = A x_t + w_t``, ``y_t = C x_t +
-    v_t``, ``w ~ N(0, s Q)``, ``v_t ~ N(0, diag(ensemble_vars[t]))``. Every
-    tensor lies on one device, where all the work runs. With ``timings`` (a
+    Linear model per keypoint unless ``h_fn`` is given: ``x_{t+1} = A x_t +
+    w_t``, ``y_t = C x_t + v_t``, ``w ~ N(0, s Q)``, ``v_t ~ N(0,
+    diag(ensemble_vars[t]))``; with ``h_fn`` (..., D) -> (..., O) the emission is
+    ``h(x_t)`` and ``Cs`` is not read, and ``x_init`` (the optimizer's
+    linearization trajectories) is optional. Every tensor lies on one
+    device, where all the work runs. With ``timings`` (a
     dict) the device is synchronized between the stages and their seconds
     are recorded ("optimizer", "final_pass") with the Adam iteration count.
 
@@ -455,7 +531,7 @@ def run_kalman_smoother(
         s_finals (K,) host array; smoothed means (K, T, D) and covs
         (K, T, D, D) on the device.
     """
-    _check_supported(h_fn, devices, partition)
+    _check_supported(devices, partition)
     K = ys.shape[0]
     dev, dt = ys.device, ys.dtype
     if ensemble_vars.shape[0] < 2:
@@ -473,7 +549,7 @@ def run_kalman_smoother(
         s_finals = optimize_smooth_param(
             ys, m0s, S0s, As, Cs, Qs, ensemble_vars, blocks, s_frames, s_guess,
             lr=lr, s_bounds_log=s_bounds_log, tol=tol, safety_cap=safety_cap,
-            sequential=sequential, timings=timings,
+            h_fn=h_fn, sequential=sequential, x_init=x_init, timings=timings,
         )
     if timings is not None:
         _sync(dev)
@@ -481,7 +557,7 @@ def run_kalman_smoother(
 
     t0 = time.perf_counter()
     rs = torch.clamp(ensemble_vars.transpose(0, 1), min=1e-12).contiguous()  # (K, T, O)
-    ms, Vs = _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, sequential=sequential)
+    ms, Vs = _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, h_fn=h_fn, sequential=sequential)
     if timings is not None:
         _sync(dev)
         timings["final_pass"] = time.perf_counter() - t0

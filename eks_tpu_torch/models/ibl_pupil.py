@@ -462,7 +462,7 @@ def pupil_optimize_smooth(
     """Tune ``[s_diam, s_com]`` by filter NLL on (optionally cropped) frames,
     in sigmoid-unconstrained space starting from [0.99, 0.98]. Fixed
     ``smooth_params`` are returned clipped to [1e-3, 1 - 1e-3]."""
-    _check_supported(None, devices, "keypoint")
+    _check_supported(devices, "keypoint")
     if smooth_params is not None and all(v is not None for v in smooth_params):
         s = _fixed_params(smooth_params)
         return float(s[0]), float(s[1])

@@ -1,29 +1,39 @@
-"""Multi-camera EKS, linear (PCA-latent) observation model.
+"""Multi-camera EKS: PCA-latent (linear) and calibrated-projection
+(nonlinear) observation models.
 
-Counterpart of the linear half of ``eks_tpu/models/multicam.py``: per
-keypoint, a PCA of the centered (T, 2C) multi-view stack builds the emission
-matrix ``C = components.T``; the latent is a random walk with Q from the
-normalized covariance of PC lag-1 diffs. The calibrated (nonlinear
-projection) path of the JAX package is not ported yet: ``calibration`` and
-``camgroup`` raise.
+Counterpart of ``eks_tpu/models/multicam.py``. Two observation models,
+selected by the presence of a calibration:
 
-Two routes, as in the JAX package:
+  * linear: per keypoint, a PCA of the centered (T, 2C) multi-view stack
+    builds the emission matrix ``C = components.T``; the latent is a random
+    walk with Q from the normalized covariance of PC lag-1 diffs;
+  * calibrated: each model's 2-D predictions are triangulated to 3-D
+    (undistortion and a batched DLT), averaged over models, and a 3-D
+    random-walk latent is smoothed with the calibrated multi-view projection
+    as the emission: the s-optimizer's loss is the iterated-EKF plane NLL,
+    relinearized from the triangulated trajectory, and the final pass the
+    iterated parallel EKF smoother.
 
-  * the fused route (no inflation, no injected PCA, no ``s_frames``): the raw
-    (M, C, T, K) prediction planes are uploaded once, the prep (ensemble
-    statistics, frame filter, centering, PCA, KF init), the s-optimizer, the
-    final smoother and the packaging all run on the device, and the output
-    tables come back in one copy;
+Two routes for each, as in the JAX package:
+
+  * the fused route (no inflation, no ``s_frames``; for the linear model no
+    injected PCA either): the raw (M, C, T, K) prediction planes are uploaded
+    once, the prep (ensemble statistics; frame filter, centering, PCA and KF
+    init, or undistortion, triangulation and the geometric KF init), the
+    s-optimizer, the final smoother and the packaging all run on the device,
+    and the output tables come back in one copy;
   * the general route: ensemble, centering, optional Mahalanobis variance
-    inflation, the sklearn-exact PCA and the KF init run on the host in
-    numpy, the smoother on the device, the packaging on the host again.
+    inflation, the sklearn-exact PCA or the triangulation, and the KF init
+    run on the host, the smoother on the device, the packaging on the host
+    again.
 
 Variance inflation: per keypoint, a Factor-Analysis/Mahalanobis screen
 multiplies ensemble variances by 10 wherever the distance exceeds 5, repeated
 to a fixed point.
 
-Output parity quirk preserved deliberately: the per-camera outputs ADD the
-ensemble variance to the posterior variance.
+Output parity quirks preserved deliberately: the linear per-camera outputs
+ADD the ensemble variance to the posterior variance, and the calibrated ones
+add camera 0's x/y ensemble variance to EVERY camera's projected variance.
 """
 
 from __future__ import annotations
@@ -37,7 +47,23 @@ import numpy as np
 import pandas as pd
 import torch
 
-from eks_tpu_torch.core import _ensemble_kernel, _sync, ensemble, run_kalman_smoother
+from eks_tpu_torch.core import (
+    _ensemble_kernel,
+    _nanmedian,
+    _nanvar,
+    _sync,
+    ensemble,
+    run_kalman_smoother,
+)
+from eks_tpu_torch.geometry import (
+    CameraGroup,
+    make_projection_from_camgroup,
+    stack_camera_params,
+    triangulate_dlt,
+    undistort_points,
+)
+from eks_tpu_torch.geometry.camera import multiview_projection
+from eks_tpu_torch.ops.kalman import emission_jacobian
 from eks_tpu_torch.marker_array import (
     MarkerArray,
     input_dfs_to_markerArray,
@@ -60,8 +86,11 @@ __all__ = [
     "fit_eks_mirrored_multicam",
     "ensemble_kalman_smoother_multicam",
     "initialize_kalman_filter_pca",
+    "initialize_kalman_filter_geometric",
     "inflate_variance",
     "mA_compute_maha",
+    "triangulate_3d_models",
+    "project_3d_covariance_to_2d",
 ]
 
 OUTPUT_LABELS = [
@@ -78,10 +107,6 @@ OUTPUT_LABELS = [
 
 _LABELS_3D = ["x", "y", "z", "x_posterior_var", "y_posterior_var", "z_posterior_var"]
 
-_CALIBRATION_NOT_PORTED = (
-    "the calibrated (nonlinear projection) multi-camera path is not ported to "
-    "eks_tpu_torch yet (see ROADMAP.md, queue 1)"
-)
 
 
 # --------------------------------------------------------------------------- #
@@ -200,15 +225,24 @@ def fit_eks_multicam(
     device: str | torch.device = "cuda",
 ) -> tuple:
     """Un-mirrored multi-camera fit: one CSV per (camera, seed), matched to
-    cameras by filename. ``calibration`` (the nonlinear calibrated-projection
-    path) is not ported yet and raises.
+    cameras by filename. With ``calibration`` (an Anipose TOML) the
+    calibrated-projection path runs, the camera names come from the file,
+    and with ``save_3d_outputs`` the 3-D latents are saved beside the
+    per-camera CSVs. ``device`` is where the pipeline runs ("cuda" by
+    default).
 
     Returns:
         (camera_dfs, s_finals, input_dfs_list, bodypart_list, df_3d)
     """
+    camgroup = None
     if calibration is not None:
-        raise NotImplementedError(_CALIBRATION_NOT_PORTED)
-    if camera_names is None:
+        camgroup = CameraGroup.load(calibration)
+        if camera_names is not None:
+            logger.warning(
+                "calibration file supplies its own camera names; the camera_names argument is dropped"
+            )
+        camera_names = [cam.name for cam in camgroup.cameras]
+    elif camera_names is None:
         raise ValueError("without a calibration file, pass camera_names explicitly")
 
     input_dfs_list, keypoint_names = format_data(input_source, camera_names=camera_names)
@@ -227,6 +261,7 @@ def fit_eks_multicam(
         var_mode=var_mode,
         inflate_vars=inflate_vars,
         n_latent=n_latent,
+        camgroup=camgroup,
         devices=devices,
         partition=partition,
         device=device,
@@ -237,6 +272,8 @@ def fit_eks_multicam(
         save_dlc_csv(
             camera_dfs[c], os.path.join(save_dir, f"multicam_{camera}_results.csv")
         )
+    if save_3d_outputs and calibration is not None:
+        save_dlc_csv(df_3d, os.path.join(save_dir, "multicam_3d_results.csv"))
     return camera_dfs, s_finals, input_dfs_list, bodypart_list, df_3d
 
 
@@ -256,7 +293,7 @@ def ensemble_kalman_smoother_multicam(
     inflate_vars_kwargs: dict = {},
     pca_object: Optional[PCA] = None,
     n_latent: int = 3,
-    camgroup=None,
+    camgroup: Optional[CameraGroup] = None,
     devices: int | None = None,
     partition: Literal["keypoint", "time"] = "keypoint",
     device: str | torch.device = "cuda",
@@ -265,6 +302,9 @@ def ensemble_kalman_smoother_multicam(
     """Multi-view smoother over a (M, C, T, K, 3) MarkerArray.
 
     Args:
+        camgroup: the calibration; with it the calibrated-projection model
+            runs (3-D latent, the cameras' projection as the emission) and
+            ``n_latent`` and ``pca_object`` are not read.
         device: where the pipeline runs ("cuda" by default).
         timings: if a dict, the device is synchronized between stages and
             their seconds are recorded ("prep", "optimizer", "final_pass",
@@ -275,20 +315,25 @@ def ensemble_kalman_smoother_multicam(
     """
     if camera_names is None or len(camera_names) == 0:
         raise ValueError("camera_names must be provided")
-    if camgroup is not None:
-        raise NotImplementedError(_CALIBRATION_NOT_PORTED)
     dev = resolve_device(device)
 
-    # the plain linear family (no inflation, no injected PCA, no loss-frame
-    # cropping) runs prep, smoothing and packaging on the device with one
-    # upload (raw predictions) and one download (the packaged tables)
-    if not inflate_vars and pca_object is None and not s_frames:
-        return _smoother_multicam_linear_fused(
-            marker_array, keypoint_names, smooth_param=smooth_param,
-            quantile_keep_pca=quantile_keep_pca, avg_mode=avg_mode,
-            var_mode=var_mode, n_latent=n_latent, dev=dev,
-            devices=devices, partition=partition, timings=timings,
-        )
+    # without inflation and loss-frame cropping (and, for the linear model,
+    # an injected PCA) prep, smoothing and packaging run on the device with
+    # one upload (raw predictions) and one download (the packaged tables)
+    if not inflate_vars and not s_frames:
+        if camgroup is not None:
+            return _smoother_multicam_nonlinear_fused(
+                marker_array, keypoint_names, camgroup, smooth_param=smooth_param,
+                avg_mode=avg_mode, var_mode=var_mode, dev=dev,
+                devices=devices, partition=partition, timings=timings,
+            )
+        if pca_object is None:
+            return _smoother_multicam_linear_fused(
+                marker_array, keypoint_names, smooth_param=smooth_param,
+                quantile_keep_pca=quantile_keep_pca, avg_mode=avg_mode,
+                var_mode=var_mode, n_latent=n_latent, dev=dev,
+                devices=devices, partition=partition, timings=timings,
+            )
 
     M, V, T, K, _ = marker_array.shape
 
@@ -318,24 +363,34 @@ def ensemble_kalman_smoother_multicam(
     else:
         emA_inflated_vars = emA_vars
 
-    ensemble_pca, good_pcs_list = compute_pca(
-        valid_mask, emA_centered, emA_good_centered,
-        n_components=n_latent, pca_object=pca_object,
-    )
-    m0s, S0s, As, Qs, Cs = initialize_kalman_filter_pca(
-        good_pcs_list=good_pcs_list, ensemble_pca=ensemble_pca, n_latent=n_latent,
-        device=dev,
-    )
+    def upload(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=dev)
 
-    cen = emA_centered.array[0]  # (C, T, K, 2)
+    if camgroup is not None:
+        # triangulated 3-D trajectories: the KF init and the optimizer's
+        # linearization trajectory; raw (uncentered) 2-D observations
+        ys_3d = triangulate_3d_models(marker_array, camgroup, device=dev).mean(axis=0)  # (K, T, 3)
+        m0s, S0s, As, Qs, Cs = initialize_kalman_filter_geometric(ys_3d, device=dev)
+        h_fn, _ = make_projection_from_camgroup(camgroup, device=dev)
+        x_init = upload(ys_3d)
+        obs = emA_unsm.array[0]  # (C, T, K, 2)
+    else:
+        ensemble_pca, good_pcs_list = compute_pca(
+            valid_mask, emA_centered, emA_good_centered,
+            n_components=n_latent, pca_object=pca_object,
+        )
+        m0s, S0s, As, Qs, Cs = initialize_kalman_filter_pca(
+            good_pcs_list=good_pcs_list, ensemble_pca=ensemble_pca, n_latent=n_latent,
+            device=dev,
+        )
+        h_fn = x_init = None
+        obs = emA_centered.array[0]  # (C, T, K, 2)
+
     infl = emA_inflated_vars.array[0]
-    ys = np.moveaxis(cen, 2, 0).transpose(0, 2, 1, 3).reshape(K, T, 2 * V)
+    ys = np.moveaxis(obs, 2, 0).transpose(0, 2, 1, 3).reshape(K, T, 2 * V)
     ensemble_vars = np.moveaxis(infl, 2, 0).transpose(0, 2, 1, 3).reshape(K, T, 2 * V)
     if timings is not None:
         timings["prep"] = time.perf_counter() - t0
-
-    def upload(a):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=dev)
 
     s_finals, ms, Vs = run_kalman_smoother(
         ys=upload(ys),
@@ -343,50 +398,49 @@ def ensemble_kalman_smoother_multicam(
         ensemble_vars=upload(np.swapaxes(ensemble_vars, 0, 1)),  # (T, K, 2C)
         s_frames=s_frames,
         smooth_param=smooth_param,
+        h_fn=h_fn,
+        x_init=x_init,
         devices=devices,
         partition=partition,
         timings=timings,
     )
     # one batched pull of the device-resident results
     t0 = time.perf_counter()
+    ms_dev, Vs_dev = ms, Vs
     ms, Vs = ms.cpu().numpy(), Vs.cpu().numpy()
 
     # reprojection + packaging
     likes = emA_likes.array[0, :, :, :, 0]  # (C, T, K)
     unsm = emA_unsm.array[0]  # (C, T, K, 2)
-    infl_vars = emA_inflated_vars.array[0]
-    means = emA_means.array[0, :, 0, :, :]  # (C, K, 2)
-
-    Cs_np = Cs.cpu().numpy()  # (K, 2C, L)
-    y_m = np.einsum("koj,ktj->kto", Cs_np, ms)  # (K, T, 2C)
-    y_v_diag = np.einsum("koj,ktjl,kol->kto", Cs_np, Vs, Cs_np)  # (K, T, 2C)
+    if camgroup is not None:
+        # every camera's projection of the smoothed latents and its projected
+        # covariance, on the device; the variance columns are the uninflated
+        # ones
+        var_cols = emA_vars.array[0]
+        sm4 = _package_multicam_nonlinear(
+            ms_dev, Vs_dev, upload(ensemble_vars), *(upload(a) for a in stack_camera_params(camgroup)),
+        ).cpu().numpy()  # (C, T, K, 4)
+        xy_cols, post_cols = sm4[..., :2], sm4[..., 2:]
+    else:
+        var_cols = infl
+        means = emA_means.array[0, :, 0, :, :]  # (C, K, 2)
+        Cs_np = Cs.cpu().numpy()  # (K, 2C, L)
+        y_m = np.einsum("koj,ktj->kto", Cs_np, ms)  # (K, T, 2C)
+        y_v_diag = np.einsum("koj,ktjl,kol->kto", Cs_np, Vs, Cs_np)  # (K, T, 2C)
+        # posterior var + ensemble var (deliberate quirk)
+        post = y_v_diag + ensemble_vars
+        xy_cols = [(y_m[..., 2 * c:2 * c + 2] + means[c][:, None]).transpose(1, 0, 2) for c in range(V)]
+        post_cols = [post[..., 2 * c:2 * c + 2].transpose(1, 0, 2) for c in range(V)]
 
     camera_dfs = []
     for c in range(V):
-        xi, yi = 2 * c, 2 * c + 1
-        blocks = []
-        for k in range(K):
-            blocks.append(
-                np.stack(
-                    [
-                        y_m[k, :, xi] + means[c, k, 0],
-                        y_m[k, :, yi] + means[c, k, 1],
-                        likes[c, :, k],
-                        unsm[c, :, k, 0],
-                        unsm[c, :, k, 1],
-                        infl_vars[c, :, k, 0],
-                        infl_vars[c, :, k, 1],
-                        # posterior var + ensemble var (deliberate quirk)
-                        y_v_diag[k, :, xi] + ensemble_vars[k, :, xi],
-                        y_v_diag[k, :, yi] + ensemble_vars[k, :, yi],
-                    ],
-                    axis=-1,
-                )
-            )
-        arr = np.concatenate(blocks, axis=-1)
+        block = np.concatenate(
+            [xy_cols[c], likes[c][..., None], unsm[c], var_cols[c], post_cols[c]], axis=-1
+        )  # (T, K, 9)
         camera_dfs.append(
             pd.DataFrame(
-                arr, columns=make_dlc_pandas_index(keypoint_names, OUTPUT_LABELS)
+                block.reshape(T, K * len(OUTPUT_LABELS)),
+                columns=make_dlc_pandas_index(keypoint_names, OUTPUT_LABELS),
             )
         )
 
@@ -449,6 +503,32 @@ def initialize_kalman_filter_pca(
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=dev)
 
     return t(m0s), t(S0s), t(As), t(Qs), t(Cs)
+
+
+def initialize_kalman_filter_geometric(ys: np.ndarray, device: str | torch.device = "cuda") -> tuple:
+    """3-D geometric init from triangulated trajectories (K, T, 3) on the
+    host: m0 = mean of the first 10 frames, S0 = diag(nanvar) + 1e-4, Q =
+    diag of the squared scaled MAD of lag-1 diffs (floored at 1e-8), A and
+    the emission placeholder = I. Handed over as float32 tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    K, T, D = ys.shape
+    m0s = ys[:, :10].mean(axis=1)  # (K, 3)
+    var = np.nanvar(ys, axis=1) + 1e-4  # (K, 3)
+    dx = np.diff(ys, axis=1)  # (K, T-1, 3)
+    med = np.median(dx, axis=1, keepdims=True)
+    mad = np.median(np.abs(dx - med), axis=1) + 1e-12  # (K, 3)
+    qvar = np.maximum((1.4826 * mad) ** 2, 1e-8)
+    eye = np.tile(np.eye(D), (K, 1, 1))
+    S0s, Qs = np.zeros((K, D, D)), np.zeros((K, D, D))
+    for d in range(D):
+        S0s[:, d, d] = var[:, d]
+        Qs[:, d, d] = qvar[:, d]
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=dev)
+
+    return t(m0s), t(S0s), t(eye), t(Qs), t(eye)
 
 
 # --------------------------------------------------------------------------- #
@@ -622,6 +702,109 @@ def _smoother_multicam_linear_fused(
     return camera_dfs, s_finals, df_3d
 
 
+# --------------------------------------------------------------------------- #
+# fused calibrated path (device-resident prep + packaging)
+# --------------------------------------------------------------------------- #
+def _median(a: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """``jnp.median``: the midpoint of the two middle values (``torch.median``
+    takes the lower one), NaN wherever the axis holds one."""
+    med = _nanmedian(a, dim)
+    med = torch.where(torch.isnan(a).any(dim=dim), torch.full_like(med, float("nan")), med)
+    return med.unsqueeze(dim) if keepdim else med
+
+
+def _prep_multicam_nonlinear(data_x, data_y, data_lh, n_models, avg_mode, var_mode, Ks, dists, extr):
+    """Device twin of ensemble() + triangulate_3d_models +
+    initialize_kalman_filter_geometric for the calibrated family, with no
+    intermediate host transfer.
+
+    Inputs: (M, C, T, K) prediction planes and the stacked camera parameters
+    (Ks (C, 3, 3), dists (C, 14), extr (C, 3, 4)). Returns (stats (C, T, K,
+    5), ys (K, T, 2C) raw pixel observations, evars (K, T, 2C), m0s, S0s,
+    As, Qs, ys_3d (K, T, 3)); the emission placeholder is As, the identity.
+    ``ys_3d``, the triangulated trajectory, is the s-optimizer's EKF
+    linearization trajectory."""
+    stats = _ensemble_kernel(data_x, data_y, data_lh, n_models, avg_mode, var_mode, 1000.0)
+    C, T, K, _ = stats.shape
+    M = data_x.shape[0]
+    ys = stats[..., :2].permute(2, 1, 0, 3).reshape(K, T, 2 * C)
+    evars = stats[..., 2:4].permute(2, 1, 0, 3).reshape(K, T, 2 * C)
+
+    # undistort and triangulate every (model, keypoint, frame) in one batched
+    # DLT; the flat point index is (m, k, t), as in triangulate_3d_models
+    pts = torch.stack([data_x, data_y], dim=-1).permute(1, 0, 3, 2, 4).reshape(C, M * K * T, 2)
+    und = torch.stack([undistort_points(pts[c], Ks[c], dists[c]) for c in range(C)])
+    ys_3d = triangulate_dlt(und, extr).reshape(M, K, T, 3).mean(dim=0)  # (K, T, 3)
+
+    # geometric init (initialize_kalman_filter_geometric semantics)
+    eye3 = torch.eye(3, dtype=ys.dtype, device=ys.device)
+    m0s = ys_3d[:, :10].mean(dim=1)
+    S0s = (_nanvar(ys_3d, 1) + 1e-4)[:, :, None] * eye3
+    dxs = ys_3d[:, 1:] - ys_3d[:, :-1]
+    mad = _median((dxs - _median(dxs, 1, keepdim=True)).abs(), 1) + 1e-12
+    Qs = torch.clamp((1.4826 * mad) ** 2, min=1e-8)[:, :, None] * eye3
+    As = eye3.expand(K, 3, 3).contiguous()
+    return stats, ys.contiguous(), evars.contiguous(), m0s, S0s, As, Qs, ys_3d.contiguous()
+
+
+def _package_multicam_nonlinear(ms, Vs, evars, Ks, dists, extr) -> torch.Tensor:
+    """Device reprojection epilogue of the calibrated family: the smoothed
+    3-D latents and their covariances through every camera at once. Returns
+    (C, T, K, 4) as [x, y, x_posterior_var, y_posterior_var]; every camera's
+    variance gets camera 0's x/y ensemble variance added (the reference's
+    quirk: it reads columns 0 and 1 of the full (T, 2C) slab)."""
+    K, T, _ = ms.shape
+    C = Ks.shape[0]
+    views = multiview_projection(extr[:, :, :3], extr[:, :, 3], Ks, dists)
+    flat = ms.reshape(-1, 3)  # flat index (k, t)
+    proj = views(flat).reshape(-1, C, 2)
+    J = emission_jacobian(views, flat).reshape(-1, C, 2, 3)
+    pvar = torch.einsum("ncij,njl,ncil->nci", J, Vs.reshape(-1, 3, 3), J)
+    post = pvar + evars[..., :2].reshape(-1, 1, 2)
+    return torch.cat([proj, post], dim=-1).reshape(K, T, C, 4).permute(2, 1, 0, 3)
+
+
+def _smoother_multicam_nonlinear_fused(
+    marker_array, keypoint_names, camgroup, smooth_param, avg_mode, var_mode, dev,
+    devices=None, partition="keypoint", timings=None,
+):
+    """Calibrated multicam smoother with prep and packaging on the device.
+    Output contract identical to the general route (same columns, same
+    camera-0 variance quirk)."""
+    M = marker_array.shape[0]
+
+    t0 = time.perf_counter()
+    arr = torch.as_tensor(
+        np.ascontiguousarray(marker_array.array, dtype=np.float32), device=dev
+    )  # (M, C, T, K, 3)
+    Ks, dists, extr = (
+        torch.as_tensor(a, dtype=torch.float32, device=dev) for a in stack_camera_params(camgroup)
+    )
+    stats, ys, evars, m0s, S0s, As, Qs, ys_3d = _prep_multicam_nonlinear(
+        arr[..., 0], arr[..., 1], arr[..., 2], M, avg_mode, var_mode, Ks, dists, extr,
+    )
+    h_fn, _ = make_projection_from_camgroup(camgroup, device=dev)
+    if timings is not None:
+        _sync(dev)
+        timings["prep"] = time.perf_counter() - t0
+
+    s_finals, ms, Vs = run_kalman_smoother(
+        ys=ys, m0s=m0s, S0s=S0s, As=As, Qs=Qs, Cs=As,
+        ensemble_vars=evars.transpose(0, 1),  # (T, K, 2C)
+        smooth_param=smooth_param, h_fn=h_fn, x_init=ys_3d,
+        devices=devices, partition=partition, timings=timings,
+    )
+
+    t0 = time.perf_counter()
+    sm4 = _package_multicam_nonlinear(ms, Vs, evars, Ks, dists, extr)
+    sm4_np, stats_np, arr_3d_np = (x.cpu().numpy() for x in (sm4, stats, _package_3d(ms, Vs)))
+    camera_dfs = _assemble_camera_dfs(sm4_np, stats_np, keypoint_names)
+    df_3d = pd.DataFrame(arr_3d_np, columns=make_dlc_pandas_index(keypoint_names, _LABELS_3D))
+    if timings is not None:
+        timings["package"] = time.perf_counter() - t0
+    return camera_dfs, s_finals, df_3d
+
+
 def _assemble_camera_dfs(sm4_np, stats_np, keypoint_names) -> list:
     """Interleave the smoother-dependent block (C, T, K, 4) with the ensemble
     stats (C, T, K, 5) into one 9-column-per-keypoint DataFrame per camera."""
@@ -723,3 +906,49 @@ def inflate_variance(
 
     updated[full] *= scalar
     return updated, bool(full.any())
+
+
+# --------------------------------------------------------------------------- #
+# calibrated-path helpers (the general route)
+# --------------------------------------------------------------------------- #
+def triangulate_3d_models(marker_array: MarkerArray, camgroup: CameraGroup,
+                          device: str | torch.device = "cuda") -> np.ndarray:
+    """Triangulate every (model, keypoint, frame) in one batched undistort +
+    DLT in float32 on ``device``: (M, C, T, K, >=2) marker array ->
+    (M, K, T, 3) host array."""
+    M, C, T, K, _ = marker_array.shape
+    raw = np.asarray(marker_array.get_array()[..., :2], dtype=np.float64)
+    # (C, M*K*T, 2) with flat index (m, k, t)
+    pts = raw.transpose(1, 0, 3, 2, 4).reshape(C, M * K * T, 2)
+    return camgroup.triangulate(pts, device=resolve_device(device)).reshape(M, K, T, 3)
+
+
+def project_3d_covariance_to_2d(
+    ms: np.ndarray,  # (K, T, 3) or (T, 3)
+    Vs: np.ndarray,  # (K, T, 3, 3) or (T, 3, 3)
+    h_cam,
+    ensemble_vars: np.ndarray,  # (K, T, 2C) or (T, 2C): x/y of camera 0 first
+    device: str | torch.device = "cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Project the 3-D posterior covariance to a camera's 2-D pixel
+    variances through the projection Jacobian, ``cov2d = J V Jᵀ``, and add
+    the first two columns of ``ensemble_vars`` (camera 0's x/y ensemble
+    variance, whichever camera ``h_cam`` is: the reference's quirk). The
+    Jacobian is taken in float32 on ``device``, where ``h_cam`` holds its
+    parameters.
+
+    Returns (var_x, var_y) with the leading shape of ``ms`` minus the state
+    axis."""
+    squeeze = ms.ndim == 2
+    ms_b = ms[None] if squeeze else ms  # (K, T, 3)
+    Vs_b = Vs[None] if squeeze else Vs
+    ev_b = ensemble_vars[None] if squeeze else ensemble_vars
+
+    x = torch.as_tensor(np.ascontiguousarray(ms_b, dtype=np.float32), device=resolve_device(device))
+    J = emission_jacobian(h_cam, x).cpu().numpy()  # (K, T, 2, 3)
+    cov2d = np.einsum("ktij,ktjl,ktml->ktim", J, Vs_b, J)  # (K, T, 2, 2)
+    var_x = cov2d[..., 0, 0] + ev_b[..., 0]
+    var_y = cov2d[..., 1, 1] + ev_b[..., 1]
+    if squeeze:
+        return var_x[0], var_y[0]
+    return var_x, var_y

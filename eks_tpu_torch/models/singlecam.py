@@ -8,7 +8,9 @@ smoothing scale ``s`` per keypoint (or per block of keypoints).
 The whole pipeline runs on one device: the raw (M, T, K) prediction planes
 are uploaded once, the prep (ensemble statistics, centering, KF init), the
 s-optimizer, the final smoother and the output packaging run there, and the
-(T, K, 9) table comes back in one copy.
+(T, K, 9) table comes back in one copy. Several sessions of equal shape
+stack along the keypoint axis into one such run (every stage is
+independent per keypoint lane).
 
 Output CSV carries 9 labels per keypoint:
 ``x, y, likelihood, x_ens_median, y_ens_median, x_ens_var, y_ens_var,
@@ -34,7 +36,9 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "fit_eks_singlecam",
+    "fit_eks_singlecam_sessions",
     "ensemble_kalman_smoother_singlecam",
+    "ensemble_kalman_smoother_singlecam_sessions",
     "initialize_kalman_filter",
 ]
 
@@ -109,6 +113,195 @@ def fit_eks_singlecam(
         os.makedirs(save_dir, exist_ok=True)
     save_dlc_csv(df_smoothed, save_file)
     return df_smoothed, s_finals, input_dfs_list, bodypart_list
+
+
+def fit_eks_singlecam_sessions(
+    input_sources: list,
+    save_files: list,
+    bodypart_list: list | None = None,
+    smooth_param: float | list | None = None,
+    s_frames: list | None = None,
+    blocks: list | None = None,
+    avg_mode: Literal["mean", "median"] = "median",
+    var_mode: Literal["var", "confidence_weighted_var"] = "confidence_weighted_var",
+    devices: int | None = None,
+    partition: Literal["keypoint", "time"] = "keypoint",
+    device: str | torch.device = "cuda",
+) -> list[tuple]:
+    """Smooth SEVERAL sessions in one batched run: each session is an
+    independent recording (its own ensemble CSV set), and sessions stack as
+    extra keypoint lanes of one optimizer and one final pass.
+
+    Args:
+        input_sources: one input source (directory or CSV list) per session.
+        save_files: one output CSV path per session.
+        bodypart_list: keypoints to smooth, shared across sessions;
+            default = each session's own detected keypoints.
+        smooth_param: fixed ``s``: a scalar (all sessions) or a per-session
+            list of scalars/lists.
+        blocks: per-session block structure (list of block lists), or None.
+        Other args as in :func:`fit_eks_singlecam`.
+
+    Returns:
+        list of (df_smoothed, s_finals, input_dfs_list, bodypart_list),
+        one per session.
+    """
+    assert len(save_files) == len(input_sources), "one save_file per session"
+
+    marker_arrays, names_per_session, dfs_per_session = [], [], []
+    for src in input_sources:
+        input_dfs_list, keypoint_names = format_data(src)
+        names = bodypart_list if bodypart_list is not None else keypoint_names
+        marker_arrays.append(input_dfs_to_markerArray([input_dfs_list], names, [""]))
+        names_per_session.append(names)
+        dfs_per_session.append(input_dfs_list)
+
+    results = ensemble_kalman_smoother_singlecam_sessions(
+        marker_arrays=marker_arrays,
+        keypoint_names=names_per_session,
+        smooth_param=smooth_param,
+        s_frames=s_frames,
+        blocks=blocks,
+        avg_mode=avg_mode,
+        var_mode=var_mode,
+        devices=devices,
+        partition=partition,
+        device=device,
+    )
+
+    out = []
+    for (df_smoothed, s_finals), save_file, dfs, names in zip(
+        results, save_files, dfs_per_session, names_per_session
+    ):
+        save_dir = os.path.dirname(save_file)
+        if save_dir:
+            os.makedirs(save_dir, exist_ok=True)
+        save_dlc_csv(df_smoothed, save_file)
+        out.append((df_smoothed, s_finals, dfs, names))
+    return out
+
+
+def ensemble_kalman_smoother_singlecam_sessions(
+    marker_arrays: list,
+    keypoint_names: list,
+    smooth_param: float | list | None = None,
+    s_frames: list | None = None,
+    blocks: list | None = None,
+    avg_mode: Literal["mean", "median"] = "median",
+    var_mode: Literal["var", "confidence_weighted_var"] = "confidence_weighted_var",
+    devices: int | None = None,
+    partition: Literal["keypoint", "time"] = "keypoint",
+    device: str | torch.device = "cuda",
+    timings: dict | None = None,
+) -> list[tuple]:
+    """Array-level multi-session single-camera smoother.
+
+    Sessions with equal (models, frames) are concatenated along the keypoint
+    axis and smoothed as ONE run, equivalent to per-session runs because
+    every stage is independent per keypoint lane (up to float32 rounding:
+    the lane count sets how the kernels cut each lane, so batched and solo
+    runs add in different orders). Unequal shapes, a single session, and a
+    mix of fixed and auto ``s`` fall back to one run per session.
+
+    Args:
+        marker_arrays: one (M, 1, T, K_s, 3) MarkerArray per session.
+        keypoint_names: per-session keypoint-name lists.
+        smooth_param: scalar (broadcast) or per-session list.
+        blocks: per-session lists of keypoint-index blocks, or None.
+        timings: as in :func:`ensemble_kalman_smoother_singlecam`, for the
+            batched run (a fallback fills it from its last session).
+
+    Returns:
+        list of (markers_df, s_finals) per session.
+    """
+    if not marker_arrays:
+        return []
+    n_sessions = len(marker_arrays)
+    assert len(keypoint_names) == n_sessions, "one name list per session"
+    per_session_param = isinstance(smooth_param, (list, tuple))
+    if per_session_param:
+        assert len(smooth_param) == n_sessions, (
+            "per-session smooth_param list must match the session count"
+        )
+    if blocks:
+        assert len(blocks) == n_sessions, "one block list per session"
+
+    def solo_runs():
+        return [
+            ensemble_kalman_smoother_singlecam(
+                marker_array=ma,
+                keypoint_names=names,
+                smooth_param=(smooth_param[i] if per_session_param else smooth_param),
+                s_frames=s_frames,
+                blocks=(blocks[i] if blocks else []),
+                avg_mode=avg_mode,
+                var_mode=var_mode,
+                devices=devices,
+                partition=partition,
+                device=device,
+                timings=timings,
+            )
+            for i, (ma, names) in enumerate(zip(marker_arrays, keypoint_names))
+        ]
+
+    if len({ma.shape[:3] for ma in marker_arrays}) > 1 or n_sessions == 1:
+        logger.info("sessions differ in (models, frames) shape or are one; smoothing them one by one")
+        return solo_runs()
+    if per_session_param and any(p is None for p in smooth_param):
+        # mixed fixed/auto sessions would need a partial optimizer run
+        logger.info("mixed fixed/auto smooth_param across sessions; smoothing them one by one")
+        return solo_runs()
+
+    # stack sessions along the keypoint axis: (M, 1, T, sum(K_s), 3)
+    k_counts = [ma.shape[3] for ma in marker_arrays]
+    offsets = np.concatenate([[0], np.cumsum(k_counts)])
+    stacked = MarkerArray(
+        np.concatenate([np.asarray(ma.array) for ma in marker_arrays], axis=3),
+        data_fields=list(marker_arrays[0].data_fields),
+    )
+
+    # per-session blocks shift by each session's keypoint offset; once ANY
+    # session declares blocks, block-less sessions contribute singletons
+    merged_blocks: list = []
+    if blocks and any(blocks):
+        for i, session_blocks in enumerate(blocks):
+            if session_blocks:
+                merged_blocks += [[int(offsets[i]) + k for k in b] for b in session_blocks]
+            else:
+                merged_blocks += [[int(offsets[i]) + k] for k in range(k_counts[i])]
+
+    # scalar smooth_param broadcasts; per-session entries expand per keypoint
+    merged_param: float | list | None = smooth_param
+    if per_session_param:
+        merged_param = []
+        for i, p in enumerate(smooth_param):
+            if isinstance(p, (list, tuple, np.ndarray)):
+                vals = [float(v) for v in p]
+                if len(vals) == 1:  # length-1 lists broadcast, like the core
+                    vals = vals * k_counts[i]
+                assert len(vals) == k_counts[i], (
+                    f"session {i}: smooth_param list must have one entry "
+                    f"per keypoint ({k_counts[i]}), got {len(vals)}"
+                )
+                merged_param += vals
+            else:
+                merged_param += [float(p)] * k_counts[i]
+
+    final_np, s_all = _singlecam_smooth_table(
+        stacked, merged_param, s_frames, merged_blocks, avg_mode, var_mode,
+        devices, partition, device, timings,
+    )
+    n_frames = final_np.shape[0]
+    n_labels = len(OUTPUT_LABELS)
+    results = []
+    for i, names in enumerate(keypoint_names):
+        lo, hi = int(offsets[i]), int(offsets[i + 1])
+        sub = pd.DataFrame(
+            final_np[:, lo:hi, :].reshape(n_frames, (hi - lo) * n_labels),
+            columns=make_dlc_pandas_index(names, labels=OUTPUT_LABELS),
+        )
+        results.append((sub, s_all[lo:hi]))
+    return results
 
 
 def ensemble_kalman_smoother_singlecam(

@@ -53,6 +53,7 @@ import torch
 from eks_tpu_torch.ops import cuda_build
 from eks_tpu_torch.ops.fused_filter import check_scratch, filter_prefix_plain, segment_partition, sm_count
 from eks_tpu_torch.ops.pkalman import (
+    _jvp_or_call,
     _pack_scalars,
     _pack_scalars_tv,
     _scalar_offsets_tv,
@@ -105,7 +106,7 @@ def _fused_nll_plain(table: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def _fused_nll_paired_plain(table, dtable, y):
     """Plain paired version: (ll, d ll) along the table tangent ``dtable``."""
-    return torch.func.jvp(lambda tab: _fused_nll_plain(tab, y), (table,), (dtable,))
+    return _jvp_or_call(_fused_nll_plain, (table, y.contiguous()), (dtable, None))
 
 
 def _fused_nll_tv_plain(table: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
@@ -115,7 +116,7 @@ def _fused_nll_tv_plain(table: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
 
 def _fused_nll_tv_paired_plain(table, dtable, yr):
     """Plain paired version of kernel C: (ll, d ll) along ``dtable``."""
-    return torch.func.jvp(lambda tab: _fused_nll_tv_plain(tab, yr), (table,), (dtable,))
+    return _jvp_or_call(_fused_nll_tv_plain, (table, yr.contiguous()), (dtable, None))
 
 
 # --------------------------------------------------------------------------- #

@@ -1,6 +1,7 @@
-"""Sequential Kalman filter and RTS smoother, batched over lanes.
+"""Sequential Kalman/extended-Kalman filter and RTS smoother, batched over
+lanes.
 
-Counterpart of ``eks_tpu/ops/kalman.py`` for linear emissions: the carry
+Counterpart of ``eks_tpu/ops/kalman.py``: the carry
 holds the one-step-ahead predictive distribution, initialised with the prior
 ``(m0, S0)`` (``y_0`` is assimilated against the prior with no transition),
 the per-step marginal log-likelihood accumulates at the predictive stage, the
@@ -15,13 +16,14 @@ path, not a hot path. Every argument carries a leading lane dimension N.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from eks_tpu_torch.ops.linalg import mvn_logpdf, psd_solve
 
-__all__ = ["FilterResult", "SmootherResult", "kalman_filter", "kalman_smoother"]
+__all__ = ["FilterResult", "SmootherResult", "emission_jacobian", "emission_parts", "kalman_filter", "kalman_smoother"]
 
 
 class FilterResult(NamedTuple):
@@ -49,29 +51,66 @@ def _diag(v: torch.Tensor) -> torch.Tensor:
     return torch.diag_embed(v)
 
 
+def emission_parts(h_fn: Callable) -> tuple[Callable, tuple]:
+    """(fn, tensors) with ``h_fn(x) == fn(*tensors, x)``: a
+    ``functools.partial`` over tensors (the camera projector) is taken apart,
+    any other emission has no tensors. Under forward mode an operation
+    between a tensor with a tangent and one without (a closed-over tensor or
+    a Python number) takes a slow decomposed path on the host, hundreds of
+    microseconds a call against tens; with its tensors apart, a caller gives
+    them zero tangents."""
+    if (isinstance(h_fn, functools.partial) and not h_fn.keywords
+            and all(torch.is_tensor(a) for a in h_fn.args)):
+        return h_fn.func, tuple(h_fn.args)
+    return (lambda x: h_fn(x)), ()
+
+
+def emission_jacobian(h_fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """Jacobians (..., O, D) of the emission ``h_fn: (..., D) -> (..., O)``
+    at the points x (..., D): one ``torch.func.jvp`` with the D unit
+    tangents stacked on a leading axis, what ``torch.func.jacfwd`` computes,
+    and the emission's tensors (``emission_parts``) given zero tangents."""
+    fn, consts = emission_parts(h_fn)
+    D = x.shape[-1]
+    flat = x.reshape(1, -1, D)
+    eye = torch.eye(D, dtype=x.dtype, device=x.device)
+    points = flat.expand(D, -1, -1).contiguous()
+    units = eye[:, None, :].expand_as(points).contiguous()
+    # c - c, not zeros_like: under an enclosing jvp the zeros then carry a
+    # tangent of their own, and stay off the slow path there too
+    zeros = tuple(c - c for c in consts)
+    J = torch.func.jvp(fn, (*consts, points), (*zeros, units))[1]  # (D, P, O)
+    return J.permute(1, 2, 0).reshape(*x.shape[:-1], J.shape[-1], D)
+
+
 def kalman_filter(
     ys: torch.Tensor,  # (N, T, O)
     m0: torch.Tensor,  # (N, D)
     S0: torch.Tensor,  # (N, D, D)
     A: torch.Tensor,  # (N, D, D)
     Q: torch.Tensor,  # (N, D, D)
-    C: torch.Tensor,  # (N, O, D)
+    C: Optional[torch.Tensor],  # (N, O, D) linear emission
     r_diag: torch.Tensor,  # (N, T, O) or (N, O)
+    h_fn: Optional[Callable] = None,  # nonlinear emission (..., D) -> (..., O)
 ) -> FilterResult:
-    """Forward Kalman filter with per-step log-likelihood accumulation."""
+    """Forward (extended) Kalman filter with per-step log-likelihood
+    accumulation; with ``h_fn`` the emission is linearized at each step's
+    predicted mean and ``C`` is not read."""
     T = ys.shape[1]
     r = _as_time_varying(r_diag, T)
-    Ct = C.transpose(-1, -2)
     At = A.transpose(-1, -2)
     ll = torch.zeros(ys.shape[0], dtype=ys.dtype, device=ys.device)
     m_pred, P_pred = m0, S0
     ms, Ps = [], []
     for t in range(T):
         y_t = ys[:, t]
-        S = C @ P_pred @ Ct + _diag(r[:, t])
-        hx = (C @ m_pred[..., None])[..., 0]
+        if h_fn is None:
+            H, hx = C, (C @ m_pred[..., None])[..., 0]
+        else:
+            H, hx = emission_jacobian(h_fn, m_pred), h_fn(m_pred)
+        S = H @ P_pred @ H.transpose(-1, -2) + _diag(r[:, t])
         ll = ll + mvn_logpdf(y_t, hx, S)
-        K = psd_solve(S, C @ P_pred).transpose(-1, -2)
+        K = psd_solve(S, H @ P_pred).transpose(-1, -2)
         m_filt = m_pred + (K @ (y_t - hx)[..., None])[..., 0]
         P_filt = P_pred - K @ S @ K.transpose(-1, -2)
         ms.append(m_filt)
@@ -87,11 +126,12 @@ def kalman_smoother(
     S0: torch.Tensor,
     A: torch.Tensor,
     Q: torch.Tensor,
-    C: torch.Tensor,
+    C: Optional[torch.Tensor],
     r_diag: torch.Tensor,
+    h_fn: Optional[Callable] = None,
 ) -> SmootherResult:
-    """Forward filter + backward RTS smoothing pass."""
-    fr = kalman_filter(ys, m0, S0, A, Q, C, r_diag)
+    """Forward (extended) filter + backward RTS smoothing pass."""
+    fr = kalman_filter(ys, m0, S0, A, Q, C, r_diag, h_fn=h_fn)
     ms, Ps = fr.filtered_means, fr.filtered_covs
     T = ms.shape[1]
     At = A.transpose(-1, -2)

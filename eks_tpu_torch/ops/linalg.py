@@ -10,7 +10,9 @@ elementwise op over the whole batch, the same on the CPU and on the card.
 
 from __future__ import annotations
 
+import functools
 import math
+import operator
 
 import torch
 
@@ -59,6 +61,21 @@ def _chol_solve_unrolled(L: list[list], b: torch.Tensor, vector: bool) -> torch.
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, dim=-1) if vector else torch.stack(x, dim=-2)
+
+
+def psum(terms):
+    """Sum of tensors without the leading Python 0 of ``sum``, which under
+    forward mode takes the slow path ``one_plus`` describes."""
+    return functools.reduce(operator.add, terms)
+
+
+def one_plus(x: torch.Tensor) -> torch.Tensor:
+    """1 + x through the Scalar overload of add. Under forward mode
+    (``torch.func.jvp``) an operation between a tensor with a tangent and a
+    Python number, or a tensor without a tangent, takes a slow decomposed
+    path on the host, hundreds of microseconds a call against tens; the
+    Scalar overload does not."""
+    return torch.ops.aten.add.Scalar(x, 1.0)
 
 
 def psd_solve(a: torch.Tensor, b: torch.Tensor, diagonal_boost: float = 1e-9) -> torch.Tensor:
@@ -116,12 +133,11 @@ def mvn_logpdf(y: torch.Tensor, mean: torch.Tensor, cov: torch.Tensor) -> torch.
     d = y - mean
     L = _chol_unrolled(cov)
     z: list = [None] * n
-    logdet = 0.0
     for i in range(n):
         s = d[..., i]
         for k in range(i):
             s = s - L[i][k] * z[k]
         z[i] = s / L[i][i]
-        logdet = logdet + torch.log(L[i][i])
-    quad = sum(zi * zi for zi in z)
+    logdet = psum(torch.log(L[i][i]) for i in range(n))
+    quad = psum(zi * zi for zi in z)
     return -0.5 * quad - logdet - 0.5 * n * _LOG_2PI

@@ -1,9 +1,9 @@
 """Parallel-prefix (associative-scan) Kalman filter and RTS smoother.
 
-Counterpart of the linear half of ``eks_tpu/ops/pkalman.py``. The linear
-Gaussian filter and smoother are associative operators (Särkkä &
-García-Fernández, *Temporal Parallelization of Bayesian Smoothers*, IEEE TAC
-2021), evaluated with a log-depth scan over the time axis.
+Counterpart of ``eks_tpu/ops/pkalman.py``. The linear Gaussian filter and
+smoother are associative operators (Särkkä & García-Fernández, *Temporal
+Parallelization of Bayesian Smoothers*, IEEE TAC 2021), evaluated with a
+log-depth scan over the time axis.
 
 Layout: scan elements are carried as stacked scalar planes, one (..., T)
 row per matrix entry, in a (..., P, T) tensor. The filtering element
@@ -19,19 +19,35 @@ and the reverse RTS scan through ``fused_filter.smoother_suffix`` (the CUDA
 kernel on the card, the plain scan on the CPU). The optimizer's loss at more
 than eight observations is the staged plane NLL here, whose scan is the
 lane-batched kernel, paired with its tangent in one launch.
+
+Nonlinear emissions (the calibrated multi-camera projection) run as an
+iterated parallel EKF: each sweep linearizes ``h`` at the current
+predicted-mean trajectory x̄ and replays the linear sweep on the affine
+surrogate ``ỹ_t = y_t - h(x̄_t) + H_t x̄_t``; the fixed point is the
+sequential extended Kalman filter. The optimizer's EKF loss
+(``ekf_nll_paired_batched``) carries (x̄, dx̄) pairs by hand through
+``torch.func.jvp`` around one paired scan launch per sweep, so no kernel
+runs under autograd.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from eks_tpu_torch.ops.kalman import FilterResult, SmootherResult, _as_time_varying
-from eks_tpu_torch.ops.linalg import mvn_logpdf, psd_solve, small_inv
+from eks_tpu_torch.ops.kalman import (
+    FilterResult, SmootherResult, _as_time_varying, emission_jacobian, emission_parts,
+)
+from eks_tpu_torch.ops.linalg import mvn_logpdf, one_plus, psd_solve, psum, small_inv
 
 __all__ = [
     "associative_scan",
+    "ekf_nll_paired_batched",
+    "ekf_nll_parallel_planes_batched",
+    "ekf_parallel",
+    "eks_parallel",
     "filter_nll_paired_batched",
     "filter_nll_parallel_planes_tv",
     "kalman_filter_parallel",
@@ -87,13 +103,13 @@ def _vec_planes(x, off, d):
 
 def _pmatmul(a, b):
     return [
-        [sum(a[i][k] * b[k][j] for k in range(len(b))) for j in range(len(b[0]))]
+        [psum(a[i][k] * b[k][j] for k in range(len(b))) for j in range(len(b[0]))]
         for i in range(len(a))
     ]
 
 
 def _pmatvec(a, x):
-    return [sum(a[i][k] * x[k] for k in range(len(x))) for i in range(len(a))]
+    return [psum(a[i][k] * x[k] for k in range(len(x))) for i in range(len(a))]
 
 
 def _pt(a):
@@ -114,7 +130,7 @@ def _pvsub(x, y):
 
 def _peye_plus(a):
     return [
-        [a[i][j] + 1.0 if i == j else a[i][j] for j in range(len(a[0]))]
+        [one_plus(a[i][j]) if i == j else a[i][j] for j in range(len(a[0]))]
         for i in range(len(a))
     ]
 
@@ -123,17 +139,17 @@ def _pinv(a):
     """Closed-form inverse of a D <= 3 plane matrix (adjugate / det)."""
     d = len(a)
     if d == 1:
-        return [[1.0 / a[0][0]]]
+        return [[torch.reciprocal(a[0][0])]]
     if d == 2:
         (a00, a01), (a10, a11) = a
-        inv = 1.0 / (a00 * a11 - a01 * a10)
+        inv = torch.reciprocal(a00 * a11 - a01 * a10)
         return [[a11 * inv, -a01 * inv], [-a10 * inv, a00 * inv]]
     if d == 3:
         (a00, a01, a02), (a10, a11, a12), (a20, a21, a22) = a
         c00 = a11 * a22 - a12 * a21
         c01 = a12 * a20 - a10 * a22
         c02 = a10 * a21 - a11 * a20
-        inv = 1.0 / (a00 * c00 + a01 * c01 + a02 * c02)
+        inv = torch.reciprocal(a00 * c00 + a01 * c01 + a02 * c02)
         c10 = a02 * a21 - a01 * a22
         c11 = a00 * a22 - a02 * a20
         c12 = a01 * a20 - a00 * a21
@@ -340,11 +356,11 @@ def _table_planes(table: torch.Tensor, y: torch.Tensor, D: int) -> torch.Tensor:
     zero = torch.zeros_like(table[:, 0])
     rows = [const("A_el", k, zero) for k in range(D * D)]
     for d in range(D):  # b = K_c y_t | b_first
-        b = sum(W("K_c", d * O + o) * y[:, o] for o in range(O))
+        b = psum(W("K_c", d * O + o) * y[:, o] for o in range(O))
         rows.append(_set_first(b, table[:, offs["b_first"] + d]))
     rows += [const("C_el", k, table[:, offs["C_first"] + k]) for k in range(D * D)]
     for d in range(D):  # eta = M_cᵀ y_t, zero at t=0
-        e = sum(W("M_cT", d * O + o) * y[:, o] for o in range(O))
+        e = psum(W("M_cT", d * O + o) * y[:, o] for o in range(O))
         rows.append(_set_first(e, zero))
     rows += [const("J_el", k, zero) for k in range(D * D)]
     return torch.stack(rows, dim=1)
@@ -436,9 +452,9 @@ def _table_planes_tv(table: torch.Tensor, y: torch.Tensor, r: torch.Tensor, D: i
 
     rng = range(D)
     Cm = [[W("Cobs", o * D + a) for a in rng] for o in range(O)]
-    ri = [1.0 / r[:, o] for o in range(O)]
-    Wt = [[sum(Cm[o][a] * Cm[o][b] * ri[o] for o in range(O)) for b in rng] for a in rng]
-    v = [sum(Cm[o][a] * ri[o] * y[:, o] for o in range(O)) for a in rng]
+    ri = [torch.reciprocal(r[:, o]) for o in range(O)]
+    Wt = [[psum(Cm[o][a] * Cm[o][b] * ri[o] for o in range(O)) for b in rng] for a in rng]
+    v = [psum(Cm[o][a] * ri[o] * y[:, o] for o in range(O)) for a in rng]
     M = _pinv([
         [Wt[a][b] + torch.where(t0, W("S0i", a * D + b), W("Qi", a * D + b)) for b in rng]
         for a in rng
@@ -453,7 +469,7 @@ def _table_planes_tv(table: torch.Tensor, y: torch.Tensor, r: torch.Tensor, D: i
     eta = [unless_t0(x) for x in _pmatvec(_pt(A), w)]
     J = [
         [
-            unless_t0(sum(A[k][i] * (Wt[k][l] - WMW[k][l]) * A[l][j] for k in rng for l in rng))
+            unless_t0(psum(A[k][i] * (Wt[k][l] - WMW[k][l]) * A[l][j] for k in rng for l in rng))
             for j in rng
         ]
         for i in rng
@@ -475,26 +491,35 @@ def _make_filter_elements(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
     the time-varying branch solves each step's innovation covariance."""
     if r.ndim == 2:
         return _plane_nll_pre(ys, m0, S0, A, Q, C, r)
+    return _make_filter_elements_tv(ys, m0, S0, A, Q, C[:, None].expand(-1, ys.shape[1], -1, -1), r)
+
+
+def _make_filter_elements_tv(ys, m0, S0, A, Q, Cs, r) -> torch.Tensor:
+    """Filtering elements (N, P, T) in the covariance form with a per-step
+    emission Cs (N, T, O, D) and time-varying diagonal noise r (N, T, O):
+    each step solves its O x O innovation covariance. The final pass's form,
+    linear (Cs constant over time) or relinearized (the iterated EKF)."""
     D = m0.shape[-1]
     eye = torch.eye(D, dtype=ys.dtype, device=ys.device)
-    Ct = C.transpose(-1, -2)
-    CQ = C @ Q  # (N, O, D)
-    CA = C @ A
-    S = (CQ @ Ct)[:, None] + torch.diag_embed(r)  # (N, T, O, O)
-    K = psd_solve(S, CQ[:, None].expand(*S.shape[:2], *CQ.shape[1:])).transpose(-1, -2)
-    IKC = eye - K @ C[:, None]  # (N, T, D, D)
+    Cst = Cs.transpose(-1, -2)
+    CQ = Cs @ Q[:, None]  # (N, T, O, D)
+    CA = Cs @ A[:, None]
+    S = CQ @ Cst + torch.diag_embed(r)  # (N, T, O, O)
+    K = psd_solve(S, CQ).transpose(-1, -2)
+    IKC = eye - K @ Cs  # (N, T, D, D)
     A_el = IKC @ A[:, None]
     b_el = (K @ ys[..., None])[..., 0]
     C_el = IKC @ Q[:, None]
-    CAt = CA.transpose(-1, -2)[:, None]
+    CAt = CA.transpose(-1, -2)
     eta_el = (CAt @ psd_solve(S, ys)[..., None])[..., 0]
-    J_el = CAt @ psd_solve(S, CA[:, None].expand(*S.shape[:2], *CA.shape[1:]))
+    J_el = CAt @ psd_solve(S, CA)
 
     # first element: update the prior (m0, S0) with y_0, no transition
-    S_0 = C @ S0 @ Ct + torch.diag_embed(r[:, 0])
-    K_0 = psd_solve(S_0, C @ S0).transpose(-1, -2)
-    b_first = m0 + (K_0 @ (ys[:, 0] - (C @ m0[..., None])[..., 0])[..., None])[..., 0]
-    C_first = (eye - K_0 @ C) @ S0
+    C0 = Cs[:, 0]
+    S_0 = C0 @ S0 @ C0.transpose(-1, -2) + torch.diag_embed(r[:, 0])
+    K_0 = psd_solve(S_0, C0 @ S0).transpose(-1, -2)
+    b_first = m0 + (K_0 @ (ys[:, 0] - (C0 @ m0[..., None])[..., 0])[..., None])[..., 0]
+    C_first = (eye - K_0 @ C0) @ S0
     zero = torch.zeros_like
     A_el = torch.cat([zero(A_el[:, :1]), A_el[:, 1:]], dim=1)
     b_el = torch.cat([b_first[:, None], b_el[:, 1:]], dim=1)
@@ -570,13 +595,13 @@ def _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q):
     m_prev = [shifted(m_pl[i], m0[:, i]) for i in range(D)]
     P_prev = [[shifted(P_pl[i][j], S0[:, i, j]) for j in range(D)] for i in range(D)]
     pred_m = [
-        _set_first(sum(col(A[:, i, j]) * m_prev[j] for j in range(D)), m0[:, i])
+        _set_first(psum(col(A[:, i, j]) * m_prev[j] for j in range(D)), m0[:, i])
         for i in range(D)
     ]
     pred_P = [
         [
             _set_first(
-                sum(
+                psum(
                     col(A[:, i, k]) * P_prev[k][l] * col(A[:, j, l])
                     for k in range(D)
                     for l in range(D)
@@ -598,38 +623,26 @@ def _plane_innovation_ll(pred_m, pred_P, ys, C, r) -> torch.Tensor:
     O = ys.shape[-1]
     D = len(pred_m)
 
-    def col(x):
-        return x[:, None]
+    def S(i, j):  # the lower triangle of C P Cᵀ + R, all the Cholesky reads
+        cpc = psum(C[:, None, i, k] * pred_P[k][l] * C[:, None, j, l] for k in range(D) for l in range(D))
+        return cpc + (r[:, None, i] if r.ndim == 2 else r[..., i]) if i == j else cpc
 
-    S = [
-        [
-            sum(
-                col(C[:, i, k]) * pred_P[k][l] * col(C[:, j, l])
-                for k in range(D)
-                for l in range(D)
-            )
-            + ((col(r[:, i]) if r.ndim == 2 else r[..., i]) if i == j else 0.0)
-            for j in range(O)
-        ]
-        for i in range(O)
-    ]
-    d = [ys[..., i] - sum(col(C[:, i, j]) * pred_m[j] for j in range(D)) for i in range(O)]
+    d = [ys[..., i] - psum(C[:, None, i, j] * pred_m[j] for j in range(D)) for i in range(O)]
     L = [[None] * O for _ in range(O)]
     for i in range(O):
         for j in range(i + 1):
-            s = S[i][j]
+            s = S(i, j)
             for k in range(j):
                 s = s - L[i][k] * L[j][k]
             L[i][j] = torch.sqrt(s) if i == j else s / L[j][j]
     z = [None] * O
-    logdet = 0.0
     for i in range(O):
         s = d[i]
         for k in range(i):
             s = s - L[i][k] * z[k]
         z[i] = s / L[i][i]
-        logdet = logdet + torch.log(L[i][i])
-    quad = sum(zi * zi for zi in z)
+    logdet = psum(torch.log(L[i][i]) for i in range(O))
+    quad = psum(zi * zi for zi in z)
     return (-0.5 * quad - logdet - 0.5 * O * _LOG_2PI).sum(dim=1)
 
 
@@ -669,15 +682,15 @@ def _staged_nll_paired(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tenso
 
     O = y.shape[1]
     D = _table_dims(table.shape[1], O)
-    y_to = y.transpose(1, 2)
-    rows, drows = torch.func.jvp(lambda tab: _table_planes(tab, y, D), (table,), (dtable,))
+    y_to = y.transpose(1, 2).contiguous()
+    rows, drows = _jvp_or_call(lambda tab, y_: _table_planes(tab, y_, D), (table, y.contiguous()), (dtable, None))
     out, dout = filter_prefix_paired(rows.contiguous(), drows.contiguous())
 
-    def post(scanned, tab):
+    def post(scanned, tab, y_):
         m_pl, P_pl = _plane_split_moments(scanned, D)
-        return _plane_nll_post(m_pl, P_pl, y_to, *_unpack_scalars(tab, D, O))
+        return _plane_nll_post(m_pl, P_pl, y_, *_unpack_scalars(tab, D, O))
 
-    return torch.func.jvp(post, (out, table), (dout, dtable))
+    return _jvp_or_call(post, (out, table, y_to), (dout, dtable, None))
 
 
 def filter_nll_paired_batched(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor):
@@ -717,6 +730,172 @@ def filter_nll_parallel_planes_tv(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
     yr = torch.cat([ys.transpose(1, 2), r.transpose(1, 2)], dim=1)
     table = _pack_scalars_tv(m0, S0, A, Q, C)
     return _table_nll_tv(table, yr, lambda planes: filter_prefix(planes.contiguous()))
+
+
+# --------------------------------------------------------------------------- #
+# the iterated EKF's plane-native loss (the calibrated family's optimizer)
+# --------------------------------------------------------------------------- #
+def _relinearize(h_fn, ys, x_bar):
+    """Per-step emission Jacobians H_t (N, T, O, D) at the trajectory x̄
+    (N, T, D) and the affine surrogate observations y - h(x̄) + H x̄."""
+    Hs = emission_jacobian(h_fn, x_bar)
+    return Hs, ys - h_fn(x_bar) + torch.einsum("ntod,ntd->nto", Hs, x_bar)
+
+
+def _jvp_or_call(fn, primals, tangents):
+    """(fn(*primals), its tangent along ``tangents``), or (fn(*primals),
+    None) when there are no tangents. A None tangent is a zero one: the
+    function reads every tensor as a primal, since under forward mode an
+    operation between a tensor with a tangent and one without takes a slow
+    decomposed path on the host (``kalman.emission_parts``)."""
+    if tangents is None:
+        return fn(*primals), None
+    tangents = tuple(torch.zeros_like(p) if t is None else t for p, t in zip(primals, tangents))
+    return torch.func.jvp(fn, tuple(primals), tangents)
+
+
+def _ekf_info_elements(Hs, ys, r, A, prior_q, prior_0):
+    """Information-form filtering elements (N, P, T) of the relinearized
+    surrogate: per-step emission Hs (N, T, O, D), observations ys and
+    diagonal noise r (N, T, O), transition A (N, D, D), and the information
+    pairs ``prior_q = (Q⁻¹, Q⁻¹ A)`` and ``prior_0 = (S0⁻¹, S0⁻¹ m0)``. The
+    algebra of ``_table_planes_tv`` (kernel C's elements) in matrix form,
+    batched over lanes and steps: tens of operations, not the thousands of
+    the unrolled planes, since the optimizer runs it under ``torch.func.jvp``
+    every sweep."""
+    Qi, QiA = prior_q
+    S0i, S0i_m0 = prior_0
+    t0 = (torch.arange(ys.shape[1], device=ys.device) == 0)[:, None, None]
+    HtRi = (Hs * torch.reciprocal(r)[..., None]).transpose(-1, -2)  # (N, T, D, O)
+    W = HtRi @ Hs
+    v = HtRi @ ys[..., None]
+    M = small_inv(W + torch.where(t0, S0i[:, None], Qi[:, None]))
+    b = M @ (v + torch.where(t0, S0i_m0[:, None, :, None], 0.0))
+    At = A.transpose(-1, -2)[:, None]
+    A_el = torch.where(t0, 0.0, M @ QiA[:, None])
+    eta = torch.where(t0, 0.0, At @ (v - W @ b))
+    J = torch.where(t0, 0.0, At @ (W - W @ (M @ W)) @ A[:, None])
+    return _aos_planes(A_el, b[..., 0], M, eta[..., 0], J)
+
+
+def _filtered_moments(out: torch.Tensor, D: int):
+    """Filtered means (N, T, D) and covariances (N, T, D, D) of a scanned
+    (N, P, T) filtering table."""
+    dd = D * D
+    N, _, T = out.shape
+    return out[:, dd:dd + D].transpose(1, 2), out[:, dd + D:2 * dd + D].transpose(1, 2).reshape(N, T, D, D)
+
+
+def _ekf_nll(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps):
+    """The iterated-EKF NLL (N,) and, with the tangent ``dQ`` of Q, its
+    derivative (N,), else None. Each sweep builds the relinearized
+    information-form elements at x̄ (``_ekf_info_elements``), scans them
+    (one paired launch with tangents on the card), and takes the next x̄
+    from the predicted means. x̄ depends on Q through every earlier sweep,
+    so its tangent dx̄ rides along: the derivative is that of the whole
+    loss, not of the last sweep alone. The epilogue is the exact EKF density
+    at the last predicted trajectory. Every tensor a stage reads is one of
+    its primals (``_jvp_or_call``)."""
+    from eks_tpu_torch.ops.fused_filter import filter_prefix, filter_prefix_paired
+
+    T = ys.shape[1]
+    D = m0.shape[-1]
+    h_call, h_consts = emission_parts(h_fn)
+    consts = tuple(k.contiguous() for k in (  # a primal may not be an expanded view
+        ys, _as_time_varying(r, T), m0, S0, A, *_prior_information(m0, S0), *h_consts))
+    paired = dQ is not None
+
+    def parts(k):
+        ys_, rt, m0_, S0_, A_, S0i, S0i_m0, *hc = k
+        return ys_, rt, m0_, S0_, A_, (S0i, S0i_m0), functools.partial(h_call, *hc)
+
+    def planes(Q_, x_, *k):
+        ys_, rt, _, _, A_, prior_0, h = parts(k)
+        Hs, y_eff = _relinearize(h, ys_, x_)
+        Qi = small_inv(Q_)
+        return _ekf_info_elements(Hs, y_eff, rt, A_, (Qi, Qi @ A_), prior_0)
+
+    def predicted(out_, Q_, *k):
+        _, _, m0_, S0_, A_, _, _ = parts(k)
+        return _predictive_moments(*_filtered_moments(out_, D), m0_, S0_, A_, Q_)
+
+    def epilogue(pm, pP, *k):
+        ys_, rt, *_, h = parts(k)
+        H = emission_jacobian(h, pm)
+        return mvn_logpdf(ys_, h(pm), H @ pP @ H.transpose(-1, -2) + torch.diag_embed(rt)).sum(dim=1)
+
+    def tangents(*t):
+        return (*t, *(None,) * len(consts)) if paired else None
+
+    pred = (x_init.contiguous(), None)
+    d_pred = (torch.zeros_like(pred[0]), None) if paired else (None, None)
+    for _ in range(n_sweeps):
+        el, d_el = _jvp_or_call(planes, (Q, pred[0], *consts), tangents(dQ, d_pred[0]))
+        if paired:
+            out, d_out = filter_prefix_paired(el, d_el.contiguous())
+        else:
+            out, d_out = filter_prefix(el), None
+        pred, d_pred = _jvp_or_call(predicted, (out, Q, *consts), tangents(d_out, dQ))
+        d_pred = d_pred if paired else (None, None)
+
+    return _jvp_or_call(epilogue, (*pred, *consts), tangents(*d_pred))
+
+
+def ekf_nll_parallel_planes_batched(ys, m0, S0, A, Q, h_fn, r, x_init, n_sweeps: int = 3) -> torch.Tensor:
+    """Iterated-EKF marginal log-likelihoods (N,) of N lanes, plane-native:
+    ys (N, T, O), parameters with a leading N, ``h_fn: (..., D) -> (..., O)``, r
+    (N, O) constant or (N, T, O), x_init (N, T, D) the first linearization
+    trajectory. ``n_sweeps = k`` matches ``ekf_parallel`` with
+    ``n_iters = k - 1`` (the same fixed point, the sequential EKF)."""
+    return _ekf_nll(ys, m0, S0, A, Q, None, h_fn, r, x_init, n_sweeps)[0]
+
+
+def ekf_nll_paired_batched(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps: int = 3):
+    """(ll (N,), d ll (N,)) of ``ekf_nll_parallel_planes_batched`` along the
+    tangent dQ of Q (the s-optimizer's: dQ = Q along log s), forward mode by
+    hand: ``torch.func.jvp`` of the plain-PyTorch stages around one paired
+    scan launch per sweep."""
+    return _ekf_nll(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps)
+
+
+def ekf_parallel(ys, m0, S0, A, Q, h_fn, r_diag, n_iters: int = 12, x_init=None,
+                 compute_ll: bool = True) -> FilterResult:
+    """Extended Kalman filter over N lanes via fixed-point relinearization
+    over parallel linear sweeps: each iteration linearizes ``h`` at the
+    predicted-mean trajectory x̄ (the broadcast prior mean unless
+    ``x_init`` (N, T, D) is given) and replays the log-depth filter on the
+    affine surrogate, in the covariance form (``_make_filter_elements_tv``);
+    the predicted means become the next x̄. ``n_iters`` relinearizations
+    then one more for the result: n_iters + 1 filter scans. With
+    ``compute_ll`` the exact EKF log-likelihood at the final predicted
+    trajectory is summed into (N,)."""
+    T = ys.shape[1]
+    r = _as_time_varying(r_diag, T)
+    At = A.transpose(-1, -2)[:, None]
+
+    def moments(x_bar):
+        Hs, y_eff = _relinearize(h_fn, ys, x_bar)
+        return _run_filter_prefix(_make_filter_elements_tv(y_eff, m0, S0, A, Q, Hs, r))
+
+    x_bar = m0[:, None].expand(-1, T, -1) if x_init is None else x_init
+    for _ in range(n_iters):
+        ms, _ = moments(x_bar)
+        x_bar = torch.cat([m0[:, None], (ms[:, :-1, None, :] @ At)[:, :, 0]], dim=1)
+    ms, Ps = moments(x_bar)
+    if not compute_ll:
+        return FilterResult(None, ms, Ps)
+    pred_m, pred_P = _predictive_moments(ms, Ps, m0, S0, A, Q)
+    H = emission_jacobian(h_fn, pred_m)
+    S = H @ pred_P @ H.transpose(-1, -2) + torch.diag_embed(r)
+    return FilterResult(mvn_logpdf(ys, h_fn(pred_m), S).sum(dim=1), ms, Ps)
+
+
+def eks_parallel(ys, m0, S0, A, Q, h_fn, r_diag, n_iters: int = 12, x_init=None) -> SmootherResult:
+    """Iterated parallel EKF + the (emission-independent) parallel RTS pass
+    over N lanes. The filter log-likelihood is not computed."""
+    fr = ekf_parallel(ys, m0, S0, A, Q, h_fn, r_diag, n_iters=n_iters, x_init=x_init, compute_ll=False)
+    sm, sP = _rts_from_filtered(fr.filtered_means, fr.filtered_covs, A, Q)
+    return SmootherResult(None, fr.filtered_means, fr.filtered_covs, sm, sP)
 
 
 # --------------------------------------------------------------------------- #

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from eks_tpu_torch.utils.frames import center_predictions, crop_frames
+from eks_tpu_torch.utils.frames import build_R_from_vars, center_predictions, crop_frames, crop_R
 from eks_tpu_torch.utils.io import (
     convert_lp_dlc,
     convert_slp_dlc,
@@ -16,10 +16,12 @@ from eks_tpu_torch.utils.io import (
 )
 
 __all__ = [
+    "build_R_from_vars",
     "center_predictions",
     "convert_lp_dlc",
     "convert_slp_dlc",
     "crop_frames",
+    "crop_R",
     "format_data",
     "get_keypoint_names",
     "make_dlc_pandas_index",

@@ -1,9 +1,11 @@
-"""Frame-span cropping for the optimizer's ``s_frames``, and centering.
+"""Frame-span cropping for the optimizer's ``s_frames``, observation-noise
+helpers, and centering.
 
 Span semantics (same contract as ``eks_tpu/utils/frames.py``): 0-based
 half-open ``(start, end)`` tuples, None = open end, multiple non-overlapping
 spans are concatenated in ascending order. Works on tensors of any device
-(the selection is one index gather). ``center_predictions`` is the host
+(the selection is one index gather). ``crop_R`` and ``build_R_from_vars``
+are the host (numpy) helpers for full time-varying R. ``center_predictions`` is the host
 (numpy) variance-quantile frame filter and mean centering of the general
 multi-camera path.
 """
@@ -15,7 +17,7 @@ import torch
 
 from eks_tpu_torch.marker_array import MarkerArray
 
-__all__ = ["center_predictions", "crop_frames"]
+__all__ = ["build_R_from_vars", "center_predictions", "crop_R", "crop_frames"]
 
 
 def _resolve_span(span, i: int, n: int) -> tuple[int, int]:
@@ -55,6 +57,26 @@ def crop_frames(y: torch.Tensor, s_frames, dim: int = 0) -> torch.Tensor:
             )
     keep = np.concatenate([np.arange(lo, hi) for lo, hi in spans])
     return y.index_select(dim, torch.as_tensor(keep, device=y.device))
+
+
+def crop_R(R: np.ndarray, s_frames) -> np.ndarray:
+    """Crop a (..., T, O, O) time-varying covariance along its time axis, on
+    the host."""
+    R_np = np.asarray(R)
+    if not s_frames:
+        return R_np
+    *_, T, o1, o2 = R_np.shape
+    assert o1 == o2, "R_tv must be square in its last two dims"
+    cropped = crop_frames(torch.as_tensor(R_np), s_frames, dim=R_np.ndim - 3)
+    return cropped.numpy()
+
+
+def build_R_from_vars(ev: np.ndarray) -> np.ndarray:
+    """(..., T, O) per-dim variances -> (..., T, O, O) diagonal covariances,
+    floored at 1e-12, on the host."""
+    ev_np = np.clip(np.asarray(ev), 1e-12, None)
+    o = ev_np.shape[-1]
+    return ev_np[..., :, None] * np.eye(o, dtype=ev_np.dtype)
 
 
 def center_predictions(

@@ -271,7 +271,7 @@ def test_run_kalman_smoother_sequential_matches_parallel():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(devices=2), dict(partition="time"), dict(h_fn=lambda x: x),
+    dict(devices=2), dict(partition="time"), dict(h_fn=lambda x: x, devices=2),
 ])
 def test_unported_options_raise(kw):
     ys, m0s, S0s, eye, ev = _toy_smoother_problem(np.random.default_rng(0), T=10)

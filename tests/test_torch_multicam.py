@@ -256,17 +256,16 @@ def test_fit_multicam_without_calibration_matches_jax(cropped, tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    """The calibrated path, a camera group, and multi-device sharding raise;
-    so does a CUDA request without a card."""
+    """Multi-device sharding raises, with a calibration too; so does a CUDA
+    request without a card."""
     arr = _session(2)
     kps, cams = _names(2)
     ma = MarkerArray(arr, data_fields=FIELDS)
-    with pytest.raises(NotImplementedError, match="calibrated"):
-        eks_tpu_torch.fit_eks_multicam(
-            str(tmp_path), str(tmp_path / "o"), camera_names=cams,
-            calibration=os.path.join(DATA, "multicam", "calibration.toml"), device="cpu")
-    with pytest.raises(NotImplementedError, match="calibrated"):
-        eks_tpu_torch.ensemble_kalman_smoother_multicam(ma, kps, cams, camgroup=object(), device="cpu")
+    for kw in (dict(devices=2), dict(partition="time")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eks_tpu_torch.fit_eks_multicam(
+                os.path.join(DATA, "multicam"), str(tmp_path / "o"), smooth_param=2.0,
+                calibration=os.path.join(DATA, "multicam", "calibration.toml"), device="cpu", **kw)
     with pytest.raises(ValueError, match="camera_names"):
         eks_tpu_torch.fit_eks_multicam(str(tmp_path), str(tmp_path / "o"), device="cpu")
     with pytest.raises(ValueError, match="camera_names"):
