@@ -110,7 +110,27 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      and ``fit_eks_singlecam`` with s_frames [(0, 250)] on the bundled
      session against the committed ``singlecam_auto`` golden (1e-4), and
      profiles a repeat of the batched run. Phases 18-20 print their
-     seconds; 18 and 19 run right after the build (1).
+     seconds; 18 and 19 run right after the build (1);
+ 21. runs the command line (``eks_tpu_torch/cli``), right after phase 19:
+     (a) writes the headline session (phase 5's arrays) as 5 DLC CSVs, runs
+     ``python -m eks_tpu_torch.cli.main singlecam --verbose`` on them in a
+     process of its own, timed from start to exit, and prints the split of
+     that wall from the process's run report (imports, CUDA context, kernel
+     build and library load, CSV read, the entry point's stages, CSV write);
+     holds its output table and s within 1e-6 of ``fit_eks_singlecam`` in
+     this process with the arguments the CLI forwards; runs the same command
+     line through ``main()`` in this process, counting launches (kernel A
+     (2, 2) paired once an Adam iteration, one filter and one smoother
+     scan, nothing else); requires that the process built no library and
+     that every CSV of the phase went through the native reader and writer;
+     and times those against pandas on the same files and table. (b) runs
+     every subcommand through ``main()`` on the bundled ``data/`` sessions
+     against the committed goldens at ``tests/integration/test_golden.py``'s
+     limits, ``singlecam --sessions`` and ``ibl-pupil --sessions`` (auto
+     s) on two copies of a session in directories of one basename against
+     the solo runs (tables at ``SEQ_ATOL_SESSIONS``, s within 5e-4), and
+     ``mirrored-multicam`` with the CLI's own defaults against
+     ``fit_eks_mirrored_multicam`` with those arguments (1e-6).
 
 Each phase prints one JSON line; any failure raises, so the exit code is not
 0. The last lines are the main paths' launch counts, the card's name and
@@ -127,6 +147,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -584,6 +605,287 @@ def rel_err(a, b) -> tuple:
     return float(diff.max()), float((diff / (1.0 + b.abs())).max())
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: the command line, as a user runs it
+# --------------------------------------------------------------------------- #
+# the sessions' tables against the solo run's, absolute, by column: the
+# variances (ensemble and posterior) at SEQ_ATOL_SESSIONS["posterior_var"],
+# every other column at its "xy"
+def sessions_table_gap(np, got, want) -> dict:
+    """max |got - want| over the variance columns and over the others, with
+    whether the columns match and both tables are finite."""
+    var = np.array(["var" in str(c[-1]) for c in want.columns])
+    diff = np.abs(got.to_numpy() - want.to_numpy())
+    return {
+        "xy": float(diff[:, ~var].max()), "var": float(diff[:, var].max()) if var.any() else 0.0,
+        "columns_match": [tuple(map(str, c)) for c in got.columns] == [tuple(map(str, c)) for c in want.columns],
+        "finite": bool(np.isfinite(got.to_numpy()).all()),
+    }
+
+
+def cli_phase(torch, np, pd, card, reset_counts, read_counts, a_key, golden_gap) -> None:
+    """Phase 21 (see the module docstring); raises on any miss."""
+    import eks_tpu_torch
+    from eks_tpu_torch import native
+    from eks_tpu_torch.cli import main as cli_main
+    from eks_tpu_torch.utils import io, save_dlc_csv
+
+    t_phase = time.perf_counter()
+    reads0, writes0 = dict(native.READS), dict(native.WRITES)
+    failures = []
+    log = logging.getLogger("eks_tpu_torch")
+    reports = []
+
+    class Reports(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("run report: "):
+                reports.append(json.loads(msg[len("run report: "):]))
+
+    def cli(*argv):
+        """``main()`` in this process on ``argv --verbose``: its run report
+        and wall. Its logs are captured, not printed."""
+        saved_argv, level, propagate = sys.argv, log.level, log.propagate
+        handler = Reports(logging.DEBUG)
+        log.addHandler(handler)
+        log.propagate = False
+        sys.argv = ["eks-tpu-torch", *argv, "--verbose"]
+        t0 = time.perf_counter()
+        try:
+            cli_main.main()
+        finally:
+            sys.argv = saved_argv
+            log.setLevel(level)
+            log.propagate = propagate
+            log.removeHandler(handler)
+        return {**reports.pop(), "wall_s": time.perf_counter() - t0}
+
+    def read(path):
+        return pd.read_csv(path, header=[0, 1, 2], index_col=0)
+
+    def rel_gap(got, want):
+        """(max |got - want|, max |got - want| / (1 + |want|))"""
+        diff = np.abs(np.asarray(got, dtype=np.float64) - np.asarray(want, dtype=np.float64))
+        return float(diff.max()), float((diff / (1.0 + np.abs(np.asarray(want, dtype=np.float64)))).max())
+
+    def best_of(fn, reps=2):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the headline session as 5 DLC CSVs, through the CLI in a process
+        # of its own, as a user runs it
+        arr = make_session(np, np.random.default_rng(0))
+        kps = [f"kp{i}" for i in range(K_HEAD)]
+        src = os.path.join(tmp, "headline")
+        os.makedirs(src)
+        paths = []
+        for m in range(SEEDS_HEAD):
+            cols = pd.MultiIndex.from_product([[f"seed{m}"], kps, ["x", "y", "likelihood"]],
+                                              names=["scorer", "bodyparts", "coords"])
+            paths.append(os.path.join(src, f"session.rng={m}.csv"))
+            save_dlc_csv(pd.DataFrame(arr[m, 0].reshape(T_HEAD, K_HEAD * 3), columns=cols), paths[-1])
+        out_cli = os.path.join(tmp, "cli")
+        argv = ["singlecam", "--input-dir", src, "--save-dir", out_cli]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "eks_tpu_torch.cli.main", *argv, "--verbose"], cwd=REPO,
+                              capture_output=True, text=True, timeout=900)
+        wall_sub = time.perf_counter() - t0
+        found = re.search(r"run report: (\{.*\})", proc.stderr)
+        if proc.returncode != 0 or found is None:
+            raise AssertionError(f"the CLI process ended with {proc.returncode}:\n{proc.stderr[-4000:]}")
+        rep = json.loads(found.group(1))
+        sec = rep["seconds"]
+        table_sub = read(os.path.join(out_cli, "eks_singlecam.csv"))
+
+        # the entry point in this process, with the arguments the CLI forwards
+        tm_in = {}
+        t0 = time.perf_counter()
+        df_in, s_in, _, _ = eks_tpu_torch.fit_eks_singlecam(
+            input_source=src, save_file=os.path.join(tmp, "in", "eks_singlecam.csv"), bodypart_list=None,
+            smooth_param=None, s_frames=None, blocks=[], devices=None, partition="keypoint", device="cuda",
+            timings=tm_in)
+        wall_in = time.perf_counter() - t0
+        # the CSV holds each float32 by its shortest decimal: read back as
+        # float32 it gives the same bits
+        table_gap = rel_gap(table_sub.to_numpy().astype(np.float32), df_in.to_numpy())
+        s_cli_gap = rel_gap(rep["s"][0], s_in)
+        same_cols = [tuple(map(str, c)) for c in table_sub.columns] == [tuple(map(str, c)) for c in df_in.columns]
+
+        # the same command line in this process, with the kernels' launches
+        # counted: kernel A (2, 2) paired once an Adam iteration, then one
+        # filter and one smoother scan
+        reset_counts()
+        rep_main = cli(*argv)
+        launches_cli = read_counts()
+        iters_cli = rep_main["seconds"]["adam_iters"]
+        want_launches = {"fused_nll_paired": iters_cli, a_key(2, 2, True): iters_cli,
+                         "prefix_scan_filter": 1, "prefix_scan_smoother": 1}
+        launches_ok = iters_cli > 0 and all(launches_cli[k] == want_launches.get(k, 0) for k in launches_cli)
+        main_gap = rel_gap(read(os.path.join(out_cli, "eks_singlecam.csv")).to_numpy().astype(np.float32),
+                           df_in.to_numpy())
+
+        # the native reader and writer against pandas on the same files and
+        # table (pandas called directly: not counted as the port's reads)
+        read_native_s = best_of(lambda: [io._load_one_native(p) for p in paths])
+        read_pandas_s = best_of(lambda: [io.convert_lp_dlc(raw, io.get_keypoint_names(raw)) for raw in
+                                         (pd.read_csv(p, header=[0, 1, 2], index_col=0) for p in paths)])
+        w_native, w_pandas = os.path.join(tmp, "native.csv"), os.path.join(tmp, "pandas.csv")
+        def write_native():
+            if not native.write_dlc_csv_fast(df_in, w_native):
+                raise AssertionError("the native writer did not take the headline table")
+
+        write_native_s = best_of(write_native)
+        write_pandas_s = best_of(lambda: df_in.to_csv(w_pandas))
+        with open(w_native, "rb") as f_n, open(w_pandas, "rb") as f_p:
+            write_same_bytes = f_n.read() == f_p.read()
+
+        accounted = sum(sec.get(k, 0.0) for k in ("imports", "device_context", "kernel_build", "kernel_load", "fit"))
+        headline = {
+            "frames": T_HEAD, "keypoints": K_HEAD, "seeds": SEEDS_HEAD, "returncode": proc.returncode,
+            "cli_wall_s": wall_sub,
+            "split_s": {
+                "interpreter_start_argparse_exit": wall_sub - accounted,
+                "imports_torch_and_eks_tpu_torch": sec.get("imports"),
+                "cuda_context": sec.get("device_context"),
+                "kernel_build": sec.get("kernel_build"), "kernel_library_load": sec.get("kernel_load"),
+                "csv_read": sec.get("read"), "prep": sec.get("prep"), "optimizer": sec.get("optimizer"),
+                "final_pass": sec.get("final_pass"), "package": sec.get("package"), "csv_write": sec.get("write"),
+                "entry_point_call": sec.get("fit"),
+            },
+            "adam_iters": sec.get("adam_iters"), "kernels_built_by_cli": rep.get("kernels_built"),
+            "csv_libraries_built_by_cli": rep.get("csv_libraries_built"),
+            "cli_csv_reads": rep["csv_reads"], "cli_csv_writes": rep["csv_writes"],
+            "in_process_wall_s": wall_in, "in_process_timings": tm_in,
+            "table_max_abs_gap_vs_in_process": table_gap[0], "table_rel_gap_vs_in_process": table_gap[1],
+            "s_max_abs_gap_vs_in_process": s_cli_gap[0], "s_rel_gap_vs_in_process": s_cli_gap[1],
+            "in_process_main_table_rel_gap": main_gap[1], "rtol": 1e-6, "columns_match": same_cols,
+            "launches_in_process_main": {k: v for k, v in launches_cli.items() if v},
+            "in_process_main_wall_s": rep_main["wall_s"],
+        }
+        native_vs_pandas = {
+            "read_5_files_native_s": read_native_s, "read_5_files_pandas_s": read_pandas_s,
+            "write_table_native_s": write_native_s, "write_table_pandas_s": write_pandas_s,
+            "table_shape": list(df_in.shape), "table_dtype": str(df_in.to_numpy().dtype),
+            "write_byte_identical": write_same_bytes,
+        }
+        if not (same_cols and table_gap[1] <= 1e-6 and s_cli_gap[1] <= 1e-6 and main_gap[1] <= 1e-6):
+            failures.append("the CLI's headline output differs from the entry point's in this process")
+        if not launches_ok:
+            failures.append(f"the CLI's launches are not one A (2, 2) an Adam iteration and one B filter and "
+                            f"smoother: {launches_cli}")
+        if rep.get("kernels_built") or rep.get("csv_libraries_built"):
+            failures.append("the CLI process built libraries the checkout already had")
+        if rep["csv_reads"] != {"native": SEEDS_HEAD, "pandas": 0} or rep["csv_writes"] != {"native": 1, "pandas": 0}:
+            failures.append(f"the CLI process's CSVs took pandas: {rep['csv_reads']}, {rep['csv_writes']}")
+        if not write_same_bytes:
+            failures.append("the native writer's table differs from pandas' bytes")
+
+        # (b) every subcommand in this process on the bundled sessions, against
+        # the committed goldens at test_golden.py's limits; both --sessions
+        # modes on two copies of a session in directories of one basename,
+        # against the solo runs; one subcommand with the CLI's own defaults
+        data = os.path.join(REPO, "data")
+
+        def out(name):
+            return os.path.join(tmp, "b", name)
+
+        def copies(family):
+            dirs = [os.path.join(tmp, f"copy{i}", family) for i in range(2)]
+            for d in dirs:
+                shutil.copytree(os.path.join(data, family), d)
+            return dirs
+
+        mirrored = ["--input-dir", f"{data}/mirrored", "--camera-names", "top", "bot"]
+        runs = {
+            "singlecam_fixed": cli("singlecam", "--input-dir", f"{data}/singlecam", "--save-dir", out("sc_fixed"),
+                                   "--s", "2.0"),
+            "singlecam_auto": cli("singlecam", "--input-dir", f"{data}/singlecam", "--save-dir", out("sc_auto"),
+                                  "--s-frames", "[(0,250)]"),
+            "singlecam_sessions": cli("singlecam", "--sessions", *copies("singlecam"), "--save-dir",
+                                      out("sc_sessions"), "--s-frames", "[(0,250)]"),
+            "pupil_fixed": cli("ibl-pupil", "--input-dir", f"{data}/pupil", "--save-dir", out("pupil_fixed"),
+                               "--diameter-s", "0.99", "--com-s", "0.98"),
+            "pupil_auto": cli("ibl-pupil", "--input-dir", f"{data}/pupil", "--save-dir", out("pupil_auto")),
+            "pupil_sessions": cli("ibl-pupil", "--sessions", *copies("pupil"), "--save-dir", out("pupil_sessions")),
+            "mirrored_fixed": cli("mirrored-multicam", *mirrored, "--save-dir", out("mirrored_fixed"), "--s", "3.0",
+                                  "--quantile-keep-pca", "50", "--no-inflate-vars"),
+            "mirrored_auto_inflate": cli("mirrored-multicam", *mirrored, "--save-dir", out("mirrored_auto"),
+                                         "--quantile-keep-pca", "50"),
+            "multicam_calibrated": cli("multicam", "--input-dir", f"{data}/multicam", "--save-dir", out("cal"),
+                                       "--calibration", f"{data}/multicam/calibration.toml", "--no-inflate-vars"),
+            "paw": cli("ibl-paw", "--input-dir", f"{data}/paw", "--save-dir", out("paw"),
+                       "--quantile-keep-pca", "50", "--no-inflate-vars"),
+            "mirrored_cli_defaults": cli("mirrored-multicam", *mirrored, "--save-dir", out("mirrored_defaults")),
+        }
+        goldens = {}
+        for name, path, atol in (
+                ("singlecam_fixed", "sc_fixed/eks_singlecam.csv", 1e-4),
+                ("singlecam_auto", "sc_auto/eks_singlecam.csv", 1e-4),
+                ("pupil_fixed", "pupil_fixed/eks_ibl_pupil.csv", 1e-4),
+                ("pupil_auto", "pupil_auto/eks_ibl_pupil.csv", 1e-2),
+                ("mirrored_fixed", "mirrored_fixed/eks_mirrored_multicam.csv", 1e-4),
+                ("mirrored_auto_inflate", "mirrored_auto/eks_mirrored_multicam.csv", 1e-4),
+                ("multicam_cal_cam0", "cal/multicam_cam0_results.csv", 5e-4),
+                ("multicam_cal_3d", "cal/multicam_3d_results.csv", 1e-4),
+                ("paw_left", "paw/multicam_left_results.csv", 1e-4),
+                ("paw_right", "paw/multicam_right_results.csv", 1e-4)):
+            gap, same = golden_gap(read(out(path)), name)
+            goldens[name] = {"max_abs_err": gap, "atol": atol, "columns_match": same}
+            if not (same and gap <= atol):
+                failures.append(f"{name} golden missed through the CLI: {goldens[name]}")
+
+        sessions = {}
+        for tag, solo, prefix, family, s_limit in (
+                ("singlecam_sessions", "singlecam_auto", "sc", "singlecam", "rel"),
+                ("pupil_sessions", "pupil_auto", "pupil", "pupil", "abs")):
+            stem = "eks_singlecam" if family == "singlecam" else "eks_ibl_pupil"
+            want = read(out(f"{prefix}_auto/{stem}.csv"))
+            s_solo = np.asarray(runs[solo]["s"][0])
+            for i in range(2):
+                res = sessions_table_gap(np, read(out(f"{prefix}_sessions/{stem}_{i}_{family}.csv")), want)
+                s_i = np.asarray(runs[tag]["s"][i])
+                res["s_gap"] = float((np.abs(s_i / s_solo - 1.0) if s_limit == "rel" else np.abs(s_i - s_solo)).max())
+                res["s_gap_kind"] = s_limit
+                sessions[f"{tag}_{i}"] = res
+                if not (res["columns_match"] and res["finite"] and res["xy"] <= SEQ_ATOL_SESSIONS["xy"]
+                        and res["var"] <= SEQ_ATOL_SESSIONS["posterior_var"] and res["s_gap"] <= 5e-4):
+                    failures.append(f"{tag} session {i} differs from the solo run: {res}")
+
+        # the CLI's own defaults (quantile 95, variance inflation on, auto s),
+        # which no golden covers, against the entry point with those arguments
+        df_def, s_def, _, _ = eks_tpu_torch.fit_eks_mirrored_multicam(
+            input_source=f"{data}/mirrored", save_file=os.path.join(tmp, "mirrored_defaults.csv"),
+            bodypart_list=None, smooth_param=None, s_frames=None, camera_names=["top", "bot"],
+            quantile_keep_pca=95, inflate_vars=True, n_latent=3, devices=None, partition="keypoint",
+            device="cuda")
+        def_gap = rel_gap(read(out("mirrored_defaults/eks_mirrored_multicam.csv")).to_numpy().astype(np.float32),
+                          df_def.to_numpy())
+        def_s_gap = rel_gap(runs["mirrored_cli_defaults"]["s"][0], s_def)
+        defaults = {"table_rel_gap": def_gap[1], "s_rel_gap": def_s_gap[1], "rtol": 1e-6,
+                    "s": runs["mirrored_cli_defaults"]["s"][0]}
+        if max(def_gap[1], def_s_gap[1]) > 1e-6:
+            failures.append(f"mirrored-multicam with the CLI's defaults differs from the entry point: {defaults}")
+
+    reads = {k: v - reads0[k] for k, v in native.READS.items()}
+    writes = {k: v - writes0[k] for k, v in native.WRITES.items()}
+    if reads["pandas"] or writes["pandas"] or not (reads["native"] and writes["native"]):
+        failures.append(f"a CSV of the phase went through pandas: reads {reads}, writes {writes}")
+    emit({
+        "phase": "cli", "headline": headline, "native_vs_pandas": native_vs_pandas, "goldens": goldens,
+        "sessions": sessions, "seq_atol_sessions": SEQ_ATOL_SESSIONS, "cli_defaults_mirrored": defaults,
+        "walls_s": {tag: r["wall_s"] for tag, r in runs.items()},
+        "csv_reads": reads, "csv_writes": writes, "failures": failures,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -989,6 +1291,9 @@ def main() -> int:
                              "float64 sequential EKF smoother")
     if s_gap_cal > 5e-4 or s_gap_stop_cal > 5e-4:
         raise AssertionError(f"calibrated s on the card is off the CPU's plain path: {s_gap_cal}, {s_gap_stop_cal}")
+
+    # --------------------------------------------------------------- 21 ---
+    cli_phase(torch, np, pd, card, reset_counts, read_counts, a_key, golden_gap)
 
     # ---------------------------------------------------------------- 2 ---
     N, T, O, D = K_HEAD, T_HEAD, 2, 2

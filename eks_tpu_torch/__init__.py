@@ -10,7 +10,13 @@ full float32 on the card. TF32 is switched off for both here, once, at
 import; it is the counterpart of the JAX package's ``highest_precision``.
 """
 
-import torch
+import time
+
+#: when the package began to import (``time.perf_counter``): the command line
+#: reports its import seconds from here
+_IMPORT_STARTED = time.perf_counter()
+
+import torch  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -34,6 +40,20 @@ from eks_tpu_torch.models.singlecam import (  # noqa: E402
     fit_eks_singlecam,
     fit_eks_singlecam_sessions,
 )
+
+def _resolve_version() -> str:
+    """The installed distribution's version (the ``eks-tpu`` distribution
+    ships this package beside ``eks_tpu``), with a static fallback for a
+    source checkout."""
+    try:
+        import importlib.metadata
+
+        return importlib.metadata.version("eks-tpu")
+    except Exception:
+        return "0.1.0"
+
+
+__version__ = _resolve_version()
 
 __all__ = [
     "MarkerArray",

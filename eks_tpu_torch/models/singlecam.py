@@ -67,6 +67,7 @@ def fit_eks_singlecam(
     devices: int | None = None,
     partition: Literal["keypoint", "time"] = "keypoint",
     device: str | torch.device = "cuda",
+    timings: dict | None = None,
 ) -> tuple:
     """Load ensemble CSVs, run the single-camera smoother, save the result.
 
@@ -85,16 +86,22 @@ def fit_eks_singlecam(
             None / "keypoint" are accepted).
         device: where the pipeline runs; "cuda" (the default) raises when
             no card is visible.
+        timings: if a dict, the seconds of reading the CSVs into the marker
+            array ("read") and of writing the output CSV ("write"), beside
+            the stages :func:`ensemble_kalman_smoother_singlecam` records.
 
     Returns:
         (df_smoothed, s_finals, input_dfs_list, bodypart_list)
     """
+    t0 = time.perf_counter()
     input_dfs_list, keypoint_names = format_data(input_source)
     if bodypart_list is None:
         bodypart_list = keypoint_names
         logger.info(f"ensemble predictions loaded; keypoints: {bodypart_list}")
 
     marker_array = input_dfs_to_markerArray([input_dfs_list], bodypart_list, [""])
+    if timings is not None:
+        timings["read"] = time.perf_counter() - t0
     df_smoothed, s_finals = ensemble_kalman_smoother_singlecam(
         marker_array=marker_array,
         keypoint_names=bodypart_list,
@@ -106,12 +113,16 @@ def fit_eks_singlecam(
         devices=devices,
         partition=partition,
         device=device,
+        timings=timings,
     )
 
+    t0 = time.perf_counter()
     save_dir = os.path.dirname(save_file)
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
     save_dlc_csv(df_smoothed, save_file)
+    if timings is not None:
+        timings["write"] = time.perf_counter() - t0
     return df_smoothed, s_finals, input_dfs_list, bodypart_list
 
 

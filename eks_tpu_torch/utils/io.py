@@ -5,12 +5,19 @@ files, or a {camera: [files]} dict of prediction CSVs in the
 DeepLabCut/Lightning-Pose 3-row-header format (scorer / bodyparts / coords),
 or SLEAP ``.slp`` files. Output CSVs use scorer ``ensemble-kalman_tracker``.
 
-CSVs are read and written through pandas; the native C++ reader and writer
-of the JAX package are not ported yet. ``.slp`` files are HDF5 containers,
-read through h5py (imported only when a ``.slp`` file is loaded, so the
-package imports without it); as in the JAX package, each one also leaves a
-flat ``{file}.csv`` copy in the working directory. Files of other extensions
-are skipped as the JAX package skips them.
+CSVs are read and written through the native C++ reader and writer
+(``eks_tpu_torch.native``, copies of the JAX package's): the reader gives the
+same float64 bits as the JAX package's, and the writer is byte-identical to
+``df.to_csv``. pandas takes over where they do not apply (a file the reader
+does not parse, a table of mixed dtypes or another index, no compiler), and
+for every CSV when ``EKS_TPU_TORCH_NATIVE_CSV=0``; ``native.READS`` and
+``native.WRITES`` count which path each read and write took.
+
+``.slp`` files are HDF5 containers, read through h5py (imported only when a
+``.slp`` file is loaded, so the package imports without it); as in the JAX
+package, each one also leaves a flat ``{file}.csv`` copy in the working
+directory. Files of other extensions are skipped as the JAX package skips
+them.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import os
 
 import numpy as np
 import pandas as pd
+
+from eks_tpu_torch import native
 
 logger = logging.getLogger(__name__)
 
@@ -48,9 +57,20 @@ def make_dlc_pandas_index(
     )
 
 
+def _native_csv() -> bool:
+    return os.environ.get("EKS_TPU_TORCH_NATIVE_CSV", "1") != "0"
+
+
 def save_dlc_csv(df: pd.DataFrame, path: str) -> None:
-    """Write an output DataFrame as CSV."""
+    """Write an output DataFrame as CSV, byte-identical to
+    ``df.to_csv(path)``: through the native writer where it applies (a
+    homogeneous float table with a unit-step integer index, which every
+    smoother output is), else through pandas."""
+    if _native_csv() and native.write_dlc_csv_fast(df, path):
+        native.WRITES["native"] += 1
+        return
     df.to_csv(path)
+    native.WRITES["pandas"] += 1
 
 
 def convert_lp_dlc(
@@ -156,6 +176,34 @@ def get_keypoint_names(df: pd.DataFrame) -> list:
     return kps.tolist()
 
 
+def _load_one_native(file_path: str) -> tuple[pd.DataFrame, list] | None:
+    """Load a DLC CSV through the native reader: the same flat-column
+    DataFrame ``convert_lp_dlc`` builds from the pandas path. None when the
+    reader is unavailable or the file does not parse."""
+    parsed = native.load_dlc_csv_fast(file_path)
+    if parsed is None:
+        return None
+    data, headers = parsed
+    scorers, bodyparts, coords = (h[1:] for h in headers)  # drop index cells
+    if len(bodyparts) != data.shape[1] or len(coords) != data.shape[1]:
+        return None
+    keypoint_names = [bp for bp, c in zip(bodyparts, coords) if c == "x"]
+    model_name = scorers[0] if scorers else ""
+    col_index: dict[tuple, int] = {}
+    for i, key in enumerate(zip(scorers, bodyparts, coords)):
+        col_index.setdefault(key, i)
+    out = {}
+    for kp in keypoint_names:
+        for coord in _COORDS:
+            key = (model_name, kp, coord)
+            if any(level.startswith("Unnamed") for level in key):
+                continue
+            idx = col_index.get(key)
+            if idx is not None:
+                out[f"{kp}_{coord}"] = data[:, idx]
+    return pd.DataFrame(out), keypoint_names
+
+
 def _load_one(file_path: str) -> tuple[pd.DataFrame, list] | None:
     """Load one prediction file (``.csv`` or ``.slp``); None for other
     extensions."""
@@ -163,8 +211,14 @@ def _load_one(file_path: str) -> tuple[pd.DataFrame, list] | None:
         return convert_slp_dlc(os.path.dirname(file_path), os.path.basename(file_path))
     if not file_path.endswith(".csv"):
         return None
+    if _native_csv():
+        loaded = _load_one_native(file_path)
+        if loaded is not None:
+            native.READS["native"] += 1
+            return loaded
     raw = pd.read_csv(file_path, header=[0, 1, 2], index_col=0)
     keypoint_names = get_keypoint_names(raw)
+    native.READS["pandas"] += 1
     return convert_lp_dlc(raw, keypoint_names), keypoint_names
 
 
