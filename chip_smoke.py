@@ -130,7 +130,27 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      s) on two copies of a session in directories of one basename against
      the solo runs (tables at ``SEQ_ATOL_SESSIONS``, s within 5e-4), and
      ``mirrored-multicam`` with the CLI's own defaults against
-     ``fit_eks_mirrored_multicam`` with those arguments (1e-6).
+     ``fit_eks_mirrored_multicam`` with those arguments (1e-6);
+ 22. multi-device smoothing (``eks_tpu_torch/parallel``), after phase 20:
+     prints the card count and the meshes it runs (four shards on cuda:0
+     through ``parallel.mesh`` on any host; on a host with several cards
+     also ``devices=min(4, count)``, a card each), and on a one-card host
+     holds that ``devices=2`` raises ValueError; holds the carry kernel
+     (``prefix_scan.cu``'s second entry) against its plain version at every
+     instance (filter and smoother, float and paired, D = 1, 2, 3, on
+     2,500-step chunks) and the sharded scans (four chunks of 10,000 steps)
+     against the unsharded kernel scan, at ``RTOL_SCAN_NEW``; runs the
+     headline with the keypoint axis and with the time axis over the shards
+     (s per lane against a one-device run by phase 17's rule, the keypoint
+     tables at ``SEQ_ATOL_SESSIONS``, the time axis's final pass against
+     the float64 sequential smoother), the pupil solo session on the frame
+     axis (the ``pupil_fixed`` golden at 1e-4 and the optimizer capped at
+     ``CAP_PUPIL_22`` against the one-device run), the two-camera session
+     and the calibrated rig on the keypoint axis (capped as in phase 19,
+     the stop rule off, against one-device runs), and ``singlecam
+     --devices`` on both axes against the ``singlecam_fixed`` golden;
+     counts every launch of each run; prints each wall beside its
+     one-device wall and the phase's seconds against its 180 s budget.
 
 Each phase prints one JSON line; any failure raises, so the exit code is not
 0. The last lines are the main paths' launch counts, the card's name and
@@ -175,6 +195,16 @@ N_LATENTS, NL_CHECK_LANES = (1, 2, 4), 3
 T_CAL, K_CAL, CAMS_CAL, SEEDS_CAL, CAL_CHECK_LANES, CAP_CAL, CAP_CAL_PROF = 10_000, 5, 3, 5, 2, 3, 4
 # singlecam sessions (bench.py: bench_sessions): four headline sessions
 N_SC_SESSIONS = 4
+
+# phase 22: the pupil solo session's optimizer on the frame axis is capped at
+# this many Adam iterations, as is the one-device run it is held against; the
+# two take the same loss in two float32 evaluations (kernel C on one device,
+# the time-varying-R loss in matrix form over the sharded scan on four
+# shards), so
+# their parameters may drift apart by rounding over the iterations. Relative
+# limit on each parameter: the JAX package's own limit for its sharded pupil
+# optimizer against its one-device run (tests/test_parallel.py, rtol 1e-3)
+CAP_PUPIL_22, PUPIL_S_RTOL_22 = 200, 1e-3
 
 # pupil workload (the JAX package's bench.py: bench_pupil and
 # bench_pupil_sessions): 10,000 frames x 5 seeds, 8 sessions; how many of the
@@ -917,11 +947,13 @@ def main() -> int:
     def reset_counts():
         fused_nll.LAUNCHES = fused_nll.PAIRED_LAUNCHES = 0
         fused_nll.TV_LAUNCHES = fused_nll.TV_PAIRED_LAUNCHES = 0
-        fused_filter.LAUNCHES = fused_filter.PLAIN_ROUTE_LAUNCHES = 0
+        fused_filter.LAUNCHES = fused_filter.PLAIN_ROUTE_LAUNCHES = fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES = 0
         for key in fused_filter.LAUNCHES_BY_INSTANCE:
             fused_filter.LAUNCHES_BY_INSTANCE[key] = 0
         for key in fused_nll.LAUNCHES_BY_SHAPE:
             fused_nll.LAUNCHES_BY_SHAPE[key] = 0
+        for key in fused_filter.CARRY_LAUNCHES_BY_INSTANCE:
+            fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key] = 0
 
     def read_counts():
         return {
@@ -942,8 +974,14 @@ def main() -> int:
             "prefix_scan_filter_paired_d1": fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 1)],
             "prefix_scan_smoother_paired_d1": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", True, 1)],
             "plain_route": fused_filter.PLAIN_ROUTE_LAUNCHES,
+            "carry_plain_route": fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES,
             **{a_key(d, o, paired): v for (d, o, paired), v in fused_nll.LAUNCHES_BY_SHAPE.items()},
+            **{carry_key(*k): v for k, v in fused_filter.CARRY_LAUNCHES_BY_INSTANCE.items()},
         }
+
+    def carry_key(kind, paired, d):
+        """The count and row name of the carry kernel's instance."""
+        return f"carry_{kind}{'_paired' if paired else ''}_d{d}"
 
     def along_log_s(make, n):
         """(planes, tangents): ``make(log s)`` for n lanes at s = 1 and its
@@ -2418,6 +2456,351 @@ def main() -> int:
         **device_profile(torch, prof, wall_sc, iters_sc),
     })
 
+    # --------------------------------------------------------------- 22 ---
+    # multi-device smoothing (parallel/mesh.py): the carry kernel against its
+    # plain version, the sharded scans against the unsharded kernel scan, and
+    # the headline (keypoint and time axis), pupil (time axis), two-camera and
+    # calibrated (keypoint axis) runs over four shards, each against its
+    # one-device run, and the command line with --devices. Four shards sit
+    # on cuda:0 through parallel.mesh on any host (the counterpart of the JAX
+    # tests' virtual devices); a host with several cards runs the public
+    # devices=min(4, count) too, each shard on a card of its own
+    from unittest import mock
+
+    from eks_tpu_torch.cli.main import main as cli_main
+    from eks_tpu_torch.models.singlecam import _prep_singlecam
+    from eks_tpu_torch.parallel import mesh as pmesh
+
+    t_phase22 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+
+    @contextlib.contextmanager
+    def four_shards_on_card0():
+        """``devices=n`` through the entry points gives n shards of cuda:0."""
+        real = pmesh.make_mesh
+        pmesh.make_mesh = lambda n_devices=None, device="cuda": (dev,) * int(n_devices)
+        try:
+            yield
+        finally:
+            pmesh.make_mesh = real
+
+    setups = [("4_shards_on_cuda0", 4, four_shards_on_card0)]
+    if n_cards >= 2:
+        setups.append((f"{min(4, n_cards)}_cards", min(4, n_cards), contextlib.nullcontext))
+    one_card_refusal = None
+    if n_cards < 2:
+        # one card: devices=2 raises before any work, and the mesh never
+        # names the CPU
+        try:
+            eks_tpu_torch.ensemble_kalman_smoother_singlecam(ma, kps, smooth_param=2.0, device="cuda", devices=2)
+            one_card_refusal = "ran"
+        except ValueError as exc:
+            one_card_refusal = str(exc)
+        if "requested 2 devices but only 1 available" not in one_card_refusal:
+            raise AssertionError(f"devices=2 on a one-card host did not raise as it should: {one_card_refusal}")
+    cuda_only = all(d.type == "cuda" for d in pmesh.make_mesh(n_cards, "cuda"))
+    emit({"phase": "parallel_setup", "card_count": n_cards, "setups": [s[0] for s in setups],
+          "meshes": {name: [str(d) for d in (pmesh.make_mesh(n, "cuda") if name.endswith("cards") else (dev,) * n)]
+                     for name, n, _ in setups},
+          "shards_on_distinct_cards": {name: name.endswith("cards") for name, _, _ in setups},
+          "one_card_devices_2": one_card_refusal, "mesh_is_cuda_only": cuda_only, "card": card})
+    if not cuda_only:
+        raise AssertionError("make_mesh named a device that is not a card")
+
+    # the carry kernel, every instance, against its plain version on the
+    # final pass's elements of 2 x 2,500 steps: a chunk's own scan and the
+    # total of the chunk before it in scan order
+    def carry_operands(kind, D, N, Tc):
+        g = np.random.default_rng(22 + D)
+        ys_ = torch.as_tensor(g.normal(size=(N, 2 * Tc, D)).cumsum(1) * 0.1, dtype=torch.float32, device=dev)
+        r_ = torch.as_tensor(g.uniform(0.5, 2.0, size=(N, 2 * Tc, D)), dtype=torch.float32, device=dev)
+        eye_ = torch.eye(D, device=dev).expand(N, D, D).contiguous()
+        Cs_ = eye_[:, None].expand(N, 2 * Tc, D, D)
+
+        def make(sl):
+            Q_ = torch.exp(sl)[:, None, None] * eye_ * 0.1
+            el = pkalman._make_filter_elements_tv(ys_, torch.zeros(N, D, device=dev), eye_, eye_ * 0.95, Q_, Cs_, r_)
+            if kind == "smoother":
+                ms_, Ps_ = pkalman._filtered_moments(fused_filter.filter_prefix_plain(el), D)
+                el = pkalman._make_smoother_elements(ms_, Ps_, eye_ * 0.95, Q_)
+            return el
+
+        planes_, tangents_ = along_log_s(make, N)
+        plain = fused_filter.filter_prefix_plain if kind == "filter" else fused_filter.smoother_suffix_plain
+        src, loc = (slice(0, Tc), slice(Tc, None)) if kind == "filter" else (slice(Tc, None), slice(0, Tc))
+        edge = -1 if kind == "filter" else 0
+        tot, dtot = torch.func.jvp(plain, (planes_[..., src].contiguous(),), (tangents_[..., src].contiguous(),))
+        local, dlocal = torch.func.jvp(plain, (planes_[..., loc].contiguous(),), (tangents_[..., loc].contiguous(),))
+        return (tot[..., edge].contiguous(), dtot[..., edge].contiguous(), local.contiguous(), dlocal.contiguous(),
+                planes_, tangents_)
+
+    def carry_check(kind, D, paired, ops):
+        c, dc, loc, dloc = ops[:4]
+        N, P, Tc = loc.shape
+        if paired:
+            def run_k():
+                return torch.cat(fused_filter.carry_combine_paired(c, dc, loc, dloc, kind), dim=1)
+
+            def run_p(x=(c, dc, loc, dloc)):
+                return torch.cat(torch.func.jvp(lambda a, b: fused_filter.carry_combine_plain(a, b, kind),
+                                                (x[0], x[2]), (x[1], x[3])), dim=1)
+
+            out_64 = run_p(tuple(v.double() for v in (c, dc, loc, dloc)))
+        else:
+            def run_k():
+                return fused_filter.carry_combine(c, loc, kind)
+
+            def run_p(x=(c, loc)):
+                return fused_filter.carry_combine_plain(x[0], x[1], kind)
+
+            out_64 = run_p((c.double(), loc.double()))
+        out_k, out_p = run_k(), run_p()
+        torch.cuda.synchronize()
+        e_abs, e_rel = rel_err(out_k, out_p)
+        w = 2 if paired else 1
+        n_bytes = (2 * N * w * P * Tc + N * w * P) * 4
+        n_ops = N * Tc * (combine_ops(D, paired) if kind == "filter" else smoother_combine_ops(D, paired))
+        bound = bound_ms(n_bytes, n_ops)
+        res = {
+            "kind": kind, "paired": paired, "D": D, "lanes": N, "T_chunk": Tc, "planes": out_k.shape[1],
+            "deterministic": deterministic(run_k, out_k), "max_abs_err": e_abs, "rel_err": e_rel,
+            "rel_err_kernel_vs_f64_plain": rel_err(out_k.double(), out_64)[1],
+            "rel_err_plain_vs_f64_plain": rel_err(out_p.double(), out_64)[1],
+            "ms": time_cuda(torch, run_k, 50), "device_ms": device_ms(torch, run_k, 20)[0],
+            "plain_ms": time_cuda(torch, run_p, 3), "bound_ms": bound[0], "bound_by": bound[1],
+        }
+        res["ok"] = res["deterministic"] and e_rel <= RTOL_SCAN_NEW and bool(torch.isfinite(out_k).all())
+        return res
+
+    # (kind, D, lanes): the headline's time-sharded final pass and optimizer
+    # (D = 2, 20 lanes), the pupil's (D = 3, 2 lanes: its loss's two lanes;
+    # its final pass has one), and D = 1 on ten lanes (on no path)
+    carry_res, carry_ops = {}, {}
+    for kind, D, N_c in (("filter", 2, K_HEAD), ("smoother", 2, K_HEAD), ("filter", 3, 2), ("smoother", 3, 2),
+                         ("filter", 1, 10), ("smoother", 1, 10)):
+        carry_ops[(kind, D)] = carry_operands(kind, D, N_c, 2500)
+        for paired in (False, True):
+            carry_res[(kind, paired, D)] = carry_check(kind, D, paired, carry_ops[(kind, D)])
+
+    # the whole sharded scan, four chunks of 10,000 steps, against the
+    # unsharded kernel scan on the same (headline-shaped) elements
+    sharded_scans = {}
+    for kind in ("filter", "smoother"):
+        planes_w, tangents_w = carry_ops[(kind, 2)][4:]
+        chunks = [x.contiguous() for x in torch.tensor_split(planes_w, 4, dim=-1)]
+        dchunks = [x.contiguous() for x in torch.tensor_split(tangents_w, 4, dim=-1)]
+        sharded = pmesh.filter_prefix_sharded if kind == "filter" else pmesh.smoother_suffix_sharded
+        sharded_p = pmesh.filter_prefix_paired_sharded if kind == "filter" else pmesh.smoother_suffix_paired_sharded
+        whole = fused_filter.filter_prefix if kind == "filter" else fused_filter.smoother_suffix
+        whole_p = fused_filter.filter_prefix_paired if kind == "filter" else fused_filter.smoother_suffix_paired
+        got = torch.cat(sharded(chunks), dim=-1)
+        got_p = torch.cat([torch.cat(p, dim=1) for p in sharded_p(chunks, dchunks)], dim=-1)
+        want, want_p = whole(planes_w), torch.cat(whole_p(planes_w, tangents_w), dim=1)
+        torch.cuda.synchronize()
+        sharded_scans[kind] = {"float_rel_err": rel_err(got, want)[1], "paired_rel_err": rel_err(got_p, want_p)[1]}
+    emit({"phase": "parallel_carry_kernel", "rtol": RTOL_SCAN_NEW,
+          "instances": {f"{k}{'_paired' if p else ''}_d{d}": r for (k, p, d), r in carry_res.items()},
+          "sharded_scan_4_chunks_T10000_vs_unsharded_kernel": sharded_scans, "card": card})
+    if not all(r["ok"] for r in carry_res.values()):
+        raise AssertionError("a carry kernel instance disagrees with its plain version")
+    if max(v for r in sharded_scans.values() for v in r.values()) > RTOL_SCAN_NEW:
+        raise AssertionError(f"a sharded scan disagrees with the unsharded kernel scan: {sharded_scans}")
+
+    def with_iters(run):
+        """(result, seconds, launch counts, Adam iterations per block from
+        the optimizer's DEBUG report) of ``run()``."""
+        handler, level, propagate = BlockIters(), core_log.level, core_log.propagate
+        core_log.addHandler(handler)
+        core_log.setLevel(logging.DEBUG)
+        core_log.propagate = False
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            core_log.removeHandler(handler)
+            core_log.setLevel(level)
+            core_log.propagate = propagate
+        return out, seconds, read_counts(), np.array(handler.iters)
+
+    # the headline's operands (phase 5's prep), for the one-device
+    # trajectories phase 17's rule reads and the float64 final-pass check
+    arr_head = make_session(np, np.random.default_rng(0))
+    raw_h = torch.as_tensor(arr_head[:, 0], device=dev)
+    stats_h, ys_h, means_h, S0_h = _prep_singlecam(raw_h[..., 0], raw_h[..., 1], raw_h[..., 2], SEEDS_HEAD,
+                                                   "median", "confidence_weighted_var")
+    eye_h = torch.eye(2, device=dev).expand(K_HEAD, 2, 2).contiguous()
+    ops_head = (ys_h, torch.zeros(K_HEAD, 2, device=dev), S0_h, eye_h, eye_h, eye_h, stats_h[..., 2:4].contiguous())
+
+    def s_by_rule(s_got, it_got, s_one, it_one):
+        """Phase 17's rule: each lane's s against the one-device run where
+        both stopped at the same Adam iteration, else against the
+        one-device trajectory (stop rule off) at the iteration where this
+        lane stopped; the largest relative gap."""
+        gaps = s_gap(s_got, s_one)
+        for c in sorted(set(it_got[it_got != it_one].tolist())):
+            traj = capped_opt(ops_head, -1.0, c)[0]
+            lanes = (it_got != it_one) & (it_got == c)
+            gaps[lanes] = s_gap(s_got[lanes], traj[lanes])
+        return float(gaps.max()), int((it_got != it_one).sum())
+
+    (df_one, s_one), wall_one, _, it_one = with_iters(
+        lambda: eks_tpu_torch.ensemble_kalman_smoother_singlecam(ma, kps, device="cuda"))
+    d64 = dict(dtype=torch.float64, device="cpu")
+    par_runs, par_launches = {}, {}
+    for setup, n_dev, ctx in setups:
+        with ctx():
+            tag = "" if setup.startswith("4_shards") else f"_{setup}"
+            # headline, keypoint axis
+            tm_k = {}
+            (df_k, s_k), wall_k, launches_k, it_k = with_iters(
+                lambda: eks_tpu_torch.ensemble_kalman_smoother_singlecam(ma, kps, device="cuda", devices=n_dev,
+                                                                         timings=tm_k))
+            gap_k, lanes_k = s_by_rule(s_k, it_k, s_one, it_one)
+            table_k = sessions_table_gap(np, df_k, df_one)
+            counts_ok_k = (launches_k[a_key(2, 2, True)] == sum(tm_k["adam_iters_per_shard"]) > 0
+                           and launches_k["prefix_scan_filter"] == n_dev and launches_k["prefix_scan_smoother"] == n_dev
+                           and not any(v for k, v in launches_k.items() if k.startswith("carry_")))
+            par_launches["parallel_headline_keypoint" + tag] = launches_k
+            par_runs["headline_keypoint" + tag] = {
+                "wall_s": wall_k, "one_device_wall_s": wall_one, "adam_iters_per_shard": tm_k["adam_iters_per_shard"],
+                "s_rel_gap_by_phase_17_rule": gap_k, "lanes_stopped_elsewhere": lanes_k, "table_gap": table_k,
+                "launches": {k: v for k, v in launches_k.items() if v}, "counts_ok": counts_ok_k,
+                "ok": (gap_k <= 1e-4 and counts_ok_k and table_k["columns_match"] and table_k["finite"]
+                       and table_k["xy"] <= SEQ_ATOL_SESSIONS["xy"]
+                       and table_k["var"] <= SEQ_ATOL_SESSIONS["posterior_var"]),
+            }
+
+            # headline, time axis: the staged loss over the sharded paired
+            # scan, and the time-sharded final pass
+            tm_t = {}
+            (df_t, s_t), wall_t, launches_t, it_t = with_iters(
+                lambda: eks_tpu_torch.ensemble_kalman_smoother_singlecam(ma, kps, device="cuda", devices=n_dev,
+                                                                         partition="time", timings=tm_t))
+            gap_t, lanes_t = s_by_rule(s_t, it_t, s_one, it_one)
+            eye64 = torch.eye(2, **d64).expand(K_HEAD, 2, 2)
+            ref_t, _ = seq_smoother_f64(torch, ys_h.to(**d64), torch.zeros(K_HEAD, 2, **d64), S0_h.to(**d64), eye64,
+                                        torch.as_tensor(s_t, **d64)[:, None, None] * eye64, eye64,
+                                        torch.clamp(stats_h[..., 2:4].transpose(0, 1).to(**d64), min=1e-12))
+            x_ref_t = (ref_t.transpose(0, 1) + means_h.to(**d64)[None]).numpy()
+            seq_gap_t = float(np.abs(df_t.to_numpy().reshape(T_HEAD, K_HEAD, 9)[..., :2] - x_ref_t).max())
+            iters_t = tm_t.get("adam_iters", 0)
+            counts_ok_t = (iters_t > 0 and launches_t[a_key(2, 2, True)] == 0
+                           and launches_t["prefix_scan_filter_paired_d2"] == n_dev * iters_t
+                           and launches_t["carry_filter_paired_d2"] == (n_dev - 1) * iters_t
+                           and launches_t["prefix_scan_filter"] == n_dev and launches_t["prefix_scan_smoother"] == n_dev
+                           and launches_t["carry_filter_d2"] == n_dev - 1
+                           and launches_t["carry_smoother_d2"] == n_dev - 1)
+            par_launches["parallel_headline_time" + tag] = launches_t
+            par_runs["headline_time" + tag] = {
+                "wall_s": wall_t, "one_device_wall_s": wall_one, "optimizer_s": tm_t.get("optimizer"),
+                "final_pass_s": tm_t.get("final_pass"), "adam_iters": iters_t,
+                "us_per_adam_iter": tm_t["optimizer"] / iters_t * 1e6 if iters_t else None,
+                "s_rel_gap_by_phase_17_rule": gap_t, "lanes_stopped_elsewhere": lanes_t,
+                "max_abs_err_vs_f64_sequential": seq_gap_t, "launches": {k: v for k, v in launches_t.items() if v},
+                "counts_ok": counts_ok_t, "ok": gap_t <= 1e-4 and seq_gap_t <= 1e-2 and counts_ok_t,
+            }
+
+            # pupil: the bundled session's fixed-parameter golden, and the
+            # solo session's optimizer capped, on the frame axis
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                df_pf, _, _, _ = eks_tpu_torch.fit_eks_pupil(
+                    os.path.join(REPO, "data", "pupil"), os.path.join(tmp, "out.csv"),
+                    smooth_params=[0.99, 0.98], device="cuda", devices=n_dev)
+                wall_pf = time.perf_counter() - t0
+            gap_pf, cols_pf = golden_gap(df_pf, "pupil_fixed")
+            pupil_scan_calls = []
+            tm_p1, tm_p = {}, {}
+            (df_p1, s_p1), wall_p1, _, _ = with_iters(lambda: eks_tpu_torch.ensemble_kalman_smoother_ibl_pupil(
+                pupil_mas[0], names, safety_cap=CAP_PUPIL_22, device="cuda", timings=tm_p1))
+            with recording(fused_filter, "filter_prefix_paired", pupil_scan_calls, first_only=True):
+                (df_p, s_p), wall_p, launches_p, _ = with_iters(lambda: eks_tpu_torch.ensemble_kalman_smoother_ibl_pupil(
+                    pupil_mas[0], names, safety_cap=CAP_PUPIL_22, device="cuda", devices=n_dev, timings=tm_p))
+            gap_p = float(np.max(np.abs(np.asarray(s_p) / np.asarray(s_p1) - 1.0)))
+            table_gap_p = float(np.abs(df_p.to_numpy() - df_p1.to_numpy()).max())
+            counts_ok_p = (launches_p["fused_nll_tv_paired"] == 0
+                           and launches_p["prefix_scan_filter_paired_d3"] == n_dev * CAP_PUPIL_22
+                           and launches_p["carry_filter_paired_d3"] == (n_dev - 1) * CAP_PUPIL_22
+                           and launches_p["prefix_scan_filter_d3"] == n_dev
+                           and launches_p["prefix_scan_smoother_d3"] == n_dev
+                           and launches_p["carry_filter_d3"] == n_dev - 1 and launches_p["carry_smoother_d3"] == n_dev - 1)
+            par_launches["parallel_pupil_time" + tag] = launches_p
+            par_runs["pupil_time" + tag] = {
+                "golden_pupil_fixed": {"max_abs_err": gap_pf, "atol": 1e-4, "columns_match": cols_pf,
+                                       "wall_s": wall_pf},
+                "capped_iters": CAP_PUPIL_22, "wall_s": wall_p, "one_device_wall_s": wall_p1,
+                "optimizer_s": tm_p.get("optimizer"), "one_device_optimizer_s": tm_p1.get("optimizer"),
+                "us_per_adam_iter": tm_p["optimizer"] / CAP_PUPIL_22 * 1e6,
+                "s": list(map(float, s_p)), "one_device_s": list(map(float, s_p1)), "s_rel_gap": gap_p,
+                "s_rtol": PUPIL_S_RTOL_22, "table_abs_gap_vs_one_device": table_gap_p,
+                "launches": {k: v for k, v in launches_p.items() if v}, "counts_ok": counts_ok_p,
+                "ok": (cols_pf and gap_pf <= 1e-4 and gap_p <= PUPIL_S_RTOL_22 and counts_ok_p
+                       and bool(np.isfinite(df_p.to_numpy()).all())),
+            }
+
+            # the two-camera session and the calibrated rig on the keypoint
+            # axis, capped as in phase 19 with the stop rule off, so both runs
+            # take the same trajectory
+            _, ys_c2, ev_c2, m0_c2, S0_c2, A_c2, Q_c2, C_c2, _ = mc_prep(CAMS_MC)
+            ops_c2 = (ys_c2, m0_c2, S0_c2, A_c2, C_c2, Q_c2, ev_c2.transpose(0, 1))
+            for name_c, ops_c, kw_c, checks in (
+                    ("two_cameras_keypoint", ops_c2, {}, lambda lc: (
+                        lc[a_key(3, 4, True)] == n_dev * CAP_CAL and lc["prefix_scan_filter_d3"] == n_dev
+                        and lc["prefix_scan_smoother_d3"] == n_dev)),
+                    ("calibrated_keypoint", ops_cal_all, dict(h_fn=h_card, x_init=x3_cal), lambda lc: (
+                        lc["prefix_scan_filter_paired_d3"] == 3 * CAP_CAL * n_dev
+                        and lc["prefix_scan_filter_d3"] == 13 * n_dev and lc["prefix_scan_smoother_d3"] == n_dev))):
+                tm_1, tm_c = {}, {}
+                (s_c1, ms_c1, Vs_c1), wall_c1, _, _ = with_iters(
+                    lambda: run_kalman_smoother(*ops_c, safety_cap=CAP_CAL, tol=-1.0, timings=tm_1, **kw_c))
+                (s_c, ms_c, Vs_c), wall_c, launches_c, _ = with_iters(
+                    lambda: run_kalman_smoother(*ops_c, safety_cap=CAP_CAL, tol=-1.0, devices=n_dev, timings=tm_c,
+                                                **kw_c))
+                gap_s = float(s_gap(s_c, s_c1).max())
+                gap_m = max(rel_err(ms_c, ms_c1)[1], rel_err(Vs_c, Vs_c1)[1])
+                counts_ok_c = bool(checks(launches_c)) and not any(
+                    v for k, v in launches_c.items() if k.startswith("carry_"))
+                par_launches["parallel_" + name_c + tag] = launches_c
+                par_runs[name_c + tag] = {
+                    "capped_iters": CAP_CAL, "wall_s": wall_c, "one_device_wall_s": wall_c1,
+                    "adam_iters_per_shard": tm_c.get("adam_iters_per_shard"), "s_rel_gap": gap_s,
+                    "moments_rel_gap": gap_m, "launches": {k: v for k, v in launches_c.items() if v},
+                    "counts_ok": counts_ok_c, "ok": gap_s <= 1e-4 and gap_m <= 5e-4 and counts_ok_c,
+                }
+
+            # the command line: singlecam --devices n on the bundled session,
+            # both axes, against the committed golden
+            cli_gaps = {}
+            with tempfile.TemporaryDirectory() as tmp:
+                for part in ("keypoint", "time"):
+                    argv = ["eks-tpu-torch", "singlecam", "--input-dir", os.path.join(REPO, "data", "singlecam"),
+                            "--save-dir", os.path.join(tmp, part), "--s", "2.0", "--devices", str(n_dev),
+                            "--partition", part]
+                    t0 = time.perf_counter()
+                    with mock.patch.object(sys, "argv", argv):
+                        cli_main()
+                    df_cli = pd.read_csv(os.path.join(tmp, part, "eks_singlecam.csv"), header=[0, 1, 2], index_col=0)
+                    gap_cli, cols_cli = golden_gap(df_cli, "singlecam_fixed")
+                    cli_gaps[part] = {"max_abs_err": gap_cli, "atol": 1e-4, "columns_match": cols_cli,
+                                      "wall_s": time.perf_counter() - t0}
+            par_runs["cli_singlecam" + tag] = {**cli_gaps, "ok": all(
+                g["columns_match"] and g["max_abs_err"] <= 1e-4 for g in cli_gaps.values())}
+    pupil_scan = scan_check("filter", *pupil_scan_calls[0])
+    seconds22 = time.perf_counter() - t_phase22
+    emit({"phase": "parallel_runs", "runs": par_runs, "pupil_chunk_paired_filter_scan": pupil_scan,
+          "card": card, "seconds": seconds22})
+    emit({"phase": "parallel_budget", "seconds": seconds22, "limit_s": 180.0, "within": seconds22 <= 180.0,
+          "script_elapsed_s": time.perf_counter() - _T_START, "card": card})
+    bad = [k for k, r in par_runs.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"sharded runs disagree with their one-device runs or goldens: {bad}")
+    if not pupil_scan["ok"]:
+        raise AssertionError("the paired D = 3 filter scan disagrees with its plain version on a pupil chunk")
+
     # --------------------------------------------------------------- 10 ---
     # the main paths run kernels A and C in their paired forms only (the
     # optimizers' forward-mode gradients); the plain forms' numbers are in
@@ -2437,7 +2820,7 @@ def main() -> int:
     path_counts = {"headline": launches, "pupil": launches_pupil, "pupil_sessions": launches_sessions,
                    "multicam": launches_mc, "multicam_six_cameras": launches_w,
                    **{f"multicam_n_latent_{k}": launches_nl[k] for k in N_LATENTS},
-                   "multicam_calibrated": launches_cal, "singlecam_sessions": launches_sc}
+                   "multicam_calibrated": launches_cal, "singlecam_sessions": launches_sc, **par_launches}
     src = "eks_tpu_torch/csrc/"
 
     def counted(key):
@@ -2590,6 +2973,25 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         })
+    # the carry kernel (phase 22): it replaces no Pallas kernel (the JAX
+    # package carries the time-sharded scan's combines with XLA collectives);
+    # `launches` sums the time-axis paths' counts; and the paired D = 3
+    # filter scan at the pupil's time-sharded loss (2 lanes, one chunk)
+    for (kind, paired, d), r in carry_res.items():
+        kernels.append({
+            "name": carry_key(kind, paired, d), "route": "cuda", "source": src + "prefix_scan.cu",
+            "replaces": "none", "lanes": r["lanes"], "T_chunk": r["T_chunk"], **counted(carry_key(kind, paired, d)),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        })
+    kernels.append({
+        "name": "prefix_scan_filter_paired_d3_pupil_chunk", "route": "cuda", "source": src + "prefix_scan.cu",
+        "replaces": "eks_tpu/ops/pallas_filter.py:252", "path": "parallel_pupil_time", "lanes": pupil_scan["lanes"],
+        "T": pupil_scan["T"], "launches": par_launches["parallel_pupil_time"]["prefix_scan_filter_paired_d3"],
+        "max_abs_err": pupil_scan["max_abs_err"], "ms": pupil_scan["ms"], "device_ms": pupil_scan["device_ms"],
+        "plain_ms": pupil_scan["plain_ms"], "bound_ms": pupil_scan["bound_ms"], "bound_by": pupil_scan["bound_by"],
+        "library_ms": None,
+    })
     emit({"launches": {p: {k: v for k, v in c.items() if v} for p, c in path_counts.items()}})
     print(gpu_name_power(), flush=True)
     emit({"kernels": kernels})

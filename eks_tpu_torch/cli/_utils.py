@@ -208,8 +208,9 @@ add_devices = _builder(
     (("--devices",), dict(
         type=int, default=None,
         help=(
-            "shard the smoothing step over this many devices; more than one "
-            "is not ported yet and fails; default = single device"
+            "shard the smoothing step over this many devices of --device's "
+            "type (cuda:0 .. cuda:N-1; fails when the host has fewer cards); "
+            "default = single device"
         ),
     )),
     (("--partition",), dict(
@@ -217,8 +218,7 @@ add_devices = _builder(
         help=(
             "mesh axis for --devices: 'keypoint' = data parallelism over "
             "independent keypoint lanes (default), 'time' = sequence "
-            "parallelism splitting the frame axis of the prefix scans; "
-            "only 'keypoint' is ported yet, 'time' fails"
+            "parallelism splitting the frame axis of the prefix scans"
         ),
     )),
 )

@@ -19,7 +19,6 @@ from eks_tpu_torch.cli._utils import (
     sessions_save_files,
     timed_fit,
 )
-from eks_tpu_torch.core import _check_supported
 from eks_tpu_torch.models.ibl_pupil import fit_eks_pupil, fit_eks_pupil_sessions
 
 logger = logging.getLogger(__name__)
@@ -60,7 +59,11 @@ def register(subparsers: argparse._SubParsersAction) -> None:
         "<session>/outputs/eks_ibl_pupil.csv next to each input when "
         "--save-dir is omitted); the single-lane pupil model "
         "underfills a card, so equal-length sessions sharing one "
-        "joint optimizer loop is the throughput mode for session fleets",
+        "joint optimizer loop is the throughput mode for session fleets; "
+        "it runs on one device and refuses --devices above 1. Without "
+        "--sessions, --devices above 1 shards the frame axis: the "
+        "optimizer's loss then leaves the fused kernel for a staged one, "
+        "about twenty times slower an iteration on H100s",
     )
     parser.set_defaults(handler=cmd_ibl_pupil)
 
@@ -103,9 +106,11 @@ def cmd_ibl_pupil(args: argparse.Namespace) -> None:
 
 def _cmd_ibl_pupil_sessions(args: argparse.Namespace) -> None:
     session_dirs = [Path(d).resolve() for d in args.sessions]
-    # the batched pupil entry point takes no --devices; more than one must
-    # fail here rather than run on one device
-    _check_supported(args.devices, "keypoint")
+    # the batched pupil entry point takes no devices; more than one must fail
+    # here rather than run on one device
+    if args.devices is not None and args.devices > 1:
+        raise ValueError("ibl-pupil --sessions runs on one device: --devices above 1 is refused "
+                         "(fit_eks_pupil_sessions takes no devices)")
     prepare_device(args)
     save_files = sessions_save_files(
         session_dirs, args.save_dir, "eks_ibl_pupil"

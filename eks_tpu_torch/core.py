@@ -27,6 +27,12 @@ family) the loss is the iterated-EKF plane NLL, relinearized
 trajectory ``x_init`` (``_EKF_OPT_SWEEPS_COLD + 1`` from the broadcast
 prior), each sweep one paired lane-batched scan; the final pass is the
 iterated parallel EKF smoother, started from the broadcast prior.
+
+With ``devices`` > 1 the smoothing step is sharded over a mesh of that many
+devices (``parallel/mesh.py``): the keypoint axis (``partition="keypoint"``,
+each shard the whole single-device pipeline on its own lanes) or the time
+axis (``partition="time"``, every scan of the loss and the final pass split
+into chunks with carries across them).
 """
 
 from __future__ import annotations
@@ -40,12 +46,14 @@ import torch
 
 from eks_tpu_torch.marker_array import MarkerArray
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
+from eks_tpu_torch.ops.linalg import jvp
 from eks_tpu_torch.ops.pkalman import (
     _pack_scalars,
     ekf_nll_paired_batched,
     eks_parallel,
     filter_nll_paired_batched,
     kalman_smoother_parallel,
+    _staged_nll_paired,
 )
 from eks_tpu_torch.utils import crop_frames
 
@@ -58,9 +66,6 @@ __all__ = [
     "optimize_smooth_param",
     "run_kalman_smoother",
 ]
-
-_NOT_PORTED = "is not ported to eks_tpu_torch yet (see ROADMAP.md, queue 1)"
-
 
 # --------------------------------------------------------------------------- #
 # NaN-aware statistics with the JAX package's exact semantics
@@ -328,7 +333,7 @@ _EKF_OPT_SWEEPS_COLD = 12
 
 def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
                            lr, s_lo, s_hi, tol, safety_cap, sequential=False,
-                           timings=None, h_fn=None, xB=None):
+                           timings=None, h_fn=None, xB=None, time_mesh=None):
     """Tune one log s per block: every iteration evaluates all
     n_blocks * B_max member filters at once and sums the masked member NLLs
     per block. On the card that is one paired kernel A launch up to D = 3
@@ -339,10 +344,18 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
     sweep), relinearized from ``xB`` (n_blocks, B_max, T, D), or from the
     broadcast prior where that is None. ``sequential`` takes the
     float64-oracle sequential filter instead. Non-finite member NLLs count
-    as 1e12 with a zero gradient."""
+    as 1e12 with a zero gradient. With ``time_mesh`` the loss's time axis is
+    split over its devices (the staged loss over the sharded paired scan in
+    the place of kernel A, or the time-sharded EKF loss); the sequential
+    oracle runs unsharded."""
     n_blocks, b_max = yB.shape[:2]
     n_flat = n_blocks * b_max
     T, D = yB.shape[2], m0B.shape[-1]
+    shards = None
+    if time_mesh is not None and not sequential:
+        from eks_tpu_torch.parallel.mesh import TimeShards
+
+        shards = TimeShards(time_mesh, T)
 
     def flat(x):
         return x.reshape((n_flat,) + tuple(x.shape[2:]))
@@ -358,7 +371,7 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
     # the members' (ll, d ll / d log s) from s Q and its tangent
     if sequential:
         def member_lls(sQ, dsQ):
-            return torch.func.jvp(
+            return jvp(
                 lambda q: kalman_filter(yF, m0F, S0F, AF, q, CF, rF, h_fn=h_fn).log_likelihood, (sQ,), (dsQ,))
     elif h_fn is not None:
         if xB is None:
@@ -367,27 +380,22 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
             xF, n_sweeps = flat(xB), _EKF_OPT_SWEEPS_WARM + 1
 
         def member_lls(sQ, dsQ):
-            return ekf_nll_paired_batched(yF, m0F, S0F, AF, sQ, dsQ, h_fn, rF, xF, n_sweeps=n_sweeps)
+            return ekf_nll_paired_batched(yF, m0F, S0F, AF, sQ, dsQ, h_fn, rF, xF, n_sweeps=n_sweeps,
+                                          shards=shards)
     else:
         y_planes = yF.transpose(1, 2).contiguous()
 
         def member_lls(sQ, dsQ):
-            table, dtable = torch.func.jvp(lambda q: _pack_scalars(yF[:, 0], m0F, S0F, AF, q, CF, rF),
-                                           (sQ,), (dsQ,))
+            table, dtable = jvp(lambda q: _pack_scalars(yF[:, 0], m0F, S0F, AF, q, CF, rF), (sQ,), (dsQ,))
+            if shards is not None:
+                return _staged_nll_paired(table, dtable, y_planes, shards)
             return filter_nll_paired_batched(table.contiguous(), dtable.contiguous(), y_planes)
 
     def loss_and_grad(s_log):
-        sQ, dsQ = torch.func.jvp(scaled_q, (s_log,), (torch.ones_like(s_log),))
+        sQ, dsQ = jvp(scaled_q, (s_log,), (torch.ones_like(s_log),))
         return _block_nll_sums(*member_lls(sQ, dsQ), maskF, n_blocks, b_max)
 
     return _joint_masked_adam(loss_and_grad, s_log_init, lr, tol, safety_cap, timings)
-
-
-def _check_supported(devices, partition):
-    if devices is not None and devices > 1:
-        raise NotImplementedError(f"devices > 1 {_NOT_PORTED}")
-    if partition != "keypoint":
-        raise NotImplementedError(f"partition={partition!r} {_NOT_PORTED}")
 
 
 def optimize_smooth_param(
@@ -410,12 +418,18 @@ def optimize_smooth_param(
     sequential: bool = False,
     x_init: torch.Tensor | None = None,  # (K, T, D) EKF linearization init
     timings: dict | None = None,
+    mesh: tuple | None = None,
+    partition: Literal["keypoint", "time"] = "keypoint",
 ) -> torch.Tensor:
     """Optimize ``s`` per block; returns per-keypoint s (K,) on the device
     of ``ys``. Keypoints missing from a partial ``blocks`` list become
     singleton blocks. With ``h_fn`` (a nonlinear emission) the loss is the
     iterated EKF's, relinearized from ``x_init`` (the calibrated family's
-    triangulated trajectories, cropped with ``ys``) when given."""
+    triangulated trajectories, cropped with ``ys``) when given. With
+    ``mesh`` (``parallel.make_mesh``) the block axis (``partition=
+    "keypoint"``: each shard's Adam loop on its device; no block is split)
+    or the loss's time axis (``"time"``) is sharded over it; ``timings``
+    then gets the per-shard Adam iterations ("adam_iters_per_shard")."""
     K = ys.shape[0]
     dev = ys.device
     if not blocks:
@@ -449,12 +463,20 @@ def optimize_smooth_param(
 
     s_lo, s_hi = s_bounds_log
     opts = dict(lr=float(lr), s_lo=float(s_lo), s_hi=float(s_hi), tol=float(tol),
-                safety_cap=int(safety_cap), sequential=sequential, timings=timings)
+                safety_cap=int(safety_cap), sequential=sequential)
     xB = None if x_init is None else crop_frames(x_init, s_frames, dim=1)[idx_t]
-    s_log_f, last_loss, iters = _optimize_blocks_joint(
-        y_cropped[idx_t], r_const[idx_t], m0s[idx_t], S0s[idx_t], As[idx_t],
-        Qs[idx_t], Cs[idx_t], mask_t, s_log_init, h_fn=h_fn, xB=xB, **opts,
-    )
+    operands = [y_cropped[idx_t], r_const[idx_t], m0s[idx_t], S0s[idx_t], As[idx_t],
+                Qs[idx_t], Cs[idx_t], mask_t, s_log_init]
+    if mesh is not None and partition == "keypoint":
+        from eks_tpu_torch.parallel.mesh import optimize_blocks_sharded
+
+        s_log_f, last_loss, iters = optimize_blocks_sharded(
+            mesh, operands + [xB], h_fn=h_fn, timings=timings, **opts)
+    else:
+        s_log_f, last_loss, iters = _optimize_blocks_joint(
+            *operands, h_fn=h_fn, xB=xB, timings=timings,
+            time_mesh=mesh if partition == "time" else None, **opts,
+        )
     if logger.isEnabledFor(logging.DEBUG):
         s_host, ll_host, it_host = (x.cpu().numpy() for x in (s_log_f, last_loss, iters))
         for i, b in enumerate(blocks):
@@ -474,24 +496,32 @@ def optimize_smooth_param(
 # --------------------------------------------------------------------------- #
 # final smoothing pass
 # --------------------------------------------------------------------------- #
-def _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, h_fn=None, sequential=False):
+def _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, h_fn=None, sequential=False, time_mesh=None):
     """Smoothed means (K, T, D) and covariances (K, T, D, D) of every lane
     with process noise ``s_k * Q_k`` and time-varying diagonal R ``rs``.
     With ``h_fn`` the iterated parallel EKF smoother, from the broadcast
-    prior (12 relinearizations, then the last)."""
+    prior (12 relinearizations, then the last). With ``time_mesh`` the time
+    axis is split over its devices (the sequential oracle runs unsharded)."""
     sQ = s_finals[:, None, None] * Qs
+    shards = None
+    if time_mesh is not None:
+        from eks_tpu_torch.parallel.mesh import TimeShards
+
+        shards = TimeShards(time_mesh, ys.shape[1])
     if sequential:
         res = kalman_smoother(ys, m0s, S0s, As, sQ, Cs, rs, h_fn=h_fn)
     elif h_fn is not None:
-        res = eks_parallel(ys, m0s, S0s, As, sQ, h_fn, rs)
+        res = eks_parallel(ys, m0s, S0s, As, sQ, h_fn, rs, shards=shards)
     else:
-        res = kalman_smoother_parallel(ys, m0s, S0s, As, sQ, Cs, rs)
+        res = kalman_smoother_parallel(ys, m0s, S0s, As, sQ, Cs, rs, shards)
     return res.smoothed_means, res.smoothed_covs
 
 
-def _sync(dev: torch.device):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _sync(*devices: torch.device):
+    """Wait for every CUDA device among ``devices``."""
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def run_kalman_smoother(
@@ -523,17 +553,33 @@ def run_kalman_smoother(
     diag(ensemble_vars[t]))``; with ``h_fn`` (..., D) -> (..., O) the emission is
     ``h(x_t)`` and ``Cs`` is not read, and ``x_init`` (the optimizer's
     linearization trajectories) is optional. Every tensor lies on one
-    device, where all the work runs. With ``timings`` (a
-    dict) the device is synchronized between the stages and their seconds
-    are recorded ("optimizer", "final_pass") with the Adam iteration count.
+    device. With ``timings`` (a dict) the devices are synchronized between
+    the stages and their seconds are recorded ("optimizer", "final_pass")
+    with the Adam iteration count.
+
+    ``devices`` > 1 shards the work over a mesh of that many devices of the
+    type of ``ys``'s (``parallel.make_mesh``: it raises when the host has
+    fewer cards, and never puts work on the CPU when a card was asked for);
+    ``partition`` picks the axis: ``"keypoint"`` (data parallelism over the
+    independent lanes, the default, right whenever K >= devices) or
+    ``"time"`` (sequence parallelism: the scans split the frame axis, with
+    carries across the chunks). Without a mesh ``partition`` is not read.
 
     Returns:
         s_finals (K,) host array; smoothed means (K, T, D) and covs
-        (K, T, D, D) on the device.
+        (K, T, D, D) on the device of ``ys``.
     """
-    _check_supported(devices, partition)
+    if partition not in ("keypoint", "time"):
+        raise ValueError(f"unknown partition {partition!r}: use 'keypoint' or 'time'")
     K = ys.shape[0]
     dev, dt = ys.device, ys.dtype
+    mesh = None
+    if devices is not None and devices > 1:
+        from eks_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices, dev)
+        logger.info(f"{partition}-axis sharding over {devices} devices: {[str(d) for d in mesh]}")
+    synced = (dev,) + (mesh or ())
     if ensemble_vars.shape[0] < 2:
         raise ValueError("Initial-s heuristic needs at least two frames of ensemble variance.")
 
@@ -550,15 +596,23 @@ def run_kalman_smoother(
             ys, m0s, S0s, As, Cs, Qs, ensemble_vars, blocks, s_frames, s_guess,
             lr=lr, s_bounds_log=s_bounds_log, tol=tol, safety_cap=safety_cap,
             h_fn=h_fn, sequential=sequential, x_init=x_init, timings=timings,
+            mesh=mesh, partition=partition,
         )
     if timings is not None:
-        _sync(dev)
+        _sync(*synced)
         timings["optimizer"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     rs = torch.clamp(ensemble_vars.transpose(0, 1), min=1e-12).contiguous()  # (K, T, O)
-    ms, Vs = _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, h_fn=h_fn, sequential=sequential)
+    if mesh is not None and partition == "keypoint":
+        from eks_tpu_torch.parallel.mesh import smooth_all_sharded
+
+        ms, Vs = smooth_all_sharded(mesh, [ys, m0s, S0s, As, Qs, Cs, s_finals, rs], h_fn=h_fn,
+                                    sequential=sequential)
+    else:
+        ms, Vs = _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, h_fn=h_fn, sequential=sequential,
+                             time_mesh=mesh)
     if timings is not None:
-        _sync(dev)
+        _sync(*synced)
         timings["final_pass"] = time.perf_counter() - t0
     return s_finals.cpu().numpy().astype(np.float64), ms, Vs

@@ -15,7 +15,9 @@
 // or paired. So the single-lane kernels are N = 1 of the lane-batched ones.
 // It is instantiated at every D <= 3, where the JAX package runs its Pallas
 // scan (_use_pallas); beyond, the wrapper runs the plain scan on the card,
-// as the JAX package runs XLA's associative_scan.
+// as the JAX package runs XLA's associative_scan. A second entry,
+// carry_combine_f32, combines each chunk of a time-sharded scan with the
+// carry of the chunks before it (see carry_combine_kernel).
 //
 // Input and output are (N, W * P, T) float32 planes, W = 1 for float and 2
 // for Dual (the P primal planes, then the P tangent planes). P = 3D² + 2D for
@@ -185,6 +187,47 @@ int launch(const float* in, float* out, float* totals, int N, int T, int G, cuda
   return (int)cudaGetLastError();
 }
 
+// The cross-shard carry of a time-sharded scan: out[n, :, t] =
+// op(carry[n], in[n, :, t]) for every step t of one shard's chunk, where `in`
+// is the chunk's own inclusive scan and `carry` the combination of every
+// earlier chunk in scan order (the chunks before it in time for the filter,
+// after it for the smoother, whose op takes the later element first).
+// Replaces no Pallas kernel: the JAX package shards the time axis through
+// XLA's associative_scan under the SPMD partitioner, which carries these
+// combines with collectives (eks_tpu/parallel/mesh.py::shard_time). One
+// thread per (lane, step), consecutive threads on consecutive steps, so every
+// plane is read and written coalesced; the carry is the same few floats for
+// every thread of a lane. Bound on the H100: one elementwise pass, each plane
+// read once and written once, 2 * N * W * P * T * 4 bytes (6.4 MB for the
+// filter at N = 20, D = 2 over a 2,500-step chunk: 1.9 us at 3.35 TB/s),
+// against one combine a step. Folding the carry into the scan's downsweep
+// would save this pass.
+template <typename Alg>
+__global__ void __launch_bounds__(NT) carry_combine_kernel(const float* __restrict__ carry,
+                                                           const float* __restrict__ in,
+                                                           float* __restrict__ out, int T) {
+  using Sc = eks::Scalar<typename Alg::Scalar>;
+  using Elem = typename Alg::Elem;
+  constexpr int P = Alg::P;
+  const int t = blockIdx.x * NT + threadIdx.x;
+  if (t >= T) return;
+  const int lane = blockIdx.y;
+  const Elem c = eks::total_get<Alg>(carry + (size_t)lane * Sc::W * P);
+  const size_t base = (size_t)lane * Sc::W * P * T + t;
+  Elem e;
+#pragma unroll
+  for (int p = 0; p < P; ++p) e.x[p] = Sc::get(in + base + (size_t)p * T, (size_t)P * T);
+  const Elem r = Alg::op(c, e);
+#pragma unroll
+  for (int p = 0; p < P; ++p) Sc::put(out + base + (size_t)p * T, (size_t)P * T, r.x[p]);
+}
+
+template <typename Alg>
+int launch_carry(const float* carry, const float* in, float* out, int N, int T, cudaStream_t s) {
+  carry_combine_kernel<Alg><<<dim3((T + NT - 1) / NT, N), NT, 0, s>>>(carry, in, out, T);
+  return (int)cudaGetLastError();
+}
+
 // f(Alg{}) for the instance (D, smoother, paired); every D <= 3, as the JAX
 // package's Pallas scan: D = 2 (singlecam), D = 3 (pupil, multi-camera) and
 // D = 1 (multi-camera at n_latent = 1)
@@ -227,4 +270,17 @@ extern "C" int prefix_scan_f32(const float* in, float* out, float* totals, int N
   cudaStream_t s = (cudaStream_t)stream;
   return with_algebra(D, smoother, paired,
                       [&](auto alg) { return launch<decltype(alg)>(in, out, totals, N, T, G, s); });
+}
+
+// carry: (N, W * P) float32, each lane's combination of the earlier chunks
+// (W = 2 with `paired`: the P primal values, then the P tangents); in, out:
+// (N, W * P, T) float32 contiguous, the chunk's own inclusive scan and the
+// result (distinct buffers). Returns the CUDA error of the launch (0 on
+// success); an unsupported D returns cudaErrorInvalidValue without launching.
+extern "C" int carry_combine_f32(const float* carry, const float* in, float* out, int N, int T, int D,
+                                 int smoother, int paired, void* stream) {
+  if (N <= 0 || T <= 0 || N > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return with_algebra(D, smoother, paired,
+                      [&](auto alg) { return launch_carry<decltype(alg)>(carry, in, out, N, T, s); });
 }

@@ -80,7 +80,8 @@ def fit_eks_multicam_ibl_paw(
     Expects ``input_source`` to contain per-seed prediction CSVs with 'left'
     or 'right' in the filename plus two ``*timestamps*`` ``.npy`` arrays.
     ``device`` is where the smoother runs ("cuda" by default);
-    ``devices``/``partition`` (multi-device sharding) are not ported yet.
+    ``devices``/``partition`` shard the smoothing step over that many
+    devices along the keypoint or the time axis.
 
     Returns:
         (camera_dfs, s_finals, input_dfs_list, bodypart_list)

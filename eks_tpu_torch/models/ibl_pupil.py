@@ -16,7 +16,12 @@ session rides two kernel lanes, one per parameter, with unit tangents, so one
 launch returns the loss and both partial derivatives of every session. The
 final pass's forward filter is the prefix-scan kernel at D = 3 (kernel B,
 ``ops/fused_filter.py``). Several sessions of equal length share one Adam
-loop, each stopping by its own rule.
+loop, each stopping by its own rule. With ``devices`` > 1 the frame axis,
+the model's only shardable axis, is split over a mesh of that many devices
+(``parallel/mesh.py``) for both stages: the loss is then the staged
+time-varying-R NLL over the sharded paired scan (kernel C, which fuses a
+lane's whole T, cannot span the shards), and the final pass the time-sharded
+smoother.
 
 Output parity quirks preserved deliberately (they are what the reference's
 golden files contain):
@@ -40,14 +45,16 @@ import numpy as np
 import pandas as pd
 import torch
 
-from eks_tpu_torch.core import _check_supported, _joint_masked_adam, _sync, ensemble
+from eks_tpu_torch.core import _joint_masked_adam, _sync, ensemble
 from eks_tpu_torch.marker_array import MarkerArray, input_dfs_to_markerArray
 from eks_tpu_torch.ops.fused_nll import fused_nll_tv_paired
 from eks_tpu_torch.ops.kalman import kalman_smoother
+from eks_tpu_torch.ops.linalg import jvp
 from eks_tpu_torch.ops.pkalman import (
     _pack_scalars_tv,
     _prior_information,
     kalman_smoother_parallel,
+    table_nll_tv_paired_sharded,
 )
 from eks_tpu_torch.utils import (
     crop_frames,
@@ -156,11 +163,12 @@ def fit_eks_pupil(
 ) -> tuple:
     """Load ensemble CSVs and run the pupil smoother.
 
-    ``devices`` > 1 (sharding the frame axis) is not ported yet and raises;
+    ``devices`` > 1 shards the frame axis over that many devices;
     ``partition`` is accepted for interface uniformity with the other
-    families (the pupil model is one joint 8-observation sequence with no
-    keypoint lanes). ``device`` is where the optimizer and the smoother run;
-    "cuda" (the default) raises when no card is visible.
+    families and not read (the pupil model is one joint 8-observation
+    sequence with no keypoint lanes, so time is its only shardable axis).
+    ``device`` is where the optimizer and the smoother run; "cuda" (the
+    default) raises when no card is visible.
 
     Returns:
         (df_smoothed, smooth_params_final, input_dfs_list, bodypart_list)
@@ -406,7 +414,8 @@ def _rep2(a: torch.Tensor) -> torch.Tensor:
 
 
 def _pupil_optimize(y_loss, r_loss, m0, S0, C, u0, diameters_var, x_var, y_var,
-                    lr: float, tol: float, safety_cap: int, timings: dict | None = None):
+                    lr: float, tol: float, safety_cap: int, timings: dict | None = None,
+                    time_mesh: tuple | None = None):
     """Joint Adam loop over N sessions' 2-parameter pupil optimizers.
 
     Every tensor carries a leading session axis (y/r: (N, T, 8); m0: (N, 3);
@@ -415,14 +424,23 @@ def _pupil_optimize(y_loss, r_loss, m0, S0, C, u0, diameters_var, x_var, y_var,
     over the 2N lanes of ``_pupil_lanes`` gives every session's loss and
     gradient (forward mode; nothing is differentiated through the kernel).
     A non-finite NLL counts as 1e12 with a zero gradient. A session whose
-    stop rule fires freezes while the others continue. Returns
-    (s (N, 2), last_loss (N,), iters (N,))."""
+    stop rule fires freezes while the others continue. With ``time_mesh``
+    the loss is the staged time-varying-R NLL with the frame axis split over
+    its devices. Returns (s (N, 2), last_loss (N,), iters (N,))."""
     N = y_loss.shape[0]
     yr2, tables, tangents = _pupil_lanes(y_loss, r_loss, m0, S0, C, diameters_var, x_var, y_var)
+    shards = None
+    if time_mesh is not None:
+        from eks_tpu_torch.parallel.mesh import TimeShards
+
+        shards = TimeShards(time_mesh, yr2.shape[-1])
 
     def loss_and_grad(u):  # (N, 2) -> losses (N,), grads (N, 2)
-        table, dtable = torch.func.jvp(tables, (_rep2(u),), (tangents,))
-        lls, dlls = fused_nll_tv_paired(table.contiguous(), dtable.contiguous(), yr2)
+        table, dtable = jvp(tables, (_rep2(u),), (tangents,))
+        if shards is None:
+            lls, dlls = fused_nll_tv_paired(table.contiguous(), dtable.contiguous(), yr2)
+        else:
+            lls, dlls = table_nll_tv_paired_sharded(table, dtable, yr2, shards)
         finite = torch.isfinite(lls)
         losses = torch.where(finite, -lls, torch.full_like(lls, 1e12))
         dirs = torch.where(finite, -dlls, torch.zeros_like(dlls))
@@ -461,8 +479,8 @@ def pupil_optimize_smooth(
 ) -> tuple[float, float]:
     """Tune ``[s_diam, s_com]`` by filter NLL on (optionally cropped) frames,
     in sigmoid-unconstrained space starting from [0.99, 0.98]. Fixed
-    ``smooth_params`` are returned clipped to [1e-3, 1 - 1e-3]."""
-    _check_supported(devices, "keypoint")
+    ``smooth_params`` are returned clipped to [1e-3, 1 - 1e-3]. ``devices``
+    > 1 shards the loss's frame axis over that many devices."""
     if smooth_params is not None and all(v is not None for v in smooth_params):
         s = _fixed_params(smooth_params)
         return float(s[0]), float(s[1])
@@ -482,6 +500,7 @@ def pupil_optimize_smooth(
     s_opt, last_loss, iters = _pupil_optimize(
         y_t, r_t, m0_t, S0_t, _tensors(dev, C)[0], _initial_u(1, dev), dv, xv, yv,
         lr=float(lr), tol=float(tol), safety_cap=int(safety_cap), timings=timings,
+        time_mesh=_time_mesh(devices, dev),
     )
     s_opt = s_opt[0].cpu().numpy()
     logger.debug(
@@ -491,14 +510,32 @@ def pupil_optimize_smooth(
     return float(s_opt[0]), float(s_opt[1])
 
 
+def _time_mesh(devices: int | None, dev: torch.device) -> tuple | None:
+    """The mesh that shards the frame axis for ``devices`` > 1, else None."""
+    if devices is None or devices <= 1:
+        return None
+    from eks_tpu_torch.parallel.mesh import make_mesh
+
+    logger.info(f"pupil: frame axis sharded over {devices} devices")
+    return make_mesh(devices, dev)
+
+
 def _pupil_smooth(ys, m0, S0, C, r, s_d, s_c, diameters_var, x_var, y_var,
-                  sequential: bool = False):
+                  sequential: bool = False, time_mesh: tuple | None = None):
     """Final smoothing of N sessions at their tuned parameters: smoothed
     means (N, T, 3) and covariances (N, T, 3, 3). Every tensor carries the
-    leading session axis but the shared (8, 3) ``C``."""
+    leading session axis but the shared (8, 3) ``C``. With ``time_mesh``
+    the frame axis is split over its devices (the sequential oracle runs
+    unsharded)."""
     A, Q = _pupil_model(s_d, s_c, diameters_var, x_var, y_var)
-    smoother = kalman_smoother if sequential else kalman_smoother_parallel
-    res = smoother(ys, m0, S0, A, Q, C.expand(ys.shape[0], *C.shape), r)
+    Cs = C.expand(ys.shape[0], *C.shape)
+    if sequential:
+        res = kalman_smoother(ys, m0, S0, A, Q, Cs, r)
+    else:
+        from eks_tpu_torch.parallel.mesh import TimeShards
+
+        shards = None if time_mesh is None else TimeShards(time_mesh, ys.shape[1])
+        res = kalman_smoother_parallel(ys, m0, S0, A, Q, Cs, r, shards)
     return res.smoothed_means, res.smoothed_covs
 
 
@@ -524,7 +561,8 @@ def run_pupil_kalman_smoother(
     """Optimize [s_diam, s_com], then smooth the full sequence with
     time-varying R. Returns ([s_diam, s_com], ms (T,3), Vs (T,3,3)), the
     moments as host arrays. ``sequential`` runs the final pass through the
-    sequential filter and smoother instead of the parallel ones."""
+    sequential filter and smoother instead of the parallel ones. ``devices``
+    > 1 shards the frame axis of both stages over that many devices."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     s_d, s_c = pupil_optimize_smooth(
@@ -543,7 +581,7 @@ def run_pupil_kalman_smoother(
     ms, Vs = _pupil_smooth(
         *_tensors(dev, np.asarray(ys)[None], np.asarray(m0)[None], np.asarray(S0)[None], C,
                   r_np[None], [s_d], [s_c], [diameters_var], [x_var], [y_var]),
-        sequential=sequential,
+        sequential=sequential, time_mesh=_time_mesh(devices, dev),
     )
     ms, Vs = ms[0].cpu().numpy(), Vs[0].cpu().numpy()
     if timings is not None:

@@ -131,8 +131,9 @@ def fit_eks_mirrored_multicam(
     """Mirrored multi-camera fit: one CSV per seed holds all views as
     ``{kp}_{camera}`` columns; views are split out, smoothed jointly, and the
     per-camera outputs merged back into a single CSV. ``device`` is where the
-    pipeline runs ("cuda" by default); ``devices``/``partition`` (multi-device
-    sharding) are not ported yet.
+    pipeline runs ("cuda" by default); ``devices``/``partition`` shard the
+    smoothing step over that many devices along the keypoint or the time
+    axis.
 
     Returns:
         (final_df, s_finals, input_dfs_list, bodypart_list)

@@ -82,8 +82,9 @@ def fit_eks_singlecam(
             only; final smoothing always covers all frames.
         blocks: groups of keypoint indices sharing one ``s``.
         avg_mode / var_mode: ensemble consensus and variance modes.
-        devices / partition: multi-device sharding; not ported yet (only
-            None / "keypoint" are accepted).
+        devices / partition: shard the smoothing step over ``devices``
+            devices of ``device``'s type, along the keypoint axis (the
+            default) or the time axis (``parallel/mesh.py``).
         device: where the pipeline runs; "cuda" (the default) raises when
             no card is visible.
         timings: if a dict, the seconds of reading the CSVs into the marker

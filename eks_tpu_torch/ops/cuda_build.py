@@ -5,6 +5,8 @@ plain C interface, loaded with ``ctypes``. Libraries are built at first use
 into ``eks_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags, so an edited source rebuilds and a stale library is never
 loaded. ``build()`` starts one ``nvcc`` per missing library, all at once.
+Building and loading hold a lock, so a caller's threads that launch at once
+build and load each library once.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "build", "load"]
+__all__ = ["COUNT_LOCK", "KERNEL_SOURCES", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -36,6 +39,11 @@ _NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
+
+#: held by the kernel wrappers while they add to their launch counts, which
+#: a caller's threads may update at once
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -60,7 +68,11 @@ def build(names=None) -> dict:
     yet, one ``nvcc`` each, in parallel. Returns {name: (seconds, ptxas
     report)} for the libraries compiled by this call; raises with the
     compiler's output if any fails."""
-    names = list(KERNEL_SOURCES) if names is None else list(names)
+    with _LOCK:
+        return _build(list(KERNEL_SOURCES) if names is None else list(names))
+
+
+def _build(names: list) -> dict:
     todo = [n for n in names if not _library_path(n).exists()]
     if not todo:
         return {}
@@ -91,7 +103,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, building it first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_library_path(name)))
-        _LOADED[name] = lib
+        with _LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                build([name])
+                lib = _LOADED[name] = ctypes.CDLL(str(_library_path(name)))
     return lib

@@ -23,6 +23,14 @@ Pallas scan (``_use_pallas``) and runs XLA's ``associative_scan``; the port
 follows that dispatch by shape and runs the plain version on the card,
 counted in ``PLAIN_ROUTE_LAUNCHES`` (the multi-camera family at
 ``n_latent`` 4 and above).
+
+The carry combine of a time-sharded scan (``carry_combine``, the second
+entry of ``prefix_scan.cu``) combines every step of one shard's locally
+scanned chunk with the combination of the chunks before it in scan order;
+``parallel/mesh.py`` builds the sharded scans from it. It replaces no
+Pallas kernel: the JAX package carries those combines with XLA collectives.
+Beyond D = 3 it follows the scans' dispatch, the plain version on the card,
+counted apart in ``CARRY_PLAIN_ROUTE_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import ctypes
 import torch
 
 from eks_tpu_torch.ops import cuda_build
+from eks_tpu_torch.ops.linalg import jvp
 from eks_tpu_torch.ops.pkalman import (
     _combine_filter,
     _combine_smoother,
@@ -41,9 +50,14 @@ from eks_tpu_torch.ops.pkalman import (
 )
 
 __all__ = [
+    "CARRY_LAUNCHES_BY_INSTANCE",
     "LAUNCHES",
     "LAUNCHES_BY_INSTANCE",
+    "CARRY_PLAIN_ROUTE_LAUNCHES",
     "PLAIN_ROUTE_LAUNCHES",
+    "carry_combine",
+    "carry_combine_paired",
+    "carry_combine_plain",
     "check_scratch",
     "filter_prefix",
     "filter_prefix_paired",
@@ -69,6 +83,10 @@ LAUNCHES_BY_INSTANCE = {
 }
 #: scans of CUDA tensors beyond D = 3, run by the plain version on the card
 PLAIN_ROUTE_LAUNCHES = 0
+#: carry-combine kernel launches of every instance by (kind, paired, D)
+CARRY_LAUNCHES_BY_INSTANCE = dict.fromkeys(LAUNCHES_BY_INSTANCE, 0)
+#: carry combines of CUDA tensors beyond D = 3, run by the plain version
+CARRY_PLAIN_ROUTE_LAUNCHES = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -136,12 +154,15 @@ def check_scratch(name: str, x: torch.Tensor, shape: tuple, device=None) -> None
 def _lib():
     lib = cuda_build.load("prefix_scan")
     fn = lib.prefix_scan_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if fn.argtypes is None:  # the scan's argtypes last: a thread that sees them sees the others
         geo = lib.prefix_scan_geometry
         geo.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
         geo.restype = ctypes.c_int
+        carry = lib.carry_combine_f32
+        carry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        carry.restype = ctypes.c_int
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
@@ -208,8 +229,9 @@ def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool, scratch=None) -> t
                                     int(kind == "smoother"), int(paired), G, stream)
     if rc != 0:
         raise RuntimeError(f"prefix_scan kernel launch failed with CUDA error {rc}")
-    LAUNCHES += 1
-    LAUNCHES_BY_INSTANCE[(kind, paired, D)] += 1
+    with cuda_build.COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_INSTANCE[(kind, paired, D)] += 1
     return out
 
 
@@ -217,13 +239,18 @@ def _state_dim(n_planes: int, kind: str) -> int:
     return filter_state_dim(n_planes) if kind == "filter" else smoother_state_dim(n_planes)
 
 
-def _plain_route(planes: torch.Tensor, kind: str) -> bool:
-    """Whether a CUDA scan takes the plain version by shape: D > 3, where the
-    JAX package runs XLA's associative scan. Counted when it does."""
-    global PLAIN_ROUTE_LAUNCHES
+def _plain_route(planes: torch.Tensor, kind: str, carry: bool = False) -> bool:
+    """Whether a CUDA scan (or with ``carry``, a carry combine) takes the
+    plain version by shape: D > 3, where the JAX package runs XLA's
+    associative scan. Counted when it does."""
+    global PLAIN_ROUTE_LAUNCHES, CARRY_PLAIN_ROUTE_LAUNCHES
     if _state_dim(planes.shape[-2], kind) <= max(_CUDA_D):
         return False
-    PLAIN_ROUTE_LAUNCHES += 1
+    with cuda_build.COUNT_LOCK:
+        if carry:
+            CARRY_PLAIN_ROUTE_LAUNCHES += 1
+        else:
+            PLAIN_ROUTE_LAUNCHES += 1
     return True
 
 
@@ -240,12 +267,12 @@ def _dispatch_paired(planes, tangents, kind: str, plain):
         if tangents.shape != planes.shape or tangents.device != planes.device:
             raise ValueError("paired scan: planes and tangents must share shape and device")
         if _plain_route(planes, kind):
-            return torch.func.jvp(plain, (planes,), (tangents,))
+            return jvp(plain, (planes,), (tangents,))
         P = planes.shape[1]
         out = _scan_cuda(torch.cat([planes, tangents], dim=1), kind, True)
         return out[:, :P], out[:, P:]
     if planes.device.type == "cpu":
-        return torch.func.jvp(plain, (planes,), (tangents,))
+        return jvp(plain, (planes,), (tangents,))
     raise RuntimeError(f"no prefix scan for device {planes.device}")
 
 
@@ -270,3 +297,77 @@ def filter_prefix_paired(planes: torch.Tensor, tangents: torch.Tensor):
 def smoother_suffix_paired(planes: torch.Tensor, tangents: torch.Tensor):
     """(suffix, its tangent) of the smoother scan along ``tangents``."""
     return _dispatch_paired(planes, tangents, "smoother", smoother_suffix_plain)
+
+
+# --------------------------------------------------------------------------- #
+# the carry combine of a time-sharded scan
+# --------------------------------------------------------------------------- #
+def carry_combine_plain(carry: torch.Tensor, local: torch.Tensor, kind: str) -> torch.Tensor:
+    """Plain PyTorch version: every step of the (N, P, T) chunk ``local``
+    combined with the (N, P) ``carry``, the combination of the chunks before
+    it in scan order: ``_combine_filter(carry, local_t)`` for the filter,
+    ``_combine_smoother(carry, local_t)`` for the smoother (the carry holds
+    the chunks later in time)."""
+    combine = _combine_filter if kind == "filter" else _combine_smoother
+    return combine(carry[..., None].expand_as(local), local)
+
+
+def _carry_cuda(carry: torch.Tensor, local: torch.Tensor, kind: str, paired: bool) -> torch.Tensor:
+    """Launch the carry kernel's (kind, paired) instance: ``carry`` (N, W * P)
+    and ``local`` (N, W * P, T), W = 2 when paired (primal, then tangent)."""
+    if local.dtype != torch.float32 or carry.dtype != torch.float32:
+        raise TypeError("carry_combine kernel takes float32")
+    if local.ndim != 3 or not local.is_contiguous() or not carry.is_contiguous():
+        raise ValueError("carry_combine kernel takes a contiguous (N, P, T) chunk and (N, P) carry")
+    N, rows, T = local.shape
+    if tuple(carry.shape) != (N, rows) or carry.device != local.device:
+        raise ValueError(f"carry must be ({N}, {rows}) on {local.device}, got {tuple(carry.shape)} on {carry.device}")
+    if paired and rows % 2:
+        raise ValueError(f"paired planes hold P primal and P tangent planes, got {rows}")
+    D = _state_dim(rows // 2 if paired else rows, kind)
+    if D not in _CUDA_D:
+        raise NotImplementedError(f"carry_combine kernel is built for D in {_CUDA_D}, got D={D}")
+    out = torch.empty_like(local)
+    if N == 0 or T == 0:
+        return out
+    with torch.cuda.device(local.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().carry_combine_f32(carry.data_ptr(), local.data_ptr(), out.data_ptr(), N, T, D,
+                                      int(kind == "smoother"), int(paired), stream)
+    if rc != 0:
+        raise RuntimeError(f"carry_combine kernel launch failed with CUDA error {rc}")
+    with cuda_build.COUNT_LOCK:
+        CARRY_LAUNCHES_BY_INSTANCE[(kind, paired, D)] += 1
+    return out
+
+
+def carry_combine(carry: torch.Tensor, local: torch.Tensor, kind: str) -> torch.Tensor:
+    """(N, P, T) chunk ``local`` combined step by step with the (N, P)
+    ``carry``: the kernel on a CUDA tensor (the plain version beyond D = 3,
+    counted in ``CARRY_PLAIN_ROUTE_LAUNCHES``), the plain version on a CPU
+    tensor."""
+    if local.device.type == "cuda":
+        if _plain_route(local, kind, carry=True):
+            return carry_combine_plain(carry, local, kind)
+        return _carry_cuda(carry, local, kind, False)
+    if local.device.type == "cpu":
+        return carry_combine_plain(carry, local, kind)
+    raise RuntimeError(f"no carry combine for device {local.device}")
+
+
+def carry_combine_paired(carry, dcarry, local, dlocal, kind: str):
+    """(combined, its tangent) of ``carry_combine`` along the tangents
+    ``dcarry`` and ``dlocal``: on the card one launch on the pairs."""
+    def plain(c, x):
+        return carry_combine_plain(c, x, kind)
+
+    if local.device.type == "cuda":
+        if _plain_route(local, kind, carry=True):
+            return jvp(plain, (carry, local), (dcarry, dlocal))
+        P = local.shape[1]
+        out = _carry_cuda(torch.cat([carry, dcarry], dim=1).contiguous(),
+                          torch.cat([local, dlocal], dim=1), kind, True)
+        return out[:, :P], out[:, P:]
+    if local.device.type == "cpu":
+        return jvp(plain, (carry, local), (dcarry, dlocal))
+    raise RuntimeError(f"no carry combine for device {local.device}")

@@ -247,8 +247,9 @@ def fused_nll(table: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if y.device.type != "cuda":
         raise RuntimeError(f"no fused NLL for device {y.device}")
     out = _launch(table, None, y)
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(_table_dims(table.shape[1], y.shape[1]), y.shape[1], False)] += 1
+    with cuda_build.COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_SHAPE[(_table_dims(table.shape[1], y.shape[1]), y.shape[1], False)] += 1
     return out[0]
 
 
@@ -261,8 +262,9 @@ def fused_nll_paired(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor)
     if y.device.type != "cuda":
         raise RuntimeError(f"no fused NLL for device {y.device}")
     out = _launch(table, dtable, y)
-    PAIRED_LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(_table_dims(table.shape[1], y.shape[1]), y.shape[1], True)] += 1
+    with cuda_build.COUNT_LOCK:
+        PAIRED_LAUNCHES += 1
+        LAUNCHES_BY_SHAPE[(_table_dims(table.shape[1], y.shape[1]), y.shape[1], True)] += 1
     return out[0], out[1]
 
 
@@ -282,7 +284,8 @@ def fused_nll_tv(table: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
     if yr.device.type != "cuda":
         raise RuntimeError(f"no fused NLL for device {yr.device}")
     out = _launch(table, None, yr, tv=True)
-    TV_LAUNCHES += 1
+    with cuda_build.COUNT_LOCK:
+        TV_LAUNCHES += 1
     return out[0]
 
 
@@ -296,7 +299,8 @@ def fused_nll_tv_paired(table: torch.Tensor, dtable: torch.Tensor, yr: torch.Ten
     if yr.device.type != "cuda":
         raise RuntimeError(f"no fused NLL for device {yr.device}")
     out = _launch(table, dtable, yr, tv=True)
-    TV_PAIRED_LAUNCHES += 1
+    with cuda_build.COUNT_LOCK:
+        TV_PAIRED_LAUNCHES += 1
     return out[0], out[1]
 
 

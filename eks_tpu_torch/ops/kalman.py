@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from eks_tpu_torch.ops.linalg import mvn_logpdf, psd_solve
+from eks_tpu_torch.ops.linalg import jvp, mvn_logpdf, psd_solve
 
 __all__ = ["FilterResult", "SmootherResult", "emission_jacobian", "emission_parts", "kalman_filter", "kalman_smoother"]
 
@@ -79,7 +79,7 @@ def emission_jacobian(h_fn: Callable, x: torch.Tensor) -> torch.Tensor:
     # c - c, not zeros_like: under an enclosing jvp the zeros then carry a
     # tangent of their own, and stay off the slow path there too
     zeros = tuple(c - c for c in consts)
-    J = torch.func.jvp(fn, (*consts, points), (*zeros, units))[1]  # (D, P, O)
+    J = jvp(fn, (*consts, points), (*zeros, units))[1]  # (D, P, O)
     return J.permute(1, 2, 0).reshape(*x.shape[:-1], J.shape[-1], D)
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import functools
 import math
 import operator
+import threading
 
 import torch
 
@@ -67,6 +68,19 @@ def psum(terms):
     """Sum of tensors without the leading Python 0 of ``sum``, which under
     forward mode takes the slow path ``one_plus`` describes."""
     return functools.reduce(operator.add, terms)
+
+
+_JVP_LOCK = threading.RLock()
+
+
+def jvp(fn, primals, tangents):
+    """``torch.func.jvp`` under a process-wide lock. Forward-mode AD keeps
+    its dual level per process, not per thread: one thread leaving its jvp
+    ends the level another thread's jvp is inside ("no level exists"). A
+    caller's threads take turns here; a jvp nested inside another in one
+    thread re-enters."""
+    with _JVP_LOCK:
+        return torch.func.jvp(fn, primals, tangents)
 
 
 def one_plus(x: torch.Tensor) -> torch.Tensor:

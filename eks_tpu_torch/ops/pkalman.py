@@ -40,10 +40,11 @@ import torch
 from eks_tpu_torch.ops.kalman import (
     FilterResult, SmootherResult, _as_time_varying, emission_jacobian, emission_parts,
 )
-from eks_tpu_torch.ops.linalg import mvn_logpdf, one_plus, psd_solve, psum, small_inv
+from eks_tpu_torch.ops.linalg import jvp, mvn_logpdf, one_plus, psd_solve, psum, small_inv
 
 __all__ = [
     "associative_scan",
+    "table_nll_tv_paired_sharded",
     "ekf_nll_paired_batched",
     "ekf_nll_parallel_planes_batched",
     "ekf_parallel",
@@ -220,10 +221,11 @@ def _combine_filter(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 
 def _combine_filter_mats(x1: torch.Tensor, x2: torch.Tensor, D: int) -> torch.Tensor:
-    """``_combine_filter`` on (..., T, D, D) matrices with the library
-    inverse, as the JAX package's ``_combine_filter_aos`` runs every D that
-    its Pallas scan does not take: at D > 3 an unrolled plane algebra is
-    hundreds of small operations a combine."""
+    """``_combine_filter`` on (..., T, D, D) matrices (``small_inv``: the
+    closed form to D = 3, the library inverse above), as the JAX package's
+    ``_combine_filter_aos`` runs every D that its Pallas scan does not take:
+    at D > 3 an unrolled plane algebra is hundreds of small operations a
+    combine. The carries of a time-sharded scan take it at every D."""
     dd = D * D
 
     def parts(x):
@@ -234,7 +236,7 @@ def _combine_filter_mats(x1: torch.Tensor, x2: torch.Tensor, D: int) -> torch.Te
 
     A1, b1, C1, n1, J1 = parts(x1)
     A2, b2, C2, n2, J2 = parts(x2)
-    Z = torch.linalg.inv(torch.eye(D, dtype=x1.dtype, device=x1.device) + C1 @ J2)
+    Z = small_inv(torch.eye(D, dtype=x1.dtype, device=x1.device) + C1 @ J2)
     A2Z = A2 @ Z
     A1tZt = A1.transpose(-1, -2) @ Z.transpose(-1, -2)
     out = (A2Z @ A1, A2Z @ (b1 + C1 @ n2) + b2, A2Z @ C1 @ A2.transpose(-1, -2) + C2,
@@ -251,6 +253,11 @@ def _aos_planes(*leaves) -> torch.Tensor:
 def _set_first(row: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
     """Replace time step 0 of an (N, T) plane with the (N,) ``first``."""
     return torch.cat([first[:, None].to(row.dtype), row[:, 1:]], dim=1)
+
+
+def _first_step_mask(T: int, device, first: bool = True) -> torch.Tensor:
+    """(T,) booleans, true at step 0 of a sequence's first chunk only."""
+    return torch.arange(T, device=device) == (0 if first else -1)
 
 
 # --------------------------------------------------------------------------- #
@@ -338,39 +345,35 @@ def _unpack_scalars(table: torch.Tensor, D: int, O: int):
     )
 
 
-def _table_planes(table: torch.Tensor, y: torch.Tensor, D: int) -> torch.Tensor:
+def _table_planes(table: torch.Tensor, y: torch.Tensor, D: int, first: bool = True) -> torch.Tensor:
     """(N, P, T) filtering-element planes built from the scalar table and the
     observation planes y (N, O, T), row for row what kernel A builds: every
     element matrix is time-invariant, b and eta are O-term combinations of
-    the observation columns, and t = 0 assimilates y_0 against the prior."""
+    the observation columns, and t = 0 assimilates y_0 against the prior.
+    Without ``first`` (a later chunk of a time-sharded sequence) step 0 is
+    an ordinary step."""
     O = y.shape[1]
     offs, _ = _scalar_offsets(D, O)
     T = y.shape[-1]
+    at_first = _set_first if first else (lambda row, _: row)
 
     def W(name, k):
         return table[:, offs[name] + k, None]
 
-    def const(name, k, first):
-        return _set_first(W(name, k).expand(-1, T), first)
+    def const(name, k, value):
+        return at_first(W(name, k).expand(-1, T), value)
 
     zero = torch.zeros_like(table[:, 0])
     rows = [const("A_el", k, zero) for k in range(D * D)]
     for d in range(D):  # b = K_c y_t | b_first
         b = psum(W("K_c", d * O + o) * y[:, o] for o in range(O))
-        rows.append(_set_first(b, table[:, offs["b_first"] + d]))
+        rows.append(at_first(b, table[:, offs["b_first"] + d]))
     rows += [const("C_el", k, table[:, offs["C_first"] + k]) for k in range(D * D)]
     for d in range(D):  # eta = M_cᵀ y_t, zero at t=0
         e = psum(W("M_cT", d * O + o) * y[:, o] for o in range(O))
-        rows.append(_set_first(e, zero))
+        rows.append(at_first(e, zero))
     rows += [const("J_el", k, zero) for k in range(D * D)]
     return torch.stack(rows, dim=1)
-
-
-def _plane_nll_pre(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
-    """Constant-diagonal-R filtering elements as (N, P, T) planes: the
-    per-lane scalar table expanded over time."""
-    table = _pack_scalars(ys[:, 0], m0, S0, A, Q, C, r)
-    return _table_planes(table, ys.transpose(1, 2), m0.shape[-1])
 
 
 # --------------------------------------------------------------------------- #
@@ -485,20 +488,24 @@ def _plane_nll_pre_tv(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
     return _table_planes_tv(table, ys.transpose(1, 2), r.transpose(1, 2), m0.shape[-1])
 
 
-def _make_filter_elements(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
+def _make_filter_elements(ys, m0, S0, A, Q, C, r, first: bool = True) -> torch.Tensor:
     """Per-step filtering elements as (N, P, T) planes. ``r`` is the
-    diagonal observation noise, (N, O) constant or (N, T, O) time-varying;
-    the time-varying branch solves each step's innovation covariance."""
+    diagonal observation noise, (N, O) constant (the per-lane scalar table
+    expanded over time) or (N, T, O) time-varying (each step solves its
+    innovation covariance). Without ``first`` (a later chunk of a
+    time-sharded sequence) step 0 is an ordinary step."""
     if r.ndim == 2:
-        return _plane_nll_pre(ys, m0, S0, A, Q, C, r)
-    return _make_filter_elements_tv(ys, m0, S0, A, Q, C[:, None].expand(-1, ys.shape[1], -1, -1), r)
+        return _table_planes(_pack_scalars(ys[:, 0], m0, S0, A, Q, C, r), ys.transpose(1, 2), m0.shape[-1], first)
+    return _make_filter_elements_tv(ys, m0, S0, A, Q, C[:, None].expand(-1, ys.shape[1], -1, -1), r, first)
 
 
-def _make_filter_elements_tv(ys, m0, S0, A, Q, Cs, r) -> torch.Tensor:
+def _make_filter_elements_tv(ys, m0, S0, A, Q, Cs, r, first: bool = True) -> torch.Tensor:
     """Filtering elements (N, P, T) in the covariance form with a per-step
     emission Cs (N, T, O, D) and time-varying diagonal noise r (N, T, O):
     each step solves its O x O innovation covariance. The final pass's form,
-    linear (Cs constant over time) or relinearized (the iterated EKF)."""
+    linear (Cs constant over time) or relinearized (the iterated EKF).
+    Without ``first`` (a later chunk of a time-sharded sequence) step 0 is an
+    ordinary step and the prior is not read."""
     D = m0.shape[-1]
     eye = torch.eye(D, dtype=ys.dtype, device=ys.device)
     Cst = Cs.transpose(-1, -2)
@@ -513,6 +520,8 @@ def _make_filter_elements_tv(ys, m0, S0, A, Q, Cs, r) -> torch.Tensor:
     CAt = CA.transpose(-1, -2)
     eta_el = (CAt @ psd_solve(S, ys)[..., None])[..., 0]
     J_el = CAt @ psd_solve(S, CA)
+    if not first:
+        return _aos_planes(A_el, b_el, C_el, eta_el, J_el)
 
     # first element: update the prior (m0, S0) with y_0, no transition
     C0 = Cs[:, 0]
@@ -534,19 +543,19 @@ def _run_filter_prefix(planes: torch.Tensor):
     (N, T, D) and covariances (N, T, D, D)."""
     from eks_tpu_torch.ops.fused_filter import filter_prefix
 
-    D = filter_state_dim(planes.shape[1])
-    out = filter_prefix(planes)
-    dd = D * D
-    N, _, T = out.shape
-    ms = out[:, dd:dd + D].transpose(1, 2)
-    Ps = out[:, dd + D:2 * dd + D].transpose(1, 2).reshape(N, T, D, D)
-    return ms, Ps
+    return _filtered_moments(filter_prefix(planes), filter_state_dim(planes.shape[1]))
 
 
-def _predictive_moments(ms, Ps, m0, S0, A, Q):
+def _predictive_moments(ms, Ps, m0, S0, A, Q, halo=None):
     """One-step-ahead predictive moments aligned with observations: t = 0
-    uses the prior, t >= 1 predicts from the t-1 filtered moments."""
+    uses the prior, t >= 1 predicts from the t-1 filtered moments. With
+    ``halo``, the filtered (mean (N, D), covariance (N, D, D)) of the step
+    before a later chunk of a time-sharded sequence, t = 0 predicts from it."""
     At = A.transpose(-1, -2)[:, None]
+    if halo is not None:
+        m_prev = torch.cat([halo[0][:, None], ms[:, :-1]], dim=1)
+        P_prev = torch.cat([halo[1][:, None], Ps[:, :-1]], dim=1)
+        return (m_prev[:, :, None, :] @ At)[:, :, 0], A[:, None] @ P_prev @ At + Q[:, None]
     pm = (ms[:, :-1, None, :] @ At)[:, :, 0]
     pP = A[:, None] @ Ps[:, :-1] @ At + Q[:, None]
     return (
@@ -555,20 +564,52 @@ def _predictive_moments(ms, Ps, m0, S0, A, Q):
     )
 
 
-def kalman_filter_parallel(ys, m0, S0, A, Q, C, r_diag, compute_ll: bool = True) -> FilterResult:
+def _linear_ll(ms, Ps, m0, S0, A, Q, C, ys, r, halo=None) -> torch.Tensor:
+    """The exact marginal log-likelihood (N,) of observations ys (N, T, O)
+    with emission C (N, O, D) and diagonal noise r (N, T, O), summed over
+    the steps, from the filtered moments (N, T, D), (N, T, D, D) (with
+    ``halo``, of a later chunk of a time-sharded sequence)."""
+    pred_m, pred_P = _predictive_moments(ms, Ps, m0, S0, A, Q, halo)
+    Cb = C[:, None]
+    S = Cb @ pred_P @ Cb.transpose(-1, -2) + torch.diag_embed(r)
+    return mvn_logpdf(ys, (Cb @ pred_m[..., None])[..., 0], S).sum(dim=1)
+
+
+def _linear_filter(ys, m0, S0, A, Q, C, r_diag, shards, compute_ll: bool):
+    """The linear parallel filter over time shards: per shard its filtered
+    (means, covariances) and its (m0, S0, A, Q, C) on its device, and with
+    ``compute_ll`` the log-likelihood (N,) summed in shard order on the
+    device of ``ys``, else None."""
+    from eks_tpu_torch.parallel.mesh import filter_prefix_sharded
+
+    D = m0.shape[-1]
+    ys_c = shards.split(ys, 1)
+    r_c = shards.replicate(r_diag) if r_diag.ndim == 2 else shards.split(r_diag, 1)
+    prm = list(zip(*(shards.replicate(x) for x in (m0, S0, A, Q, C))))
+    outs = filter_prefix_sharded(
+        shards.map(lambda i, y_, r_: _make_filter_elements(y_, *prm[i], r_, first=i == 0), ys_c, r_c))
+    fm = shards.map(lambda i, o: _filtered_moments(o, D), outs)
+    if not compute_ll:
+        return fm, prm, None
+
+    def ll(i, f, before, y_, r_):
+        return _linear_ll(*f, *prm[i], y_, _as_time_varying(r_, y_.shape[1]), halo=before)
+
+    return fm, prm, shards.total(shards.map(ll, fm, _befores(fm, shards), ys_c, r_c), ys.device)
+
+
+def kalman_filter_parallel(ys, m0, S0, A, Q, C, r_diag, compute_ll: bool = True, shards=None) -> FilterResult:
     """O(log T)-depth linear Kalman filter over N lanes: ys (N, T, O), every
     parameter with a leading N, ``r_diag`` (N, O) or (N, T, O). With
     ``compute_ll`` the exact per-step marginal log-likelihood is summed
-    into (N,)."""
-    ms, Ps = _run_filter_prefix(_make_filter_elements(ys, m0, S0, A, Q, C, r_diag))
-    if not compute_ll:
-        return FilterResult(None, ms, Ps)
-    r = _as_time_varying(r_diag, ys.shape[1])
-    pred_m, pred_P = _predictive_moments(ms, Ps, m0, S0, A, Q)
-    Cb = C[:, None]
-    S = Cb @ pred_P @ Cb.transpose(-1, -2) + torch.diag_embed(r)
-    ll = mvn_logpdf(ys, (Cb @ pred_m[..., None])[..., 0], S).sum(dim=1)
-    return FilterResult(ll, ms, Ps)
+    into (N,). ``shards`` (``parallel.mesh.TimeShards``, the whole sequence
+    on the device of ``ys`` unless given) splits the time axis: each chunk's
+    elements on its device (the prior in the first chunk only), the sharded
+    filter scan, a chunk's first prediction from the filtered moments
+    before it; the results are joined on the device of ``ys``."""
+    shards = _one_shard(ys) if shards is None else shards
+    fm, _, ll = _linear_filter(ys, m0, S0, A, Q, C, r_diag, shards, compute_ll)
+    return FilterResult(ll, *(shards.gather([f[j] for f in fm], 1, ys.device) for j in range(2)))
 
 
 # --------------------------------------------------------------------------- #
@@ -580,11 +621,15 @@ def _plane_split_moments(out: torch.Tensor, D: int):
     return _vec_planes(out, dd, D), _mat_planes(out, dd + D, D)
 
 
-def _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q):
+def _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q, halo=None):
     """Predictive moments from filtered-moment planes: A m_{t-1} and
     A P_{t-1} Aᵀ + Q for t >= 1, the prior (m0, S0) at t = 0. Parameters are
-    (N, ...) tensors; planes are (N, T)."""
+    (N, ...) tensors; planes are (N, T). With ``halo``, the filtered (mean
+    (N, D), covariance (N, D, D)) of the step before a later chunk of a
+    time-sharded sequence, t = 0 predicts from it."""
     D = len(m_pl)
+    m_before, P_before = (m0, S0) if halo is None else halo
+    at_first = _set_first if halo is None else (lambda row, _: row)
 
     def col(x):
         return x[:, None]
@@ -592,15 +637,15 @@ def _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q):
     def shifted(p, first):
         return torch.cat([first[:, None], p[:, :-1]], dim=1)
 
-    m_prev = [shifted(m_pl[i], m0[:, i]) for i in range(D)]
-    P_prev = [[shifted(P_pl[i][j], S0[:, i, j]) for j in range(D)] for i in range(D)]
+    m_prev = [shifted(m_pl[i], m_before[:, i]) for i in range(D)]
+    P_prev = [[shifted(P_pl[i][j], P_before[:, i, j]) for j in range(D)] for i in range(D)]
     pred_m = [
-        _set_first(psum(col(A[:, i, j]) * m_prev[j] for j in range(D)), m0[:, i])
+        at_first(psum(col(A[:, i, j]) * m_prev[j] for j in range(D)), m0[:, i])
         for i in range(D)
     ]
     pred_P = [
         [
-            _set_first(
+            at_first(
                 psum(
                     col(A[:, i, k]) * P_prev[k][l] * col(A[:, j, l])
                     for k in range(D)
@@ -646,9 +691,10 @@ def _plane_innovation_ll(pred_m, pred_P, ys, C, r) -> torch.Tensor:
     return (-0.5 * quad - logdet - 0.5 * O * _LOG_2PI).sum(dim=1)
 
 
-def _plane_nll_post(m_pl, P_pl, ys, m0, S0, A, Q, C, r) -> torch.Tensor:
-    """Predictive moments + Gaussian log-density from filtered planes."""
-    pred_m, pred_P = _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q)
+def _plane_nll_post(m_pl, P_pl, ys, m0, S0, A, Q, C, r, halo=None) -> torch.Tensor:
+    """Predictive moments + Gaussian log-density from filtered planes (with
+    ``halo``, of a later chunk of a time-sharded sequence)."""
+    pred_m, pred_P = _plane_pred_moments(m_pl, P_pl, m0, S0, A, Q, halo)
     return _plane_innovation_ll(pred_m, pred_P, ys, C, r)
 
 
@@ -671,26 +717,38 @@ def _staged_nll(table: torch.Tensor, y: torch.Tensor, prefix=None) -> torch.Tens
     return _plane_nll_post(m_pl, P_pl, y.transpose(1, 2), *_unpack_scalars(table, D, O))
 
 
-def _staged_nll_paired(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor):
+def _staged_nll_paired(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor, shards=None):
     """(ll (N,), d ll (N,)) of the staged plane NLL along the table tangent
     ``dtable``: the element planes and their tangents from ``torch.func.jvp``,
     both through ONE paired lane-batched scan
     (``fused_filter.filter_prefix_paired``), and the epilogue under
     ``torch.func.jvp`` again. The forward-mode pairing of the JAX package's
-    staged path."""
-    from eks_tpu_torch.ops.fused_filter import filter_prefix_paired
-
+    staged path. ``shards`` (``parallel.mesh.TimeShards``, the whole
+    sequence on the device of ``y`` unless given) splits the time axis of
+    the observation planes y (N, O, T): what the s-optimizer runs with the
+    time axis sharded, where kernel A, which fuses one lane's whole T,
+    cannot span the shards (as the JAX package turns its Pallas off
+    there)."""
     O = y.shape[1]
     D = _table_dims(table.shape[1], O)
-    y_to = y.transpose(1, 2).contiguous()
-    rows, drows = _jvp_or_call(lambda tab, y_: _table_planes(tab, y_, D), (table, y.contiguous()), (dtable, None))
-    out, dout = filter_prefix_paired(rows.contiguous(), drows.contiguous())
+    shards = _one_shard(y.transpose(1, 2)) if shards is None else shards
+    y_c = shards.split(y, 2)
+    tab, dtab = shards.replicate(table), shards.replicate(dtable)
 
-    def post(scanned, tab, y_):
-        m_pl, P_pl = _plane_split_moments(scanned, D)
-        return _plane_nll_post(m_pl, P_pl, y_, *_unpack_scalars(tab, D, O))
+    def build(i):
+        return _jvp_or_call(lambda t, y_: _table_planes(t, y_, D, first=i == 0),
+                            (tab[i], y_c[i].contiguous()), (dtab[i], None))
 
-    return _jvp_or_call(post, (out, table, y_to), (dout, dtable, None))
+    def post(i, scanned, halo):
+        def fn(out, t, y_, *h):
+            m_pl, P_pl = _plane_split_moments(out, D)
+            return _plane_nll_post(m_pl, P_pl, y_, *_unpack_scalars(t, D, O), halo=h or None)
+
+        h, dh = ((), ()) if halo is None else halo
+        return _jvp_or_call(fn, (scanned[0], tab[i], y_c[i].transpose(1, 2).contiguous(), *h),
+                            (scanned[1], dtab[i], None, *dh))
+
+    return _paired_nll_shards(shards, D, build, post, table.device)
 
 
 def filter_nll_paired_batched(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor):
@@ -751,10 +809,10 @@ def _jvp_or_call(fn, primals, tangents):
     if tangents is None:
         return fn(*primals), None
     tangents = tuple(torch.zeros_like(p) if t is None else t for p, t in zip(primals, tangents))
-    return torch.func.jvp(fn, tuple(primals), tangents)
+    return jvp(fn, tuple(primals), tangents)
 
 
-def _ekf_info_elements(Hs, ys, r, A, prior_q, prior_0):
+def _ekf_info_elements(Hs, ys, r, A, prior_q, prior_0, first: bool = True):
     """Information-form filtering elements (N, P, T) of the relinearized
     surrogate: per-step emission Hs (N, T, O, D), observations ys and
     diagonal noise r (N, T, O), transition A (N, D, D), and the information
@@ -762,10 +820,11 @@ def _ekf_info_elements(Hs, ys, r, A, prior_q, prior_0):
     algebra of ``_table_planes_tv`` (kernel C's elements) in matrix form,
     batched over lanes and steps: tens of operations, not the thousands of
     the unrolled planes, since the optimizer runs it under ``torch.func.jvp``
-    every sweep."""
+    every sweep. Without ``first`` (a later chunk of a time-sharded
+    sequence) step 0 is an ordinary step."""
     Qi, QiA = prior_q
     S0i, S0i_m0 = prior_0
-    t0 = (torch.arange(ys.shape[1], device=ys.device) == 0)[:, None, None]
+    t0 = _first_step_mask(ys.shape[1], ys.device, first)[:, None, None]
     HtRi = (Hs * torch.reciprocal(r)[..., None]).transpose(-1, -2)  # (N, T, D, O)
     W = HtRi @ Hs
     v = HtRi @ ys[..., None]
@@ -786,7 +845,33 @@ def _filtered_moments(out: torch.Tensor, D: int):
     return out[:, dd:dd + D].transpose(1, 2), out[:, dd + D:2 * dd + D].transpose(1, 2).reshape(N, T, D, D)
 
 
-def _ekf_nll(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps):
+def _one_shard(x: torch.Tensor):
+    """The whole sequence of ``x`` as one time shard on its device."""
+    from eks_tpu_torch.parallel.mesh import TimeShards
+
+    return TimeShards((x.device,), x.shape[1])
+
+
+def _last_filtered(out: torch.Tensor, D: int):
+    """The filtered (mean (N, D), covariance (N, D, D)) at the last step of a
+    scanned (N, P, T) filtering table."""
+    dd = D * D
+    return out[:, dd:dd + D, -1], out[:, dd + D:2 * dd + D, -1].reshape(out.shape[0], D, D)
+
+
+def _halos(outs: list, D: int) -> list:
+    """Per time shard, from its scanned (table, tangent or None) pairs, the
+    filtered moments of the step before its chunk and their tangents, on the
+    chunk's device: None for the first shard, else ((m, P), (dm, dP) or ())."""
+    halos = [None]
+    for (prev, dprev), (cur, _) in zip(outs[:-1], outs[1:]):
+        h = tuple(x.to(cur.device) for x in _last_filtered(prev, D))
+        dh = () if dprev is None else tuple(x.to(cur.device) for x in _last_filtered(dprev, D))
+        halos.append((h, dh))
+    return halos
+
+
+def _ekf_nll(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps, shards=None):
     """The iterated-EKF NLL (N,) and, with the tangent ``dQ`` of Q, its
     derivative (N,), else None. Each sweep builds the relinearized
     information-form elements at x̄ (``_ekf_info_elements``), scans them
@@ -795,29 +880,42 @@ def _ekf_nll(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps):
     so its tangent dx̄ rides along: the derivative is that of the whole
     loss, not of the last sweep alone. The epilogue is the exact EKF density
     at the last predicted trajectory. Every tensor a stage reads is one of
-    its primals (``_jvp_or_call``)."""
-    from eks_tpu_torch.ops.fused_filter import filter_prefix, filter_prefix_paired
+    its primals (``_jvp_or_call``). With ``shards`` (``parallel.mesh.
+    TimeShards``) the time axis is split over them: each chunk's stages run
+    on its device, the scans are the sharded ones, and a chunk's first
+    prediction reads the filtered moments before it (its halo)."""
+    from eks_tpu_torch.parallel.mesh import filter_prefix_paired_sharded, filter_prefix_sharded
 
     T = ys.shape[1]
     D = m0.shape[-1]
+    shards = _one_shard(ys) if shards is None else shards
     h_call, h_consts = emission_parts(h_fn)
-    consts = tuple(k.contiguous() for k in (  # a primal may not be an expanded view
-        ys, _as_time_varying(r, T), m0, S0, A, *_prior_information(m0, S0), *h_consts))
+    fixed = (m0, S0, A, *_prior_information(m0, S0), *h_consts)
+    consts = [  # a primal may not be an expanded view
+        tuple(k.contiguous() for k in (y_, r_, *(f.to(dev) for f in fixed)))
+        for y_, r_, dev in zip(shards.split(ys, 1), shards.split(_as_time_varying(r, T), 1), shards.devices)
+    ]
+    Q_c, dQ_c = shards.replicate(Q), shards.replicate(dQ)
     paired = dQ is not None
 
     def parts(k):
         ys_, rt, m0_, S0_, A_, S0i, S0i_m0, *hc = k
         return ys_, rt, m0_, S0_, A_, (S0i, S0i_m0), functools.partial(h_call, *hc)
 
-    def planes(Q_, x_, *k):
-        ys_, rt, _, _, A_, prior_0, h = parts(k)
-        Hs, y_eff = _relinearize(h, ys_, x_)
-        Qi = small_inv(Q_)
-        return _ekf_info_elements(Hs, y_eff, rt, A_, (Qi, Qi @ A_), prior_0)
+    def planes(first):
+        def fn(Q_, x_, *k):
+            ys_, rt, _, _, A_, prior_0, h = parts(k)
+            Hs, y_eff = _relinearize(h, ys_, x_)
+            Qi = small_inv(Q_)
+            return _ekf_info_elements(Hs, y_eff, rt, A_, (Qi, Qi @ A_), prior_0, first=first)
+        return fn
 
-    def predicted(out_, Q_, *k):
-        _, _, m0_, S0_, A_, _, _ = parts(k)
-        return _predictive_moments(*_filtered_moments(out_, D), m0_, S0_, A_, Q_)
+    def predicted(with_halo):
+        def fn(out_, Q_, *rest):
+            halo, k = (rest[:2], rest[2:]) if with_halo else (None, rest)
+            _, _, m0_, S0_, A_, _, _ = parts(k)
+            return _predictive_moments(*_filtered_moments(out_, D), m0_, S0_, A_, Q_, halo)
+        return fn
 
     def epilogue(pm, pP, *k):
         ys_, rt, *_, h = parts(k)
@@ -825,41 +923,87 @@ def _ekf_nll(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps):
         return mvn_logpdf(ys_, h(pm), H @ pP @ H.transpose(-1, -2) + torch.diag_embed(rt)).sum(dim=1)
 
     def tangents(*t):
-        return (*t, *(None,) * len(consts)) if paired else None
+        return (*t, *(None,) * len(consts[0])) if paired else None
 
-    pred = (x_init.contiguous(), None)
-    d_pred = (torch.zeros_like(pred[0]), None) if paired else (None, None)
+    def sweep_planes(i, x_, dx_):
+        return _jvp_or_call(planes(i == 0), (Q_c[i], x_, *consts[i]), tangents(dQ_c[i], dx_))
+
+    def sweep_predicted(i, scanned, halo):
+        h, dh = ((), ()) if halo is None else halo
+        pred, d_pred = _jvp_or_call(predicted(halo is not None), (scanned[0], Q_c[i], *h, *consts[i]),
+                                    tangents(scanned[1], dQ_c[i], *dh))
+        return pred, d_pred if paired else (None, None)
+
+    x_c = [x.contiguous() for x in shards.split(x_init, 1)]
+    pred = [(x, None) for x in x_c]
+    d_pred = [(torch.zeros_like(x), None) if paired else (None, None) for x in x_c]
     for _ in range(n_sweeps):
-        el, d_el = _jvp_or_call(planes, (Q, pred[0], *consts), tangents(dQ, d_pred[0]))
+        el = shards.map(lambda i, p, dp: sweep_planes(i, p[0], dp[0]), pred, d_pred)
         if paired:
-            out, d_out = filter_prefix_paired(el, d_el.contiguous())
+            outs = filter_prefix_paired_sharded([e[0] for e in el], [e[1].contiguous() for e in el])
         else:
-            out, d_out = filter_prefix(el), None
-        pred, d_pred = _jvp_or_call(predicted, (out, Q, *consts), tangents(d_out, dQ))
-        d_pred = d_pred if paired else (None, None)
+            outs = [(o, None) for o in filter_prefix_sharded([e[0] for e in el])]
+        pred, d_pred = zip(*shards.map(sweep_predicted, outs, _halos(outs, D)))
 
-    return _jvp_or_call(epilogue, (*pred, *consts), tangents(*d_pred))
+    lls = shards.map(lambda i, p, dp: _jvp_or_call(epilogue, (*p, *consts[i]), tangents(*dp)), pred, d_pred)
+    ll = shards.total([x[0] for x in lls], ys.device)
+    return ll, shards.total([x[1] for x in lls], ys.device) if paired else None
 
 
-def ekf_nll_parallel_planes_batched(ys, m0, S0, A, Q, h_fn, r, x_init, n_sweeps: int = 3) -> torch.Tensor:
+def ekf_nll_parallel_planes_batched(ys, m0, S0, A, Q, h_fn, r, x_init, n_sweeps: int = 3,
+                                    shards=None) -> torch.Tensor:
     """Iterated-EKF marginal log-likelihoods (N,) of N lanes, plane-native:
     ys (N, T, O), parameters with a leading N, ``h_fn: (..., D) -> (..., O)``, r
     (N, O) constant or (N, T, O), x_init (N, T, D) the first linearization
     trajectory. ``n_sweeps = k`` matches ``ekf_parallel`` with
-    ``n_iters = k - 1`` (the same fixed point, the sequential EKF)."""
-    return _ekf_nll(ys, m0, S0, A, Q, None, h_fn, r, x_init, n_sweeps)[0]
+    ``n_iters = k - 1`` (the same fixed point, the sequential EKF). With
+    ``shards`` the time axis is split over them."""
+    return _ekf_nll(ys, m0, S0, A, Q, None, h_fn, r, x_init, n_sweeps, shards)[0]
 
 
-def ekf_nll_paired_batched(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps: int = 3):
+def ekf_nll_paired_batched(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps: int = 3, shards=None):
     """(ll (N,), d ll (N,)) of ``ekf_nll_parallel_planes_batched`` along the
     tangent dQ of Q (the s-optimizer's: dQ = Q along log s), forward mode by
     hand: ``torch.func.jvp`` of the plain-PyTorch stages around one paired
-    scan launch per sweep."""
-    return _ekf_nll(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps)
+    scan launch per sweep (per shard, with ``shards``)."""
+    return _ekf_nll(ys, m0, S0, A, Q, dQ, h_fn, r, x_init, n_sweeps, shards)
+
+
+def _ekf_filter_shards(ys, m0, S0, A, Q, h_fn, r, n_iters, x_init, shards):
+    """The iterated parallel EKF on a time-sharded sequence: per shard its
+    filtered (means, covariances) and its parameters (m0, S0, A, Q) on its
+    device. Each relinearization takes x̄ from the predicted means, a
+    chunk's first one from the filtered mean before it."""
+    from eks_tpu_torch.parallel.mesh import emission_on, filter_prefix_sharded
+
+    D = m0.shape[-1]
+    ys_c, r_c = shards.split(ys, 1), shards.split(r, 1)
+    prm = list(zip(*(shards.replicate(x) for x in (m0, S0, A, Q))))
+    h_c = [emission_on(h_fn, dev) for dev in shards.devices]
+
+    def elements(i, x_bar):
+        m0_, S0_, A_, Q_ = prm[i]
+        Hs, y_eff = _relinearize(h_c[i], ys_c[i], x_bar)
+        return _make_filter_elements_tv(y_eff, m0_, S0_, A_, Q_, Hs, r_c[i], first=i == 0)
+
+    def moments(x_c):
+        outs = filter_prefix_sharded(shards.map(elements, x_c))
+        return shards.map(lambda i, o: _filtered_moments(o, D), outs)
+
+    def predicted_means(i, fm, before):
+        m0_, At = prm[i][0], prm[i][2].transpose(-1, -2)[:, None]
+        first = m0_[:, None] if before is None else (before[0][:, None, None, :] @ At)[:, :, 0]
+        return torch.cat([first, (fm[0][:, :-1, None, :] @ At)[:, :, 0]], dim=1)
+
+    x_c = shards.split(m0[:, None].expand(-1, ys.shape[1], -1) if x_init is None else x_init, 1)
+    for _ in range(n_iters):
+        fm = moments(x_c)
+        x_c = shards.map(predicted_means, fm, _befores(fm, shards))
+    return moments(x_c), prm
 
 
 def ekf_parallel(ys, m0, S0, A, Q, h_fn, r_diag, n_iters: int = 12, x_init=None,
-                 compute_ll: bool = True) -> FilterResult:
+                 compute_ll: bool = True, shards=None) -> FilterResult:
     """Extended Kalman filter over N lanes via fixed-point relinearization
     over parallel linear sweeps: each iteration linearizes ``h`` at the
     predicted-mean trajectory x̄ (the broadcast prior mean unless
@@ -868,34 +1012,37 @@ def ekf_parallel(ys, m0, S0, A, Q, h_fn, r_diag, n_iters: int = 12, x_init=None,
     the predicted means become the next x̄. ``n_iters`` relinearizations
     then one more for the result: n_iters + 1 filter scans. With
     ``compute_ll`` the exact EKF log-likelihood at the final predicted
-    trajectory is summed into (N,)."""
-    T = ys.shape[1]
-    r = _as_time_varying(r_diag, T)
-    At = A.transpose(-1, -2)[:, None]
+    trajectory is summed into (N,). With ``shards`` the time axis is split
+    over them; the results are joined on the device of ``ys``."""
+    from eks_tpu_torch.parallel.mesh import emission_on
 
-    def moments(x_bar):
-        Hs, y_eff = _relinearize(h_fn, ys, x_bar)
-        return _run_filter_prefix(_make_filter_elements_tv(y_eff, m0, S0, A, Q, Hs, r))
-
-    x_bar = m0[:, None].expand(-1, T, -1) if x_init is None else x_init
-    for _ in range(n_iters):
-        ms, _ = moments(x_bar)
-        x_bar = torch.cat([m0[:, None], (ms[:, :-1, None, :] @ At)[:, :, 0]], dim=1)
-    ms, Ps = moments(x_bar)
+    shards = _one_shard(ys) if shards is None else shards
+    r = _as_time_varying(r_diag, ys.shape[1])
+    fm, prm = _ekf_filter_shards(ys, m0, S0, A, Q, h_fn, r, n_iters, x_init, shards)
+    ms, Ps = (shards.gather([f[j] for f in fm], 1, ys.device) for j in range(2))
     if not compute_ll:
         return FilterResult(None, ms, Ps)
-    pred_m, pred_P = _predictive_moments(ms, Ps, m0, S0, A, Q)
-    H = emission_jacobian(h_fn, pred_m)
-    S = H @ pred_P @ H.transpose(-1, -2) + torch.diag_embed(r)
-    return FilterResult(mvn_logpdf(ys, h_fn(pred_m), S).sum(dim=1), ms, Ps)
+    ys_c, r_c = shards.split(ys, 1), shards.split(r, 1)
+
+    def ll(i, f, before):
+        h = emission_on(h_fn, shards.devices[i])
+        pred_m, pred_P = _predictive_moments(*f, *prm[i], halo=before)
+        H = emission_jacobian(h, pred_m)
+        S = H @ pred_P @ H.transpose(-1, -2) + torch.diag_embed(r_c[i])
+        return mvn_logpdf(ys_c[i], h(pred_m), S).sum(dim=1)
+
+    return FilterResult(shards.total(shards.map(ll, fm, _befores(fm, shards)), ys.device), ms, Ps)
 
 
-def eks_parallel(ys, m0, S0, A, Q, h_fn, r_diag, n_iters: int = 12, x_init=None) -> SmootherResult:
+def eks_parallel(ys, m0, S0, A, Q, h_fn, r_diag, n_iters: int = 12, x_init=None,
+                 shards=None) -> SmootherResult:
     """Iterated parallel EKF + the (emission-independent) parallel RTS pass
-    over N lanes. The filter log-likelihood is not computed."""
-    fr = ekf_parallel(ys, m0, S0, A, Q, h_fn, r_diag, n_iters=n_iters, x_init=x_init, compute_ll=False)
-    sm, sP = _rts_from_filtered(fr.filtered_means, fr.filtered_covs, A, Q)
-    return SmootherResult(None, fr.filtered_means, fr.filtered_covs, sm, sP)
+    over N lanes. The filter log-likelihood is not computed. With ``shards``
+    the time axis is split over them."""
+    shards = _one_shard(ys) if shards is None else shards
+    r = _as_time_varying(r_diag, ys.shape[1])
+    fm, prm = _ekf_filter_shards(ys, m0, S0, A, Q, h_fn, r, n_iters, x_init, shards)
+    return _rts_shards(fm, [p[2:] for p in prm], shards, ys.device)
 
 
 # --------------------------------------------------------------------------- #
@@ -925,37 +1072,124 @@ def _combine_smoother(later: torch.Tensor, earlier: torch.Tensor) -> torch.Tenso
     return _flat(E, g, L)
 
 
-def _make_smoother_elements(ms, Ps, A, Q) -> torch.Tensor:
+def _make_smoother_elements(ms, Ps, A, Q, last: bool = True) -> torch.Tensor:
     """RTS smoothing elements (N, 2D²+D, T) from filtered moments; the final
-    element carries the filtered terminal moments."""
+    element carries the filtered terminal moments. Without ``last`` (an
+    earlier chunk of a time-sharded sequence) the final step is an ordinary
+    step."""
     Ab, At = A[:, None], A.transpose(-1, -2)[:, None]
     P_pred = Ab @ Ps @ At + Q[:, None]
     E = psd_solve(P_pred, Ab @ Ps).transpose(-1, -2)
     g = ms - (E @ (Ab @ ms[..., None]))[..., 0]
     L = Ps - E @ P_pred @ E.transpose(-1, -2)
+    if not last:
+        return _aos_planes(E, g, L)
     E = torch.cat([E[:, :-1], torch.zeros_like(E[:, -1:])], dim=1)
     g = torch.cat([g[:, :-1], ms[:, -1:]], dim=1)
     L = torch.cat([L[:, :-1], Ps[:, -1:]], dim=1)
     return _aos_planes(E, g, L)
 
 
-def _rts_from_filtered(ms, Ps, A, Q):
-    """Backward RTS pass as a reverse associative scan over the filtered
-    moments, through ``fused_filter.smoother_suffix`` (the CUDA kernel on the
-    card, the plain scan on the CPU). Returns smoothed means (N, T, D) and
-    covariances (N, T, D, D)."""
-    from eks_tpu_torch.ops.fused_filter import smoother_suffix
+def _befores(fm: list, shards) -> list:
+    """Per shard, from its filtered (means, covariances), the filtered
+    (mean, covariance) of the step before its chunk on its device: None for
+    the first shard."""
+    return [None] + [tuple(x[:, -1].to(dev) for x in f) for f, dev in zip(fm[:-1], shards.devices[1:])]
 
-    D = ms.shape[-1]
+
+def _rts_shards(fm: list, AQ: list, shards, device) -> SmootherResult:
+    """The parallel RTS pass over time shards, from each shard's filtered
+    (means, covariances) and (A, Q) on its device: smoothing elements per
+    chunk (the terminal one in the last chunk only) and the reverse scan
+    through ``fused_filter.smoother_suffix`` (the CUDA kernel on the card,
+    the plain scan on the CPU), sharded when there are several chunks.
+    Filtered and smoothed moments are joined on ``device``."""
+    from eks_tpu_torch.parallel.mesh import smoother_suffix_sharded
+
+    D = fm[0][0].shape[-1]
     dd = D * D
-    out = smoother_suffix(_make_smoother_elements(ms, Ps, A, Q))
-    N, _, T = out.shape
-    return out[:, dd:dd + D].transpose(1, 2), out[:, dd + D:].transpose(1, 2).reshape(N, T, D, D)
+    last = len(shards) - 1
+    outs = smoother_suffix_sharded(shards.map(lambda i, f, aq: _make_smoother_elements(*f, *aq, last=i == last),
+                                              fm, AQ))
+
+    def moments(i, out):
+        N, _, T = out.shape
+        return out[:, dd:dd + D].transpose(1, 2), out[:, dd + D:].transpose(1, 2).reshape(N, T, D, D)
+
+    sm = shards.map(moments, outs)
+    fm_s, sm_s = ([shards.gather([p[j] for p in parts], 1, device) for j in range(2)] for parts in (fm, sm))
+    return SmootherResult(None, *fm_s, *sm_s)
 
 
-def kalman_smoother_parallel(ys, m0, S0, A, Q, C, r_diag) -> SmootherResult:
+def _rts_from_filtered(ms, Ps, A, Q):
+    """The RTS pass over one device's filtered moments: smoothed means
+    (N, T, D) and covariances (N, T, D, D)."""
+    res = _rts_shards([(ms, Ps)], [(A, Q)], _one_shard(ms), ms.device)
+    return res.smoothed_means, res.smoothed_covs
+
+
+def kalman_smoother_parallel(ys, m0, S0, A, Q, C, r_diag, shards=None, compute_ll: bool = False) -> SmootherResult:
     """O(log T)-depth linear RTS smoother over N lanes (filter prefix scan +
-    reverse associative scan). The filter log-likelihood is not computed."""
-    fr = kalman_filter_parallel(ys, m0, S0, A, Q, C, r_diag, compute_ll=False)
-    sm, sP = _rts_from_filtered(fr.filtered_means, fr.filtered_covs, A, Q)
-    return SmootherResult(None, fr.filtered_means, fr.filtered_covs, sm, sP)
+    reverse associative scan); with ``compute_ll`` the filter
+    log-likelihood (N,) too. ``shards`` splits the time axis as in
+    ``kalman_filter_parallel``; the smoother's carries run from the last
+    chunk back."""
+    shards = _one_shard(ys) if shards is None else shards
+    fm, prm, ll = _linear_filter(ys, m0, S0, A, Q, C, r_diag, shards, compute_ll)
+    return _rts_shards(fm, [p[2:4] for p in prm], shards, ys.device)._replace(log_likelihood=ll)
+
+
+# --------------------------------------------------------------------------- #
+# the staged losses over time shards: every chunk's elements on its device,
+# the paired sharded scan, and a chunk's first prediction from the filtered
+# moments before it
+# --------------------------------------------------------------------------- #
+def _paired_nll_shards(shards, D: int, build, post, device):
+    """(ll (N,), d ll (N,)) of a staged loss over time shards: ``build(i)``
+    gives chunk i's (element planes, tangents), one paired filter scan runs
+    over them (sharded when there are several chunks), and ``post(i,
+    (scanned, tangent), halo)`` gives the chunk's (ll, d ll), ``halo`` being
+    the filtered moments before the chunk with their tangents (None for the
+    first). The chunks' sums are added in shard order on ``device``."""
+    from eks_tpu_torch.parallel.mesh import filter_prefix_paired_sharded
+
+    el = shards.map(build)
+    outs = filter_prefix_paired_sharded([e[0].contiguous() for e in el], [e[1].contiguous() for e in el])
+    parts = shards.map(post, outs, _halos(outs, D))
+    return tuple(shards.total([p[j] for p in parts], device) for j in range(2))
+
+
+def table_nll_tv_paired_sharded(table: torch.Tensor, dtable: torch.Tensor, yr: torch.Tensor, shards):
+    """The time-varying-R loss of the table (``_table_nll_tv``) and its
+    derivative along ``dtable``, with the time axis of the planes yr
+    (N, 2O, T) split over ``shards``: the pupil optimizer's loss with the
+    frame axis sharded, where kernel C, which fuses one lane's whole T,
+    cannot span the shards. The information-form elements
+    (``_ekf_info_elements``) and the epilogue (``_linear_ll``) take the
+    matrix form, batched over lanes and steps: tens of operations under
+    ``torch.func.jvp`` where the unrolled planes take thousands."""
+    O = yr.shape[1] // 2
+    D = _table_dims(table.shape[1], O, _scalar_offsets_tv)
+    offs = _scalar_offsets_tv(D, O)[0]
+    yr_c = [c.transpose(1, 2).contiguous() for c in shards.split(yr, 2)]  # (N, T_i, 2O)
+    tab, dtab = shards.replicate(table), shards.replicate(dtable)
+
+    def build(i):
+        def fn(t, y_, r_):
+            Qi, QiA, S0i, S0i_m0, A, C = _table_blocks(t, offs, ("Qi", (D, D)), ("QiA", (D, D)), ("S0i", (D, D)),
+                                                       ("S0i_m0", (D,)), ("A", (D, D)), ("Cobs", (O, D)))
+            return _ekf_info_elements(C[:, None].expand(-1, y_.shape[1], -1, -1), y_, r_, A, (Qi, QiA),
+                                      (S0i, S0i_m0), first=i == 0)
+
+        return _jvp_or_call(fn, (tab[i], yr_c[i][..., :O].contiguous(), yr_c[i][..., O:].contiguous()),
+                            (dtab[i], None, None))
+
+    def post(i, scanned, halo):
+        def fn(out, t, y_, r_, *h):
+            return _linear_ll(*_filtered_moments(out, D), *_unpack_scalars_tv(t, D, O), y_, r_, halo=h or None)
+
+        h, dh = ((), ()) if halo is None else halo
+        return _jvp_or_call(fn, (scanned[0], tab[i], yr_c[i][..., :O].contiguous(), yr_c[i][..., O:].contiguous(),
+                                 *h), (scanned[1], dtab[i], None, None, *dh))
+
+    return _paired_nll_shards(shards, D, build, post, table.device)

@@ -312,23 +312,40 @@ def cropped(tmp_path_factory):
     ["ibl-pupil", "--diameter-s", "0.99", "--com-s", "0.98"],
 ])
 def test_devices_beyond_one_fails_with_the_entry_points_message(tmp_path, cropped, argv):
+    """``--devices 4``, which failed before the multi-device slice was
+    ported, now shards the run (four shards of the CPU here) with the
+    one-device table; ``singlecam --sessions`` too. ``ibl-pupil --sessions``
+    still refuses it, with its own message: the batched pupil entry point
+    takes no devices (the JAX CLI ignores the flag there)."""
     family = "singlecam" if argv[0] == "singlecam" else "pupil"
-    with pytest.raises(NotImplementedError, match="devices > 1"):
-        _run_cpu(argv + ["--input-dir", cropped(family), "--save-dir", str(tmp_path), "--devices", "4"])
-    with pytest.raises(NotImplementedError, match="devices > 1"):
-        _run_cpu([argv[0], "--sessions", cropped(family), "--save-dir", str(tmp_path), "--devices", "4"] + argv[1:])
+    tables = {}
+    for name, extra in (("one", []), ("four", ["--devices", "4"])):
+        out = tmp_path / name
+        _run_cpu(argv + ["--input-dir", cropped(family), "--save-dir", str(out)] + extra)
+        (csv,) = out.glob("*.csv")
+        tables[name] = pd.read_csv(csv, header=[0, 1, 2], index_col=0).to_numpy()
+    np.testing.assert_allclose(tables["four"], tables["one"], rtol=0, atol=1e-5)
+    sessions = [argv[0], "--sessions", cropped(family), "--save-dir", str(tmp_path / "s"), "--devices", "4"]
+    if family == "pupil":
+        with pytest.raises(ValueError, match="--devices above 1 is refused"):
+            _run_cpu(sessions + argv[1:])
+    else:
+        _run_cpu(sessions + argv[1:])
+        assert list((tmp_path / "s").rglob("*.csv"))
 
 
 def test_devices_beyond_one_ends_the_process_nonzero(tmp_path, cropped):
-    """As a process: ``python -m eks_tpu_torch.cli.main``, exit code not 0,
-    the entry point's message on stderr, no output written."""
+    """As a process: ``ibl-pupil --sessions --devices 4`` ends with an exit
+    code other than 0, the refusal on stderr and no output written (before
+    the multi-device slice, every ``--devices 4`` did)."""
     proc = subprocess.run(
-        [sys.executable, "-m", "eks_tpu_torch.cli.main", "singlecam", "--input-dir", cropped("singlecam"),
-         "--save-dir", str(tmp_path), "--s", "2.0", "--device", "cpu", "--devices", "4"],
+        [sys.executable, "-m", "eks_tpu_torch.cli.main", "ibl-pupil", "--sessions", cropped("pupil"),
+         "--save-dir", str(tmp_path), "--diameter-s", "0.99", "--com-s", "0.98", "--device", "cpu",
+         "--devices", "4"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode != 0
-    assert "NotImplementedError: devices > 1" in proc.stderr
+    assert "ValueError: ibl-pupil --sessions runs on one device" in proc.stderr
     assert not list(tmp_path.iterdir())
 
 

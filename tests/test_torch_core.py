@@ -274,8 +274,15 @@ def test_run_kalman_smoother_sequential_matches_parallel():
     dict(devices=2), dict(partition="time"), dict(h_fn=lambda x: x, devices=2),
 ])
 def test_unported_options_raise(kw):
+    """The options that raised before the multi-device slice was ported now
+    run: two keypoint shards on the CPU, and ``partition="time"`` without a
+    mesh (not read there, as in the JAX package), give the one-device
+    result bit for bit."""
     ys, m0s, S0s, eye, ev = _toy_smoother_problem(np.random.default_rng(0), T=10)
     t = torch.as_tensor
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        core.run_kalman_smoother(t(ys), t(m0s), t(S0s), t(eye), t(eye), t(eye), t(ev),
-                                 smooth_param=1.0, **kw)
+    args = (t(ys), t(m0s), t(S0s), t(eye), t(eye), t(eye), t(ev))
+    h_fn = kw.pop("h_fn", None)
+    s1, ms1, Vs1 = core.run_kalman_smoother(*args, smooth_param=1.0, h_fn=h_fn)
+    s, ms, Vs = core.run_kalman_smoother(*args, smooth_param=1.0, h_fn=h_fn, **kw)
+    np.testing.assert_array_equal(s, s1)
+    assert torch.equal(ms, ms1) and torch.equal(Vs, Vs1)

@@ -6,9 +6,11 @@ chip_smoke.py do not reach: a single step, a single lane, fewer steps than
 threads, time axes one either side of a multiple of the block and of a
 segment, a long lane and a wide batch; whether two launches of each
 kernel on the same inputs give the same bits; that the instances the
-library of kernel A reports are the ones its wrapper takes; and that scans
+library of kernel A reports are the ones its wrapper takes; that scans
 beyond D = 3 take the plain version on the card, counted, as the JAX
-package takes XLA's scan there.
+package takes XLA's scan there; and the carry kernel of the time-sharded
+scans (every instance against its plain version, the sharded scans against
+the unsharded kernel scan, a loss evaluated by worker threads at once).
 
 The kernels have no CPU mode, so every test here needs a CUDA card and
 ``nvcc``; on a machine without them each one skips. On the card (where JAX is
@@ -447,3 +449,138 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fused_nll._launch(table, dtable, yr, tv=True, scratch=(torch.empty(2, G, 66, device=dev),
                                                                torch.empty(1, 2, G, device=dev)))
+
+
+# --------------------------------------------------------------------------- #
+# the carry combine of a time-sharded scan (prefix_scan.cu's second entry)
+# --------------------------------------------------------------------------- #
+def _carry_operands(dev, kind, N, T, D, seed):
+    """(carry, local) and symmetric tangents for them: the total of a scanned
+    chunk and the next chunk's own scan in scan order, from the elements of
+    a filtered random walk."""
+    if kind == "smoother":
+        planes, tangents = _smoother_planes(dev, N, T + 5, 2 * D if D > 1 else 2, D, seed=seed)
+        total, local = planes[..., T:].contiguous(), planes[..., :T].contiguous()
+        dtotal, dlocal = tangents[..., T:].contiguous(), tangents[..., :T].contiguous()
+        plain, edge = fused_filter.smoother_suffix_plain, 0
+    else:
+        ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev)
+                                        for x in _lanes(N, T + 5, max(2 * D - 2, 2), D, seed=seed))
+        planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        tangents = _symmetric_cj((0.1 * torch.randn(planes.shape, generator=gen)).to(dev), D)
+        total, local = planes[..., :5].contiguous(), planes[..., 5:].contiguous()
+        dtotal, dlocal = tangents[..., :5].contiguous(), tangents[..., 5:].contiguous()
+        plain, edge = fused_filter.filter_prefix_plain, -1
+    tot, dtot = torch.func.jvp(plain, (total,), (dtotal,))
+    loc, dloc = torch.func.jvp(plain, (local,), (dlocal,))
+    return tot[..., edge].contiguous(), dtot[..., edge].contiguous(), loc.contiguous(), dloc.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["filter", "smoother"])
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("N,T", [(1, 1), (3, 127), (3, 128), (2, 129), (4, 1000)])
+def test_carry_kernel_matches_plain(dev, kind, paired, D, N, T):
+    """Every instance of the carry kernel against its plain version, one
+    launch counted, at a single step and at step counts either side of a
+    block of 128 threads."""
+    c, dc, loc, dloc = _carry_operands(dev, kind, N, T, D, seed=T + D)
+    key = (kind, paired, D)
+    before = fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key]
+    if paired:
+        out, dout = fused_filter.carry_combine_paired(c, dc, loc, dloc, kind)
+        want, dwant = torch.func.jvp(lambda a, b: fused_filter.carry_combine_plain(a, b, kind), (c, loc), (dc, dloc))
+        torch.cuda.synchronize()
+        _close(dout, dwant)
+    else:
+        out = fused_filter.carry_combine(c, loc, kind)
+        want = fused_filter.carry_combine_plain(c, loc, kind)
+        torch.cuda.synchronize()
+    assert fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key] == before + 1
+    _close(out, want)
+    again = fused_filter.carry_combine_paired(c, dc, loc, dloc, kind)[0] if paired else \
+        fused_filter.carry_combine(c, loc, kind)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("kind", ["filter", "smoother"])
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("sizes", [(1, 300), (257, 1, 40, 2), (2500, 2500, 2500, 2500)])
+def test_sharded_scans_match_the_unsharded_kernel_scan(dev, kind, D, sizes):
+    """Chunks of uneven length, scanned by the kernel and carried by the
+    carry kernel, against the kernel's scan of the whole sequence, float and
+    paired (the tangents keep C and J symmetric)."""
+    from eks_tpu_torch.parallel import mesh
+
+    T = sum(sizes)
+    if kind == "smoother":
+        planes, tangents = _smoother_planes(dev, 2, T, 2 * D if D > 1 else 2, D, seed=D)
+        whole, whole_p = fused_filter.smoother_suffix, fused_filter.smoother_suffix_paired
+        sharded, sharded_p = mesh.smoother_suffix_sharded, mesh.smoother_suffix_paired_sharded
+    else:
+        ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(2, T, max(2 * D - 2, 2), D))
+        planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
+        tangents = _symmetric_cj(0.1 * torch.ones_like(planes), D)
+        whole, whole_p = fused_filter.filter_prefix, fused_filter.filter_prefix_paired
+        sharded, sharded_p = mesh.filter_prefix_sharded, mesh.filter_prefix_paired_sharded
+    chunks = [x.contiguous() for x in torch.split(planes, list(sizes), dim=-1)]
+    dchunks = [x.contiguous() for x in torch.split(tangents, list(sizes), dim=-1)]
+    before = fused_filter.CARRY_LAUNCHES_BY_INSTANCE[(kind, False, D)]
+    got = torch.cat(sharded(chunks), dim=-1)
+    got_p = [torch.cat(x, dim=-1) for x in zip(*sharded_p(chunks, dchunks))]
+    want, want_p = whole(planes), whole_p(planes, tangents)
+    torch.cuda.synchronize()
+    assert fused_filter.CARRY_LAUNCHES_BY_INSTANCE[(kind, False, D)] == before + len(sizes) - 1
+    _close(got, want)
+    _close(got_p[0], want_p[0])
+    _close(got_p[1], want_p[1])
+
+
+def test_carry_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    c, dc, loc, dloc = _carry_operands(dev, "filter", 2, 16, 2, seed=0)
+    with pytest.raises(TypeError):
+        fused_filter.carry_combine(c.double(), loc.double(), "filter")
+    with pytest.raises(ValueError):
+        fused_filter.carry_combine(c[:1], loc, "filter")
+    with pytest.raises(ValueError):
+        fused_filter.carry_combine(c.cpu(), loc, "filter")
+    with pytest.raises(NotImplementedError):  # the kernel stops at D = 3 (the wrapper takes the plain route)
+        fused_filter._carry_cuda(torch.zeros(2, 36, device=dev), torch.zeros(2, 36, 8, device=dev),
+                                 "smoother", False)
+    # beyond D = 3 the wrapper runs the plain version on the card, counted
+    # apart from the scans' plain route
+    before = (fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES)
+    x = torch.zeros(2, 3 * 16 + 8, 8, device=dev)
+    fused_filter.carry_combine(x[..., 0].contiguous(), x, "filter")
+    assert (fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES) == (before[0] + 1, before[1])
+
+
+def test_time_sharded_loss_in_a_worker_thread_gives_the_main_threads_bits(dev):
+    """The paired staged loss over four time shards on the card, evaluated by
+    two worker threads at once (each under ``torch.cuda.device``) and by
+    the main thread, gives the same bits: forward mode's dual level is taken
+    in turns, and the launch counts add up under their lock."""
+    import threading
+
+    from eks_tpu_torch.parallel import mesh
+
+    table, dtable, y = _nll_operands(dev, 3, 2000, O=2, D=2, walk=True)
+    shards = mesh.TimeShards((dev,) * 4, y.shape[-1])
+    main = torch.stack(pkalman._staged_nll_paired(table, dtable, y, shards))
+    before = fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 2)]
+    seen = []
+
+    def work():
+        with torch.cuda.device(dev):
+            seen.append(torch.stack(pkalman._staged_nll_paired(table, dtable, y, shards)))
+
+    threads = [threading.Thread(target=work) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert len(seen) == 2 and all(torch.equal(s, main) for s in seen)
+    assert fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 2)] == before + 8

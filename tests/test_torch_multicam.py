@@ -256,23 +256,24 @@ def test_fit_multicam_without_calibration_matches_jax(cropped, tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    """Multi-device sharding raises, with a calibration too; so does a CUDA
-    request without a card."""
+    """Multi-device sharding, which raised before its slice was ported, now
+    runs: two keypoint shards and two time shards on the CPU give the
+    one-device tables (bit for bit on the keypoint axis, 1e-5 on the time
+    axis, where only the chunked scans' order differs). Missing camera names
+    raise, and so does a CUDA request without a card."""
     arr = _session(2)
     kps, cams = _names(2)
     ma = MarkerArray(arr, data_fields=FIELDS)
-    for kw in (dict(devices=2), dict(partition="time")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eks_tpu_torch.fit_eks_multicam(
-                os.path.join(DATA, "multicam"), str(tmp_path / "o"), smooth_param=2.0,
-                calibration=os.path.join(DATA, "multicam", "calibration.toml"), device="cpu", **kw)
+    one = eks_tpu_torch.ensemble_kalman_smoother_multicam(ma, kps, cams, smooth_param=2.0, device="cpu")
+    for kw, atol in ((dict(devices=2), 0.0), (dict(devices=2, partition="time"), 1e-5)):
+        got = eks_tpu_torch.ensemble_kalman_smoother_multicam(ma, kps, cams, smooth_param=2.0, device="cpu", **kw)
+        np.testing.assert_array_equal(got[1], one[1])
+        for a, b in zip(got[0] + [got[2]], one[0] + [one[2]]):
+            np.testing.assert_allclose(a.to_numpy(), b.to_numpy(), rtol=0, atol=atol)
     with pytest.raises(ValueError, match="camera_names"):
         eks_tpu_torch.fit_eks_multicam(str(tmp_path), str(tmp_path / "o"), device="cpu")
     with pytest.raises(ValueError, match="camera_names"):
         eks_tpu_torch.ensemble_kalman_smoother_multicam(ma, kps, [], device="cpu")
-    for kw in (dict(devices=2), dict(partition="time")):
-        with pytest.raises(NotImplementedError):
-            eks_tpu_torch.ensemble_kalman_smoother_multicam(ma, kps, cams, smooth_param=2.0, device="cpu", **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             eks_tpu_torch.ensemble_kalman_smoother_multicam(ma, kps, cams, smooth_param=2.0)

@@ -372,5 +372,11 @@ def test_cuda_request_without_a_card_raises(session, session_array, tmp_path):
 
 
 def test_multi_device_request_raises(session_array):
-    with pytest.raises(NotImplementedError):
-        eks_tpu_torch.ensemble_kalman_smoother_ibl_pupil(session_array, NAMES, devices=2, device="cpu")
+    """``devices=2``, which raised before the multi-device slice was ported,
+    now shards the frame axis (two shards of the CPU here) and gives the
+    one-device table within 1e-5 (only the chunked scans' order differs)."""
+    kw = dict(smooth_params=[0.99, 0.98], device="cpu")
+    df1, s1 = eks_tpu_torch.ensemble_kalman_smoother_ibl_pupil(session_array, NAMES, **kw)
+    df2, s2 = eks_tpu_torch.ensemble_kalman_smoother_ibl_pupil(session_array, NAMES, devices=2, **kw)
+    assert s2 == s1
+    np.testing.assert_allclose(df2.to_numpy(), df1.to_numpy(), rtol=0, atol=1e-5)
