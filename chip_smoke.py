@@ -135,11 +135,15 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      prints the card count and the meshes it runs (four shards on cuda:0
      through ``parallel.mesh`` on any host; on a host with several cards
      also ``devices=min(4, count)``, a card each), and on a one-card host
-     holds that ``devices=2`` raises ValueError; holds the carry kernel
-     (``prefix_scan.cu``'s second entry) against its plain version at every
-     instance (filter and smoother, float and paired, D = 1, 2, 3, on
-     2,500-step chunks) and the sharded scans (four chunks of 10,000 steps)
-     against the unsharded kernel scan, at ``RTOL_SCAN_NEW``; runs the
+     holds that ``devices=2`` raises ValueError; holds the carried scan
+     (``prefix_scan.cu``'s phase A, then its downsweep from a carry) and its
+     chunk total against their plain versions at every instance (filter and
+     smoother, float and paired, D = 1, 2, 3, on 2,500-step chunks), times
+     both phases and the uncarried scan of the same chunk with the L2
+     flushed between calls, prints ptxas's registers and spills of the
+     carried and uncarried kernels, and holds the sharded scans (four chunks
+     of 10,000 steps) against the unsharded kernel scan, at
+     ``RTOL_SCAN_NEW``; runs the
      headline with the keypoint axis and with the time axis over the shards
      (s per lane against a one-device run by phase 17's rule, the keypoint
      tables at ``SEQ_ATOL_SESSIONS``, the time axis's final pass against
@@ -618,7 +622,7 @@ def recording(module, name: str, calls: list, first_only: bool = False):
 
     def record(*args):
         if not (first_only and calls):
-            calls.append(tuple(a.clone() for a in args))
+            calls.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
         return wrapper(*args)
 
     setattr(module, name, record)
@@ -980,7 +984,7 @@ def main() -> int:
         }
 
     def carry_key(kind, paired, d):
-        """The count and row name of the carry kernel's instance."""
+        """The count and row name of the carried downsweep's instance."""
         return f"carry_{kind}{'_paired' if paired else ''}_d{d}"
 
     def along_log_s(make, n):
@@ -2457,7 +2461,7 @@ def main() -> int:
     })
 
     # --------------------------------------------------------------- 22 ---
-    # multi-device smoothing (parallel/mesh.py): the carry kernel against its
+    # multi-device smoothing (parallel/mesh.py): the carried scan against its
     # plain version, the sharded scans against the unsharded kernel scan, and
     # the headline (keypoint and time axis), pupil (time axis), two-camera and
     # calibrated (keypoint axis) runs over four shards, each against its
@@ -2507,9 +2511,10 @@ def main() -> int:
     if not cuda_only:
         raise AssertionError("make_mesh named a device that is not a card")
 
-    # the carry kernel, every instance, against its plain version on the
-    # final pass's elements of 2 x 2,500 steps: a chunk's own scan and the
-    # total of the chunk before it in scan order
+    # the carried scan, every instance (phase A, then phase B from a carry),
+    # against its plain version on the final pass's elements of 2 x 2,500
+    # steps: a chunk's own elements and the total of the chunk before it in
+    # scan order
     def carry_operands(kind, D, N, Tc):
         g = np.random.default_rng(22 + D)
         ys_ = torch.as_tensor(g.normal(size=(N, 2 * Tc, D)).cumsum(1) * 0.1, dtype=torch.float32, device=dev)
@@ -2526,50 +2531,85 @@ def main() -> int:
             return el
 
         planes_, tangents_ = along_log_s(make, N)
-        plain = fused_filter.filter_prefix_plain if kind == "filter" else fused_filter.smoother_suffix_plain
         src, loc = (slice(0, Tc), slice(Tc, None)) if kind == "filter" else (slice(Tc, None), slice(0, Tc))
-        edge = -1 if kind == "filter" else 0
-        tot, dtot = torch.func.jvp(plain, (planes_[..., src].contiguous(),), (tangents_[..., src].contiguous(),))
-        local, dlocal = torch.func.jvp(plain, (planes_[..., loc].contiguous(),), (tangents_[..., loc].contiguous(),))
-        return (tot[..., edge].contiguous(), dtot[..., edge].contiguous(), local.contiguous(), dlocal.contiguous(),
-                planes_, tangents_)
+        tot, dtot = torch.func.jvp(lambda x: fused_filter.scan_total_plain(x, kind),
+                                   (planes_[..., src].contiguous(),), (tangents_[..., src].contiguous(),))
+        return (tot.contiguous(), dtot.contiguous(), planes_[..., loc].contiguous(),
+                tangents_[..., loc].contiguous(), planes_, tangents_)
+
+    # 96 MB written between timed calls evicts the 50 MB L2, so every call
+    # reads its operands from device memory and its time can be held against
+    # the bytes bound: back to back, a chunk of a few MB stays in the L2, and
+    # a reading then beats the bound
+    l2_flush = torch.empty(24 * 2 ** 20, dtype=torch.float32, device=dev)
+
+    def flushed(fn):
+        def run():
+            l2_flush.zero_()
+            return fn()
+        return run
+
+    # the uncarried scans, float and paired, that a carried chunk is timed beside
+    scans_by_kind = {"filter": (fused_filter.filter_prefix, fused_filter.filter_prefix_paired),
+                     "smoother": (fused_filter.smoother_suffix, fused_filter.smoother_suffix_paired)}
 
     def carry_check(kind, D, paired, ops):
-        c, dc, loc, dloc = ops[:4]
-        N, P, Tc = loc.shape
+        c, dc, x, dx = ops[:4]
+        N, P, Tc = x.shape
         if paired:
             def run_k():
-                return torch.cat(fused_filter.carry_combine_paired(c, dc, loc, dloc, kind), dim=1)
+                return torch.cat(fused_filter.scan_carried(x, c, kind, dx, dc), dim=1)
 
-            def run_p(x=(c, dc, loc, dloc)):
-                return torch.cat(torch.func.jvp(lambda a, b: fused_filter.carry_combine_plain(a, b, kind),
-                                                (x[0], x[2]), (x[1], x[3])), dim=1)
+            def run_p(v=(x, c, dx, dc)):
+                return torch.cat(torch.func.jvp(lambda a, b: fused_filter.scan_carried_plain(a, b, kind),
+                                                (v[0], v[1]), (v[2], v[3])), dim=1)
 
-            out_64 = run_p(tuple(v.double() for v in (c, dc, loc, dloc)))
+            def run_uncarried():
+                return torch.cat(scans_by_kind[kind][1](x, dx), dim=1)
+
+            total = torch.cat(fused_filter.scan_total(x, kind, dx), dim=1)
+            total_p = torch.cat(torch.func.jvp(lambda a: fused_filter.scan_total_plain(a, kind), (x,), (dx,)), dim=1)
+            out_64 = run_p(tuple(v.double() for v in (x, c, dx, dc)))
         else:
             def run_k():
-                return fused_filter.carry_combine(c, loc, kind)
+                return fused_filter.scan_carried(x, c, kind)
 
-            def run_p(x=(c, loc)):
-                return fused_filter.carry_combine_plain(x[0], x[1], kind)
+            def run_p(v=(x, c)):
+                return fused_filter.scan_carried_plain(v[0], v[1], kind)
 
-            out_64 = run_p((c.double(), loc.double()))
+            def run_uncarried():
+                return scans_by_kind[kind][0](x)
+
+            total, total_p = fused_filter.scan_total(x, kind), fused_filter.scan_total_plain(x, kind)
+            out_64 = run_p((x.double(), c.double()))
         out_k, out_p = run_k(), run_p()
         torch.cuda.synchronize()
         e_abs, e_rel = rel_err(out_k, out_p)
         w = 2 if paired else 1
-        n_bytes = (2 * N * w * P * Tc + N * w * P) * 4
+        # the scanned chunk read and written once, the carry read, the total written
+        n_bytes = (2 * N * w * P * Tc + 2 * N * w * P) * 4
         n_ops = N * Tc * (combine_ops(D, paired) if kind == "filter" else smoother_combine_ops(D, paired))
         bound = bound_ms(n_bytes, n_ops)
+        # in turns, uncarried, carried, carried, uncarried: a card's clocks
+        # drift between readings of a few microseconds
+        dev_u = [device_ms(torch, flushed(run_uncarried), 20)[0]]
+        dev_c = [device_ms(torch, flushed(run_k), 20)[0] for _ in range(2)]
+        dev_u.append(device_ms(torch, flushed(run_uncarried), 20)[0])
+        dev_carried, dev_uncarried = sum(dev_c) / 2, sum(dev_u) / 2
         res = {
             "kind": kind, "paired": paired, "D": D, "lanes": N, "T_chunk": Tc, "planes": out_k.shape[1],
             "deterministic": deterministic(run_k, out_k), "max_abs_err": e_abs, "rel_err": e_rel,
+            "total_rel_err": rel_err(total, total_p)[1],
             "rel_err_kernel_vs_f64_plain": rel_err(out_k.double(), out_64)[1],
             "rel_err_plain_vs_f64_plain": rel_err(out_p.double(), out_64)[1],
-            "ms": time_cuda(torch, run_k, 50), "device_ms": device_ms(torch, run_k, 20)[0],
-            "plain_ms": time_cuda(torch, run_p, 3), "bound_ms": bound[0], "bound_by": bound[1],
+            "ms": time_cuda(torch, run_k, 50), "device_ms": dev_carried,
+            "uncarried_device_ms": dev_uncarried, "carry_cost_ms": dev_carried - dev_uncarried,
+            "device_ms_in_turn": {"uncarried": dev_u, "carried": dev_c},
+            "plain_ms": time_cuda(torch, run_p, 1 if paired else 3), "bound_ms": bound[0], "bound_by": bound[1],
+            "share_of_bound": bound[0] / dev_carried,
         }
-        res["ok"] = res["deterministic"] and e_rel <= RTOL_SCAN_NEW and bool(torch.isfinite(out_k).all())
+        res["ok"] = (res["deterministic"] and max(e_rel, res["total_rel_err"]) <= RTOL_SCAN_NEW
+                     and bool(torch.isfinite(out_k).all()) and res["share_of_bound"] <= 1.0)
         return res
 
     # (kind, D, lanes): the headline's time-sharded final pass and optimizer
@@ -2598,11 +2638,15 @@ def main() -> int:
         want, want_p = whole(planes_w), torch.cat(whole_p(planes_w, tangents_w), dim=1)
         torch.cuda.synchronize()
         sharded_scans[kind] = {"float_rel_err": rel_err(got, want)[1], "paired_rel_err": rel_err(got_p, want_p)[1]}
-    emit({"phase": "parallel_carry_kernel", "rtol": RTOL_SCAN_NEW,
+    # ptxas's registers and spills of the scan's totals and downsweep
+    # kernels, the carried instances (Lb1E) beside the uncarried (Lb0E)
+    scan_ptxas = {k: v for k, v in ptxas_by_kernel(report.get("prefix_scan", (0, ""))[1]).items()
+                  if "downsweep" in k or "totals" in k}
+    emit({"phase": "parallel_carried_scan", "rtol": RTOL_SCAN_NEW,
           "instances": {f"{k}{'_paired' if p else ''}_d{d}": r for (k, p, d), r in carry_res.items()},
-          "sharded_scan_4_chunks_T10000_vs_unsharded_kernel": sharded_scans, "card": card})
+          "sharded_scan_4_chunks_T10000_vs_unsharded_kernel": sharded_scans, "ptxas": scan_ptxas, "card": card})
     if not all(r["ok"] for r in carry_res.values()):
-        raise AssertionError("a carry kernel instance disagrees with its plain version")
+        raise AssertionError("a carried scan instance disagrees with its plain version, or read past its bound")
     if max(v for r in sharded_scans.values() for v in r.values()) > RTOL_SCAN_NEW:
         raise AssertionError(f"a sharded scan disagrees with the unsharded kernel scan: {sharded_scans}")
 
@@ -2717,7 +2761,7 @@ def main() -> int:
             tm_p1, tm_p = {}, {}
             (df_p1, s_p1), wall_p1, _, _ = with_iters(lambda: eks_tpu_torch.ensemble_kalman_smoother_ibl_pupil(
                 pupil_mas[0], names, safety_cap=CAP_PUPIL_22, device="cuda", timings=tm_p1))
-            with recording(fused_filter, "filter_prefix_paired", pupil_scan_calls, first_only=True):
+            with recording(fused_filter, "chunk_total", pupil_scan_calls, first_only=True):
                 (df_p, s_p), wall_p, launches_p, _ = with_iters(lambda: eks_tpu_torch.ensemble_kalman_smoother_ibl_pupil(
                     pupil_mas[0], names, safety_cap=CAP_PUPIL_22, device="cuda", devices=n_dev, timings=tm_p))
             gap_p = float(np.max(np.abs(np.asarray(s_p) / np.asarray(s_p1) - 1.0)))
@@ -2789,7 +2833,10 @@ def main() -> int:
                                       "wall_s": time.perf_counter() - t0}
             par_runs["cli_singlecam" + tag] = {**cli_gaps, "ok": all(
                 g["columns_match"] and g["max_abs_err"] <= 1e-4 for g in cli_gaps.values())}
-    pupil_scan = scan_check("filter", *pupil_scan_calls[0])
+    pupil_planes, pupil_kind, pupil_tangents = pupil_scan_calls[0]  # chunk_total(planes, kind, tangents)
+    if pupil_kind != "filter" or pupil_tangents is None:
+        raise AssertionError(f"the pupil path's first chunk scan is not its loss's paired filter: {pupil_kind}")
+    pupil_scan = scan_check("filter", pupil_planes, pupil_tangents)
     seconds22 = time.perf_counter() - t_phase22
     emit({"phase": "parallel_runs", "runs": par_runs, "pupil_chunk_paired_filter_scan": pupil_scan,
           "card": card, "seconds": seconds22})
@@ -2973,16 +3020,21 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         })
-    # the carry kernel (phase 22): it replaces no Pallas kernel (the JAX
-    # package carries the time-sharded scan's combines with XLA collectives);
-    # `launches` sums the time-axis paths' counts; and the paired D = 3
-    # filter scan at the pupil's time-sharded loss (2 lanes, one chunk)
+    # the carried scan (phase 22): phase A and the carried downsweep of a
+    # chunk of a time-sharded scan, which replace no Pallas kernel (the JAX
+    # package carries the time-sharded scan's combines with XLA
+    # collectives); `device_ms` is both phases with the L2 flushed between
+    # calls, `uncarried_device_ms` the uncarried scan of the same chunk;
+    # `launches` sums the time-axis paths' carried downsweeps; and the
+    # paired D = 3 filter scan at the pupil's time-sharded loss (2 lanes,
+    # one chunk)
     for (kind, paired, d), r in carry_res.items():
         kernels.append({
-            "name": carry_key(kind, paired, d), "route": "cuda", "source": src + "prefix_scan.cu",
-            "replaces": "none", "lanes": r["lanes"], "T_chunk": r["T_chunk"], **counted(carry_key(kind, paired, d)),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "name": carry_key(kind, paired, d), "route": "cuda", "kernel": "prefix_scan carried downsweep",
+            "source": src + "prefix_scan.cu", "replaces": "none", "lanes": r["lanes"], "T_chunk": r["T_chunk"],
+            **counted(carry_key(kind, paired, d)), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"], "uncarried_device_ms": r["uncarried_device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         })
     kernels.append({
         "name": "prefix_scan_filter_paired_d3_pupil_chunk", "route": "cuda", "source": src + "prefix_scan.cu",

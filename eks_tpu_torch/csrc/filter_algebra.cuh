@@ -413,7 +413,10 @@ struct SmootherAlgebra {
 // Exclusive prefix of the per-thread chunk totals across the block: a
 // Hillis-Steele sweep of log2(NT) steps in shared memory with the algebra's
 // op (the left operand is the earlier chunk in scan order). `smem` holds
-// Scalar<S>::W * P * NT floats. Thread 0 gets the identity.
+// Scalar<S>::W * P * NT floats. Thread 0 gets the identity. On return smem
+// holds every thread's inclusive prefix, float plane q of thread i at
+// q * NT + i (the P value planes, then the P tangent planes), so the last
+// thread's is the block's total.
 template <typename Alg, int NT>
 __device__ __forceinline__ typename Alg::Elem block_exclusive_scan_of(typename Alg::Elem total,
                                                                       float* smem) {
@@ -685,23 +688,32 @@ __device__ __forceinline__ typename Alg::Elem block_reduce_of(typename Alg::Elem
 // totals 0 .. g-1, the identity for g = 0. Each thread folds a contiguous run
 // of ceil(G / NT) rows, the block takes the exclusive prefix of the runs,
 // and each thread re-walks its run, so G is not bounded by NT. `smem` holds
-// Scalar<S>::W * P * NT floats.
-template <typename Alg, int NT>
-__device__ __forceinline__ void scan_segment_totals(float* totals, int G, float* smem) {
+// Scalar<S>::W * P * NT floats. With TOTAL, row G-1 holds the last
+// segment's total too, and the lane's inclusive total, the combination of
+// all G rows in scan order, goes to the W * P floats of `total_out` for
+// this lane, copied from the block scan's last inclusive prefix, so it adds
+// no combine (the exclusive prefixes are the same bits either way).
+template <typename Alg, int NT, bool TOTAL = false>
+__device__ __forceinline__ void scan_segment_totals(float* totals, int G, float* smem,
+                                                    float* total_out = nullptr) {
   using Elem = typename Alg::Elem;
   constexpr int WP = Scalar<typename Alg::Scalar>::W * Alg::P;
   float* rows = totals + (size_t)blockIdx.x * G * WP;
+  const int n_read = TOTAL ? G : G - 1;
   int lo, hi;
   chunk_of<NT>(G, lo, hi);
   Elem carry = Alg::identity();
-  for (int g = lo; g < hi && g < G - 1; ++g) {
+  for (int g = lo; g < hi && g < n_read; ++g) {
     const Elem e = total_get<Alg>(rows + (size_t)g * WP);
     carry = g == lo ? e : Alg::op(carry, e);
   }
   Elem excl = block_exclusive_scan_of<Alg, NT>(carry, smem);
+  if constexpr (TOTAL) {
+    for (int q = threadIdx.x; q < WP; q += NT) total_out[(size_t)blockIdx.x * WP + q] = smem[q * NT + NT - 1];
+  }
   for (int g = lo; g < hi; ++g) {
     Elem e;
-    if (g < G - 1) e = total_get<Alg>(rows + (size_t)g * WP);  // read before it is overwritten
+    if (g < n_read) e = total_get<Alg>(rows + (size_t)g * WP);  // read before it is overwritten
     total_put<Alg>(rows + (size_t)g * WP, excl);
     if (g + 1 < hi) excl = Alg::op(excl, e);
   }

@@ -1,5 +1,6 @@
 // Kernels B and D: inclusive scans of Kalman filtering and RTS smoothing
-// elements over N lanes, on plain floats or on (primal, tangent) pairs.
+// elements over N lanes, on plain floats or on (primal, tangent) pairs; and
+// the same scans of one chunk of a time-sharded sequence from its carry-in.
 //
 // Replaces, in eks_tpu/ops/pallas_filter.py:
 //   _make_scan_kernel with _filter_algebra     (kernel B: the forward filter
@@ -15,9 +16,7 @@
 // or paired. So the single-lane kernels are N = 1 of the lane-batched ones.
 // It is instantiated at every D <= 3, where the JAX package runs its Pallas
 // scan (_use_pallas); beyond, the wrapper runs the plain scan on the card,
-// as the JAX package runs XLA's associative_scan. A second entry,
-// carry_combine_f32, combines each chunk of a time-sharded scan with the
-// carry of the chunks before it (see carry_combine_kernel).
+// as the JAX package runs XLA's associative_scan.
 //
 // Input and output are (N, W * P, T) float32 planes, W = 1 for float and 2
 // for Dual (the P primal planes, then the P tangent planes). P = 3D² + 2D for
@@ -54,6 +53,34 @@
 // blocks per SM. Tensor cores play no part: the products are D x D with
 // D <= 3 inside a chain of dependent combines, and wgmma's smallest tile is
 // 64 rows.
+//
+// The carried scan of a time-sharded sequence (parallel/mesh.py) is the
+// same three launches cut into two phases, so that the host can combine the
+// chunks' totals in between. It replaces no Pallas kernel: the JAX package
+// shards the time axis through XLA's associative_scan under the SPMD
+// partitioner, which carries the combines with collectives
+// (eks_tpu/parallel/mesh.py::shard_time).
+//   phase A, prefix_scan_total_f32: the reduce over all G segments, the last
+//     one too, and the totals launch, which writes the exclusive prefixes as
+//     above and each lane's inclusive total in scan order into an (N, W * P)
+//     output: the chunk's total, copied from the block scan's last inclusive
+//     prefix, so no combine is added. G = 1 is one reduce block and the total.
+//   phase B, prefix_scan_carried_f32: the downsweep, from an (N, W * P)
+//     carry, the combination of every chunk before this one in scan order
+//     (for the smoother the chunks later in time, and op takes the later
+//     element first). Segment g's carry-in is op(carry, excl_g), segment 0's
+//     the carry itself, so scan position 0 gives op(carry, e_0) where the
+//     uncarried scan gives e_0. Each thread combines the carry with its own
+//     carry-in before the loop over its chunk, so no more elements are live
+//     than in the loop: ptxas gives the carried Dual D = 3 downsweep the
+//     uncarried one's 255 registers, and no instance spills. A null carry
+//     runs the uncarried downsweep (the first chunk in scan order). Each
+//     output position is still written once, from the tile.
+// Bound of a carried chunk: the scan's own, each plane read once and written
+// once, plus the carry read and the total written, 2 * N * W * P * (T + 1) * 4
+// bytes; the separate carry pass this replaces read and wrote the chunk's
+// output once more (2 * N * W * P * T * 4 bytes, 6.4 MB for the filter at
+// N = 20, D = 2 over a 2,500-step chunk) in a launch of its own.
 #include "filter_algebra.cuh"
 
 namespace {
@@ -99,7 +126,8 @@ __device__ __forceinline__ typename Alg::Elem chunk_total(const float* tile, con
   return tot;
 }
 
-// launch 1: the totals of segments 0 .. G-2
+// launch 1: the totals of segments 0 .. G-2 (of all G in phase A of a
+// carried scan: the grid decides)
 template <typename Alg>
 __global__ void __launch_bounds__(NT) scan_reduce_kernel(const float* __restrict__ in,
                                                          float* __restrict__ totals, int T, int L,
@@ -117,18 +145,24 @@ __global__ void __launch_bounds__(NT) scan_reduce_kernel(const float* __restrict
   if (threadIdx.x == 0) eks::total_put<Alg>(totals + ((size_t)lane * G + blockIdx.x) * Geo::WP, tot);
 }
 
-// launch 2: each lane's exclusive prefix of its segment totals
-template <typename Alg>
-__global__ void __launch_bounds__(NT) scan_totals_kernel(float* __restrict__ totals, int G) {
+// launch 2: each lane's exclusive prefix of its segment totals; with
+// TOTAL (phase A of a carried scan) every segment's total is read and the
+// lane's inclusive total goes to total_out, (N, W * P)
+template <typename Alg, bool TOTAL>
+__global__ void __launch_bounds__(NT) scan_totals_kernel(float* __restrict__ totals, int G,
+                                                         float* __restrict__ total_out) {
   extern __shared__ float smem[];  // W * P * NT floats
-  eks::scan_segment_totals<Alg, NT>(totals, G, smem);
+  eks::scan_segment_totals<Alg, NT, TOTAL>(totals, G, smem, total_out);
 }
 
-// launch 3: every segment from its carry-in, each output position written once
-template <typename Alg>
+// launch 3: every segment from its carry-in, each output position written
+// once; with CARRIED, from the (N, W * P) carry of the chunks before this one
+// in scan order
+template <typename Alg, bool CARRIED>
 __global__ void __launch_bounds__(NT) scan_downsweep_kernel(const float* __restrict__ in,
                                                             float* __restrict__ out,
-                                                            const float* __restrict__ totals, int T,
+                                                            const float* __restrict__ totals,
+                                                            const float* __restrict__ carry, int T,
                                                             int L, int G) {
   using Geo = Geometry<Alg>;
   using Elem = typename Alg::Elem;
@@ -147,84 +181,101 @@ __global__ void __launch_bounds__(NT) scan_downsweep_kernel(const float* __restr
   Elem pre = blockIdx.x == 0
                  ? excl
                  : Alg::op(eks::total_get<Alg>(totals + ((size_t)lane * G + blockIdx.x) * Geo::WP), excl);
+  // the carry before it all, before the loop, so that no more than three
+  // elements are live at once (op with the identity, on the lane's first
+  // position, returns the carry's own bits)
+  if constexpr (CARRIED) pre = Alg::op(eks::total_get<Alg>(carry + (size_t)lane * Geo::WP), pre);
   for (int j = a; j < b; ++j) {
     const int k = sg.slot(j);
-    pre = j == 0 && blockIdx.x == 0 ? eks::tile_get<Alg>(tile, Geo::STRIDE, k)
-                                    : Alg::op(pre, eks::tile_get<Alg>(tile, Geo::STRIDE, k));
+    pre = !CARRIED && j == 0 && blockIdx.x == 0 ? eks::tile_get<Alg>(tile, Geo::STRIDE, k)
+                                                : Alg::op(pre, eks::tile_get<Alg>(tile, Geo::STRIDE, k));
     eks::tile_put<Alg>(tile, Geo::STRIDE, k, pre);
   }
   __syncthreads();
   eks::store_planes<NT>(out + base, T, tile, Geo::STRIDE, Geo::WP, sg.n);
 }
 
+// the instance's shared-memory opt-in above 48 KB, for all its kernels,
+// once per device
 template <typename Alg>
-int launch(const float* in, float* out, float* totals, int N, int T, int G, cudaStream_t s) {
-  using Geo = Geometry<Alg>;
-  const int L = (T + G - 1) / G;
-  if (G < 1 || L > Geo::TILE || (G - 1) * L >= T) return (int)cudaErrorInvalidValue;
-  auto reduce = scan_reduce_kernel<Alg>;
-  auto totals_scan = scan_totals_kernel<Alg>;
-  auto downsweep = scan_downsweep_kernel<Alg>;
-  // above 48 KB of dynamic shared memory: opt in, once per device
-  static bool opted_in[eks::MAX_DEVICES];
-  cudaError_t err = eks::once_per_device(opted_in, [&] {
+cudaError_t opt_in() {
+  static bool done[eks::MAX_DEVICES];
+  return eks::once_per_device(done, [] {
+    using Geo = Geometry<Alg>;
+    const int scan_bytes = Geo::SCAN_FLOATS * (int)sizeof(float);
+    auto reduce = scan_reduce_kernel<Alg>;
+    auto totals = scan_totals_kernel<Alg, false>;
+    auto totals_carried = scan_totals_kernel<Alg, true>;
+    auto downsweep = scan_downsweep_kernel<Alg, false>;
+    auto downsweep_carried = scan_downsweep_kernel<Alg, true>;
     cudaError_t e = cudaFuncSetAttribute(reduce, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo::SMEM);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(downsweep, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo::SMEM);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(totals_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Geo::SCAN_FLOATS * (int)sizeof(float));
+      e = cudaFuncSetAttribute(downsweep_carried, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo::SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(totals, cudaFuncAttributeMaxDynamicSharedMemorySize, scan_bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(totals_carried, cudaFuncAttributeMaxDynamicSharedMemorySize, scan_bytes);
     return e;
   });
+}
+
+// the segment length of a partition into G segments, or 0 where the
+// instance does not take it (no segment, one past its tile, or an empty one)
+template <typename Alg>
+int segment_length(int T, int G) {
+  if (G < 1) return 0;
+  const int L = (T + G - 1) / G;
+  return L > Geometry<Alg>::TILE || (G - 1) * L >= T ? 0 : L;
+}
+
+template <typename Alg>
+int launch(const float* in, float* out, float* totals, int N, int T, int G, cudaStream_t s) {
+  using Geo = Geometry<Alg>;
+  const int L = segment_length<Alg>(T, G);
+  if (L == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = opt_in<Alg>();
   if (err != cudaSuccess) return (int)err;
   if (G > 1) {
-    reduce<<<dim3(G - 1, N), NT, Geo::SMEM, s>>>(in, totals, T, L, G);
+    scan_reduce_kernel<Alg><<<dim3(G - 1, N), NT, Geo::SMEM, s>>>(in, totals, T, L, G);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    totals_scan<<<N, NT, Geo::SCAN_FLOATS * sizeof(float), s>>>(totals, G);
+    scan_totals_kernel<Alg, false><<<N, NT, Geo::SCAN_FLOATS * sizeof(float), s>>>(totals, G, nullptr);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  downsweep<<<dim3(G, N), NT, Geo::SMEM, s>>>(in, out, totals, T, L, G);
+  scan_downsweep_kernel<Alg, false><<<dim3(G, N), NT, Geo::SMEM, s>>>(in, out, totals, nullptr, T, L, G);
   return (int)cudaGetLastError();
 }
 
-// The cross-shard carry of a time-sharded scan: out[n, :, t] =
-// op(carry[n], in[n, :, t]) for every step t of one shard's chunk, where `in`
-// is the chunk's own inclusive scan and `carry` the combination of every
-// earlier chunk in scan order (the chunks before it in time for the filter,
-// after it for the smoother, whose op takes the later element first).
-// Replaces no Pallas kernel: the JAX package shards the time axis through
-// XLA's associative_scan under the SPMD partitioner, which carries these
-// combines with collectives (eks_tpu/parallel/mesh.py::shard_time). One
-// thread per (lane, step), consecutive threads on consecutive steps, so every
-// plane is read and written coalesced; the carry is the same few floats for
-// every thread of a lane. Bound on the H100: one elementwise pass, each plane
-// read once and written once, 2 * N * W * P * T * 4 bytes (6.4 MB for the
-// filter at N = 20, D = 2 over a 2,500-step chunk: 1.9 us at 3.35 TB/s),
-// against one combine a step. Folding the carry into the scan's downsweep
-// would save this pass.
+// phase A of a carried scan: every segment's total, their exclusive
+// prefixes in `totals` and the lane's total in `total_out`
 template <typename Alg>
-__global__ void __launch_bounds__(NT) carry_combine_kernel(const float* __restrict__ carry,
-                                                           const float* __restrict__ in,
-                                                           float* __restrict__ out, int T) {
-  using Sc = eks::Scalar<typename Alg::Scalar>;
-  using Elem = typename Alg::Elem;
-  constexpr int P = Alg::P;
-  const int t = blockIdx.x * NT + threadIdx.x;
-  if (t >= T) return;
-  const int lane = blockIdx.y;
-  const Elem c = eks::total_get<Alg>(carry + (size_t)lane * Sc::W * P);
-  const size_t base = (size_t)lane * Sc::W * P * T + t;
-  Elem e;
-#pragma unroll
-  for (int p = 0; p < P; ++p) e.x[p] = Sc::get(in + base + (size_t)p * T, (size_t)P * T);
-  const Elem r = Alg::op(c, e);
-#pragma unroll
-  for (int p = 0; p < P; ++p) Sc::put(out + base + (size_t)p * T, (size_t)P * T, r.x[p]);
+int launch_total(const float* in, float* totals, float* total_out, int N, int T, int G, cudaStream_t s) {
+  using Geo = Geometry<Alg>;
+  const int L = segment_length<Alg>(T, G);
+  if (L == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = opt_in<Alg>();
+  if (err != cudaSuccess) return (int)err;
+  scan_reduce_kernel<Alg><<<dim3(G, N), NT, Geo::SMEM, s>>>(in, totals, T, L, G);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  scan_totals_kernel<Alg, true><<<N, NT, Geo::SCAN_FLOATS * sizeof(float), s>>>(totals, G, total_out);
+  return (int)cudaGetLastError();
 }
 
+// phase B: the downsweep from phase A's prefixes and the carry (none: the
+// uncarried downsweep)
 template <typename Alg>
-int launch_carry(const float* carry, const float* in, float* out, int N, int T, cudaStream_t s) {
-  carry_combine_kernel<Alg><<<dim3((T + NT - 1) / NT, N), NT, 0, s>>>(carry, in, out, T);
+int launch_carried(const float* in, float* out, const float* totals, const float* carry, int N, int T,
+                   int G, cudaStream_t s) {
+  using Geo = Geometry<Alg>;
+  const int L = segment_length<Alg>(T, G);
+  if (L == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = opt_in<Alg>();
+  if (err != cudaSuccess) return (int)err;
+  if (carry == nullptr)
+    scan_downsweep_kernel<Alg, false><<<dim3(G, N), NT, Geo::SMEM, s>>>(in, out, totals, nullptr, T, L, G);
+  else
+    scan_downsweep_kernel<Alg, true><<<dim3(G, N), NT, Geo::SMEM, s>>>(in, out, totals, carry, T, L, G);
   return (int)cudaGetLastError();
 }
 
@@ -272,15 +323,31 @@ extern "C" int prefix_scan_f32(const float* in, float* out, float* totals, int N
                       [&](auto alg) { return launch<decltype(alg)>(in, out, totals, N, T, G, s); });
 }
 
-// carry: (N, W * P) float32, each lane's combination of the earlier chunks
-// (W = 2 with `paired`: the P primal values, then the P tangents); in, out:
-// (N, W * P, T) float32 contiguous, the chunk's own inclusive scan and the
-// result (distinct buffers). Returns the CUDA error of the launch (0 on
-// success); an unsupported D returns cudaErrorInvalidValue without launching.
-extern "C" int carry_combine_f32(const float* carry, const float* in, float* out, int N, int T, int D,
-                                 int smoother, int paired, void* stream) {
-  if (N <= 0 || T <= 0 || N > 65535) return (int)cudaErrorInvalidValue;
+// Phase A of the carried scan of one chunk: in is (N, W * P, T) as for
+// prefix_scan_f32, totals the same (N, G, W * P) scratch, which phase B
+// reads, and total_out (N, W * P) float32, each lane's inclusive total in
+// scan order (W = 2 with `paired`: the P primal values, then the P
+// tangents). G = 1 is allowed. Returns the CUDA error of the launches (0 on
+// success); an unsupported D or partition returns cudaErrorInvalidValue
+// without launching.
+extern "C" int prefix_scan_total_f32(const float* in, float* totals, float* total_out, int N, int T, int D,
+                                     int smoother, int paired, int G, void* stream) {
+  if (N <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return with_algebra(D, smoother, paired,
-                      [&](auto alg) { return launch_carry<decltype(alg)>(carry, in, out, N, T, s); });
+  return with_algebra(D, smoother, paired, [&](auto alg) {
+    return launch_total<decltype(alg)>(in, totals, total_out, N, T, G, s);
+  });
+}
+
+// Phase B: out (N, W * P, T), distinct from in; totals as phase A left it on
+// the same in, N, T, G and instance; carry (N, W * P) float32, each lane's
+// combination of the chunks before this one in scan order, laid out as
+// total_out, or null for the first chunk in scan order. Returns as phase A.
+extern "C" int prefix_scan_carried_f32(const float* in, float* out, const float* totals, const float* carry,
+                                       int N, int T, int D, int smoother, int paired, int G, void* stream) {
+  if (N <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return with_algebra(D, smoother, paired, [&](auto alg) {
+    return launch_carried<decltype(alg)>(in, out, totals, carry, N, T, G, s);
+  });
 }

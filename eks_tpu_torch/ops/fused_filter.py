@@ -24,18 +24,21 @@ follows that dispatch by shape and runs the plain version on the card,
 counted in ``PLAIN_ROUTE_LAUNCHES`` (the multi-camera family at
 ``n_latent`` 4 and above).
 
-The carry combine of a time-sharded scan (``carry_combine``, the second
-entry of ``prefix_scan.cu``) combines every step of one shard's locally
-scanned chunk with the combination of the chunks before it in scan order;
-``parallel/mesh.py`` builds the sharded scans from it. It replaces no
-Pallas kernel: the JAX package carries those combines with XLA collectives.
-Beyond D = 3 it follows the scans' dispatch, the plain version on the card,
-counted apart in ``CARRY_PLAIN_ROUTE_LAUNCHES``.
+A chunk of a time-sharded scan (``parallel/mesh.py``) runs the same three
+launches in two phases: ``chunk_total`` (phase A: the reduce over every
+segment and the totals launch, which also writes the chunk's total in scan
+order) and ``chunk_scan`` (phase B: the downsweep from the carry of the
+chunks before it in scan order, which the host combines from their totals in
+between); ``scan_total`` and ``scan_carried`` are the two in one call. This
+replaces no Pallas kernel: the JAX package carries those combines with XLA
+collectives. Beyond D = 3 it follows the scans' dispatch, the plain version on
+the card, its carry combine counted apart in ``CARRY_PLAIN_ROUTE_LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -55,14 +58,19 @@ __all__ = [
     "LAUNCHES_BY_INSTANCE",
     "CARRY_PLAIN_ROUTE_LAUNCHES",
     "PLAIN_ROUTE_LAUNCHES",
-    "carry_combine",
-    "carry_combine_paired",
+    "ChunkTotal",
     "carry_combine_plain",
     "check_scratch",
+    "chunk_scan",
+    "chunk_total",
     "filter_prefix",
     "filter_prefix_paired",
     "filter_prefix_plain",
+    "scan_carried",
+    "scan_carried_plain",
     "scan_plan",
+    "scan_total",
+    "scan_total_plain",
     "segment_partition",
     "sm_count",
     "smoother_suffix",
@@ -83,7 +91,8 @@ LAUNCHES_BY_INSTANCE = {
 }
 #: scans of CUDA tensors beyond D = 3, run by the plain version on the card
 PLAIN_ROUTE_LAUNCHES = 0
-#: carry-combine kernel launches of every instance by (kind, paired, D)
+#: carried downsweeps (phase B of a chunk after the first in scan order) of
+#: every instance by (kind, paired, D); each also counts as a scan above
 CARRY_LAUNCHES_BY_INSTANCE = dict.fromkeys(LAUNCHES_BY_INSTANCE, 0)
 #: carry combines of CUDA tensors beyond D = 3, run by the plain version
 CARRY_PLAIN_ROUTE_LAUNCHES = 0
@@ -158,9 +167,10 @@ def _lib():
         geo = lib.prefix_scan_geometry
         geo.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
         geo.restype = ctypes.c_int
-        carry = lib.carry_combine_f32
-        carry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        carry.restype = ctypes.c_int
+        for entry, n_ptrs in (("prefix_scan_total_f32", 3), ("prefix_scan_carried_f32", 4)):
+            f = getattr(lib, entry)
+            f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            f.restype = ctypes.c_int
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
@@ -198,11 +208,9 @@ def scan_plan(N: int, T: int, kind: str, paired: bool, D: int, device: torch.dev
     return plan
 
 
-def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool, scratch=None) -> torch.Tensor:
-    """Launch the (kind, paired) instance on (N, W * P, T) planes, W = 2 when
-    paired (primal planes, then tangent planes). ``scratch``, (N, G, W * P)
-    float32, is checked when given, else allocated here."""
-    global LAUNCHES
+def _instance(planes: torch.Tensor, kind: str, paired: bool) -> tuple:
+    """(N, W * P, T, D) of planes the kernel takes, W = 2 when paired
+    (primal planes, then tangent planes); raises on any it does not."""
     if planes.device.type != "cuda":
         raise ValueError(f"prefix_scan kernel takes a CUDA tensor, got {planes.device}")
     if planes.dtype != torch.float32:
@@ -215,6 +223,33 @@ def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool, scratch=None) -> t
     D = _state_dim(rows // 2 if paired else rows, kind)
     if D not in _CUDA_D:
         raise NotImplementedError(f"prefix_scan kernel is built for D in {_CUDA_D}, got D={D}")
+    return N, rows, T, D
+
+
+def _call(entry: str, device: torch.device, ptrs: tuple, N: int, T: int, D: int, kind: str, paired: bool,
+          G: int) -> None:
+    """Run one of the library's entries on ``device``'s current stream."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(_lib(), entry)(*ptrs, N, T, D, int(kind == "smoother"), int(paired), G, stream)
+    if rc != 0:
+        raise RuntimeError(f"prefix_scan kernel launch ({entry}) failed with CUDA error {rc}")
+
+
+def _count(kind: str, paired: bool, D: int, carried: bool = False) -> None:
+    global LAUNCHES
+    with cuda_build.COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_INSTANCE[(kind, paired, D)] += 1
+        if carried:
+            CARRY_LAUNCHES_BY_INSTANCE[(kind, paired, D)] += 1
+
+
+def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool, scratch=None) -> torch.Tensor:
+    """Launch the (kind, paired) instance on (N, W * P, T) planes, W = 2 when
+    paired (primal planes, then tangent planes). ``scratch``, (N, G, W * P)
+    float32, is checked when given, else allocated here."""
+    N, rows, T, D = _instance(planes, kind, paired)
     out = torch.empty((N, rows, T), dtype=torch.float32, device=planes.device)
     if N == 0 or T == 0:
         return out
@@ -223,15 +258,9 @@ def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool, scratch=None) -> t
         scratch = torch.empty((N, G, rows), dtype=torch.float32, device=planes.device)
     else:
         check_scratch("prefix_scan", scratch, (N, G, rows), planes.device)
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().prefix_scan_f32(planes.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, T, D,
-                                    int(kind == "smoother"), int(paired), G, stream)
-    if rc != 0:
-        raise RuntimeError(f"prefix_scan kernel launch failed with CUDA error {rc}")
-    with cuda_build.COUNT_LOCK:
-        LAUNCHES += 1
-        LAUNCHES_BY_INSTANCE[(kind, paired, D)] += 1
+    _call("prefix_scan_f32", planes.device, (planes.data_ptr(), out.data_ptr(), scratch.data_ptr()), N, T, D,
+          kind, paired, G)
+    _count(kind, paired, D)
     return out
 
 
@@ -239,18 +268,14 @@ def _state_dim(n_planes: int, kind: str) -> int:
     return filter_state_dim(n_planes) if kind == "filter" else smoother_state_dim(n_planes)
 
 
-def _plain_route(planes: torch.Tensor, kind: str, carry: bool = False) -> bool:
-    """Whether a CUDA scan (or with ``carry``, a carry combine) takes the
-    plain version by shape: D > 3, where the JAX package runs XLA's
-    associative scan. Counted when it does."""
-    global PLAIN_ROUTE_LAUNCHES, CARRY_PLAIN_ROUTE_LAUNCHES
+def _plain_route(planes: torch.Tensor, kind: str) -> bool:
+    """Whether a CUDA scan takes the plain version by shape: D > 3, where
+    the JAX package runs XLA's associative scan. Counted when it does."""
+    global PLAIN_ROUTE_LAUNCHES
     if _state_dim(planes.shape[-2], kind) <= max(_CUDA_D):
         return False
     with cuda_build.COUNT_LOCK:
-        if carry:
-            CARRY_PLAIN_ROUTE_LAUNCHES += 1
-        else:
-            PLAIN_ROUTE_LAUNCHES += 1
+        PLAIN_ROUTE_LAUNCHES += 1
     return True
 
 
@@ -300,8 +325,13 @@ def smoother_suffix_paired(planes: torch.Tensor, tangents: torch.Tensor):
 
 
 # --------------------------------------------------------------------------- #
-# the carry combine of a time-sharded scan
+# a chunk of a time-sharded scan, from its carry-in
 # --------------------------------------------------------------------------- #
+_PLAIN = {"filter": filter_prefix_plain, "smoother": smoother_suffix_plain}
+#: the time step that holds a chunk's total in scan order
+_EDGE = {"filter": -1, "smoother": 0}
+
+
 def carry_combine_plain(carry: torch.Tensor, local: torch.Tensor, kind: str) -> torch.Tensor:
     """Plain PyTorch version: every step of the (N, P, T) chunk ``local``
     combined with the (N, P) ``carry``, the combination of the chunks before
@@ -312,62 +342,128 @@ def carry_combine_plain(carry: torch.Tensor, local: torch.Tensor, kind: str) -> 
     return combine(carry[..., None].expand_as(local), local)
 
 
-def _carry_cuda(carry: torch.Tensor, local: torch.Tensor, kind: str, paired: bool) -> torch.Tensor:
-    """Launch the carry kernel's (kind, paired) instance: ``carry`` (N, W * P)
-    and ``local`` (N, W * P, T), W = 2 when paired (primal, then tangent)."""
-    if local.dtype != torch.float32 or carry.dtype != torch.float32:
-        raise TypeError("carry_combine kernel takes float32")
-    if local.ndim != 3 or not local.is_contiguous() or not carry.is_contiguous():
-        raise ValueError("carry_combine kernel takes a contiguous (N, P, T) chunk and (N, P) carry")
-    N, rows, T = local.shape
-    if tuple(carry.shape) != (N, rows) or carry.device != local.device:
-        raise ValueError(f"carry must be ({N}, {rows}) on {local.device}, got {tuple(carry.shape)} on {carry.device}")
-    if paired and rows % 2:
-        raise ValueError(f"paired planes hold P primal and P tangent planes, got {rows}")
-    D = _state_dim(rows // 2 if paired else rows, kind)
-    if D not in _CUDA_D:
-        raise NotImplementedError(f"carry_combine kernel is built for D in {_CUDA_D}, got D={D}")
-    out = torch.empty_like(local)
-    if N == 0 or T == 0:
-        return out
-    with torch.cuda.device(local.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().carry_combine_f32(carry.data_ptr(), local.data_ptr(), out.data_ptr(), N, T, D,
-                                      int(kind == "smoother"), int(paired), stream)
-    if rc != 0:
-        raise RuntimeError(f"carry_combine kernel launch failed with CUDA error {rc}")
-    with cuda_build.COUNT_LOCK:
-        CARRY_LAUNCHES_BY_INSTANCE[(kind, paired, D)] += 1
+def scan_total_plain(planes: torch.Tensor, kind: str) -> torch.Tensor:
+    """Plain PyTorch version of ``scan_total``: the (N, P) edge of the
+    chunk's plain scan, its last step for the filter, its first for the
+    smoother."""
+    return _PLAIN[kind](planes)[..., _EDGE[kind]]
+
+
+def scan_carried_plain(planes: torch.Tensor, carry: torch.Tensor, kind: str) -> torch.Tensor:
+    """Plain PyTorch version of ``scan_carried``: the chunk's plain scan,
+    every step combined with ``carry``."""
+    return carry_combine_plain(carry, _PLAIN[kind](planes), kind)
+
+
+@dataclass
+class ChunkTotal:
+    """Phase A of a chunk's carried scan, kept for its phase B
+    (``chunk_scan``). ``total`` is the chunk's total in scan order, (N, P),
+    or with tangents the pair (total, its tangent). On the card phase B reads
+    ``planes``, (N, W * P, T) (paired: the primal planes, then the tangent
+    planes, packed by the one ``cat``), and ``scratch``, the (N, G, W * P)
+    prefixes of the segment totals; on the plain route, ``local``, the
+    chunk's own scan (a pair with tangents)."""
+
+    kind: str
+    paired: bool
+    total: object
+    planes: torch.Tensor | None = None
+    scratch: torch.Tensor | None = None
+    D: int = 0
+    G: int = 0
+    local: object = None
+
+
+def _total_cuda(packed: torch.Tensor, kind: str, paired: bool) -> ChunkTotal:
+    """Phase A on the card: the reduce over every segment and the totals
+    launch, which writes the chunk's total."""
+    N, rows, T, D = _instance(packed, kind, paired)
+    G = scan_plan(N, T, kind, paired, D, packed.device)["G"] if N else 0
+    total = torch.empty((N, rows), dtype=torch.float32, device=packed.device)
+    scratch = torch.empty((N, G, rows), dtype=torch.float32, device=packed.device)
+    if N:
+        _call("prefix_scan_total_f32", packed.device, (packed.data_ptr(), scratch.data_ptr(), total.data_ptr()),
+              N, T, D, kind, paired, G)
+    P = rows // 2 if paired else rows
+    return ChunkTotal(kind, paired, (total[:, :P], total[:, P:]) if paired else total, planes=packed,
+                      scratch=scratch, D=D, G=G)
+
+
+def chunk_total(planes: torch.Tensor, kind: str, tangents: torch.Tensor | None = None) -> ChunkTotal:
+    """Phase A of the carried scan of one chunk, (N, P, T) filtering or
+    smoothing elements in forward time order (with ``tangents``, the paired
+    scan along them): on a CUDA tensor at D <= 3 two launches that leave
+    the chunk's total and what phase B reads; else the plain scan, whose
+    edge is the total (beyond D = 3 on the card counted in
+    ``PLAIN_ROUTE_LAUNCHES``)."""
+    paired = tangents is not None
+    if planes.shape[-1] < 1:
+        raise ValueError("a chunk holds at least one step")
+    if planes.device.type == "cuda":
+        if paired and (tangents.shape != planes.shape or tangents.device != planes.device):
+            raise ValueError("paired scan: planes and tangents must share shape and device")
+        if not _plain_route(planes, kind):
+            return _total_cuda(torch.cat([planes, tangents], dim=1) if paired else planes, kind, paired)
+    elif planes.device.type != "cpu":
+        raise RuntimeError(f"no prefix scan for device {planes.device}")
+    plain, edge = _PLAIN[kind], _EDGE[kind]
+    local = jvp(plain, (planes,), (tangents,)) if paired else plain(planes)
+    total = tuple(x[..., edge] for x in local) if paired else local[..., edge]
+    return ChunkTotal(kind, paired, total, local=local)
+
+
+def chunk_scan(chunk: ChunkTotal, carry=None):
+    """Phase B: the chunk scanned from ``carry``, the combination of the
+    chunks before it in scan order, (N, P) (with tangents the pair (carry,
+    its tangent)), or from nothing (None: the first chunk in scan order).
+    On the card one launch, the downsweep, counted as the chunk's scan (and
+    with a carry in ``CARRY_LAUNCHES_BY_INSTANCE``); returns (N, P, T), or
+    with tangents the pair (scan, its tangent)."""
+    global CARRY_PLAIN_ROUTE_LAUNCHES
+    kind, paired = chunk.kind, chunk.paired
+    if chunk.planes is None:
+        if carry is None:
+            return chunk.local
+        local = chunk.local[0] if paired else chunk.local
+        if local.device.type == "cuda":  # beyond D = 3
+            with cuda_build.COUNT_LOCK:
+                CARRY_PLAIN_ROUTE_LAUNCHES += 1
+
+        def plain(c, x):
+            return carry_combine_plain(c, x, kind)
+
+        return jvp(plain, (carry[0], chunk.local[0]), (carry[1], chunk.local[1])) if paired else plain(carry, local)
+    planes = chunk.planes
+    N, rows, T = planes.shape
+    if carry is not None:
+        carry = torch.cat(carry, dim=1) if paired else carry
+        if carry.dtype != torch.float32:
+            raise TypeError(f"prefix_scan kernel takes a float32 carry, got {carry.dtype}")
+        if tuple(carry.shape) != (N, rows) or carry.device != planes.device or not carry.is_contiguous():
+            raise ValueError(f"the carry must be contiguous ({N}, {rows}) on {planes.device}, "
+                             f"got {tuple(carry.shape)} on {carry.device}")
+    out = torch.empty_like(planes)
+    if N:
+        _call("prefix_scan_carried_f32", planes.device,
+              (planes.data_ptr(), out.data_ptr(), chunk.scratch.data_ptr(), None if carry is None else carry.data_ptr()),
+              N, T, chunk.D, kind, paired, chunk.G)
+        _count(kind, paired, chunk.D, carried=carry is not None)
+    if paired:
+        P = rows // 2
+        return out[:, :P], out[:, P:]
     return out
 
 
-def carry_combine(carry: torch.Tensor, local: torch.Tensor, kind: str) -> torch.Tensor:
-    """(N, P, T) chunk ``local`` combined step by step with the (N, P)
-    ``carry``: the kernel on a CUDA tensor (the plain version beyond D = 3,
-    counted in ``CARRY_PLAIN_ROUTE_LAUNCHES``), the plain version on a CPU
-    tensor."""
-    if local.device.type == "cuda":
-        if _plain_route(local, kind, carry=True):
-            return carry_combine_plain(carry, local, kind)
-        return _carry_cuda(carry, local, kind, False)
-    if local.device.type == "cpu":
-        return carry_combine_plain(carry, local, kind)
-    raise RuntimeError(f"no carry combine for device {local.device}")
+def scan_total(planes: torch.Tensor, kind: str, tangents: torch.Tensor | None = None):
+    """The total in scan order of the (N, P, T) chunk ``planes``, (N, P),
+    or with ``tangents`` the pair (total, its tangent): phase A alone."""
+    return chunk_total(planes, kind, tangents).total
 
 
-def carry_combine_paired(carry, dcarry, local, dlocal, kind: str):
-    """(combined, its tangent) of ``carry_combine`` along the tangents
-    ``dcarry`` and ``dlocal``: on the card one launch on the pairs."""
-    def plain(c, x):
-        return carry_combine_plain(c, x, kind)
-
-    if local.device.type == "cuda":
-        if _plain_route(local, kind, carry=True):
-            return jvp(plain, (carry, local), (dcarry, dlocal))
-        P = local.shape[1]
-        out = _carry_cuda(torch.cat([carry, dcarry], dim=1).contiguous(),
-                          torch.cat([local, dlocal], dim=1), kind, True)
-        return out[:, :P], out[:, P:]
-    if local.device.type == "cpu":
-        return jvp(plain, (carry, local), (dcarry, dlocal))
-    raise RuntimeError(f"no carry combine for device {local.device}")
+def scan_carried(planes: torch.Tensor, carry, kind: str, tangents: torch.Tensor | None = None, dcarry=None):
+    """The (N, P, T) chunk ``planes`` scanned from the (N, P) ``carry``, or
+    with ``tangents`` the pair (scan, its tangent) from the carry and its
+    tangent ``dcarry``: phase A, then phase B on its prefixes."""
+    chunk = chunk_total(planes, kind, tangents)
+    return chunk_scan(chunk, carry if tangents is None else (carry, dcarry))

@@ -14,14 +14,15 @@ own lanes converge. ``pad_and_shard_leading`` keeps the JAX package's
 padding (lane 0 repeated) for callers that want equal shards.
 
 Time axis (``partition="time"``): the frame axis is split into nearly equal
-chunks, one a shard. Each chunk's elements are built on its device, scanned
-there by the existing kernel (``filter_prefix_sharded`` and
-``smoother_suffix_sharded``, float and paired), and the chunk totals
-(``N x W*P`` floats each) travel with ``Tensor.to`` to be combined in shard
-order by the algebra's plain combine (the filter's in matrix form); each chunk is then combined with its
-carry by the carry kernel (``fused_filter.carry_combine``). The JAX package
-instead lets the SPMD partitioner put collectives into XLA's
-``associative_scan``.
+chunks, one a shard. Each chunk's elements are built on its device and
+scanned there by the scan kernel in two phases (``filter_prefix_sharded``
+and ``smoother_suffix_sharded``, float and paired): phase A of every chunk
+gives its total (``fused_filter.chunk_total``), the totals (``N x W*P``
+floats each) travel with ``Tensor.to`` to be combined in scan order by the
+algebra's plain combine (the filter's in matrix form), and phase B scans
+every chunk from its carry (``fused_filter.chunk_scan``), with no pass of
+its own for the carry. The JAX package instead lets the SPMD partitioner put
+collectives into XLA's ``associative_scan``.
 
 Every shard runs in turn on the calling thread with its device current
 (``map_shards``): on a host with several cards the asynchronous launches let
@@ -303,47 +304,48 @@ def _combine_filter_totals(earlier: torch.Tensor, later: torch.Tensor) -> torch.
 
 def _sharded_scan(kind: str, chunks: list, tangents: list | None = None) -> list:
     """The filter prefix or smoother suffix of a time-sharded sequence, with
-    tangents when ``tangents`` is given: local scans, the chunk totals
-    combined in shard order by the algebra's plain combine (the smoother's
-    from the last chunk back), and each chunk with its carry by the carry
-    kernel."""
+    tangents when ``tangents`` is given. One chunk is scanned as it is.
+    Several take two passes over the shards: phase A of every chunk's scan
+    (its total), the totals combined in scan order by the algebra's plain
+    combine (the smoother's from the last chunk back), then phase B of every
+    chunk from its carry (the first in scan order from none)."""
     paired = tangents is not None
-    # the kernels' wrappers are looked up at call time
-    if kind == "filter":
-        scan = fused_filter.filter_prefix_paired if paired else fused_filter.filter_prefix
-        plain, edge = _combine_filter_totals, slice(-1, None)
-    else:
-        scan = fused_filter.smoother_suffix_paired if paired else fused_filter.smoother_suffix
-        plain, edge = _combine_smoother, slice(0, 1)
+    if len(chunks) == 1:  # one device's whole sequence: the scan itself, no total
+        # the kernels' wrappers are looked up at call time
+        if kind == "filter":
+            scan = fused_filter.filter_prefix_paired if paired else fused_filter.filter_prefix
+        else:
+            scan = fused_filter.smoother_suffix_paired if paired else fused_filter.smoother_suffix
+        return [scan(chunks[0], tangents[0]) if paired else scan(chunks[0])]
+    combine = _combine_filter_totals if kind == "filter" else _combine_smoother
     devices = [c.device for c in chunks]
-    local = map_shards(lambda i, *xs: scan(*xs) if paired else (scan(*xs),),
-                       devices, chunks, *([tangents] if paired else []))
-    if len(local) > 1:
-        def combine(a, b):
-            return jvp(plain, (a[0], b[0]), (a[1], b[1])) if paired else (plain(a[0], b[0]),)
+    parts = map_shards(lambda i, x, dx: fused_filter.chunk_total(x, kind, dx), devices, chunks,
+                       tangents if paired else [None] * len(chunks))
 
-        totals = [tuple(x[:, :, edge] for x in loc) for loc in local]
-        carries = (_carries(totals, combine) if kind == "filter" else _carries(totals[::-1], combine)[::-1])
-        apply = fused_filter.carry_combine_paired if paired else fused_filter.carry_combine
+    def pair_combine(a, b):
+        return jvp(combine, (a[0], b[0]), (a[1], b[1])) if paired else (combine(a[0], b[0]),)
 
-        def finish(i, loc, carry):
-            if carry is None:
-                return loc
-            c = [x[..., 0].to(loc[0].device).contiguous() for x in carry]
-            out = apply(*c, *loc, kind)
-            return out if paired else (out,)
+    # the totals as (N, P, 1) planes, (total,) or (total, its tangent)
+    totals = [tuple(x[..., None] for x in (p.total if paired else (p.total,))) for p in parts]
+    carries = (_carries(totals, pair_combine) if kind == "filter"
+               else _carries(totals[::-1], pair_combine)[::-1])
 
-        local = map_shards(finish, devices, local, carries)
-    return [loc if paired else loc[0] for loc in local]
+    def finish(i, part, carry):
+        if carry is not None:
+            carry = tuple(x[..., 0].to(devices[i]) for x in carry)
+            carry = carry if paired else carry[0].contiguous()
+        return fused_filter.chunk_scan(part, carry)
+
+    return map_shards(finish, devices, parts, carries)
 
 
 def filter_prefix_sharded(chunks: list) -> list:
     """The inclusive prefix of the filtering elements of a time-sharded
     sequence: ``chunks[i]``, (N, P, T_i) on its shard's device, in time
-    order. Each chunk is scanned on its device by the scan kernel, the chunk
-    totals are combined in shard order by the filter combine, and each chunk
-    after the first is combined with its carry by the carry kernel. Returns
-    the scanned chunks, each on its device."""
+    order. Phase A of the scan kernel gives each chunk's total on its
+    device, the totals are combined in shard order by the filter combine,
+    and phase B scans each chunk from the combination of the chunks before
+    it. Returns the scanned chunks, each on its device."""
     return _sharded_scan("filter", chunks)
 
 
@@ -357,8 +359,8 @@ def smoother_suffix_sharded(chunks: list) -> list:
 
 def filter_prefix_paired_sharded(chunks: list, tangents: list) -> list:
     """``filter_prefix_sharded`` with tangents: per chunk (prefix, its
-    tangent), every scan and carry one paired launch on the card; the carries
-    are combined under ``torch.func.jvp`` of the plain combine."""
+    tangent), each phase one paired launch on the card; the carries are
+    combined under ``torch.func.jvp`` of the plain combine."""
     return _sharded_scan("filter", chunks, tangents)
 
 

@@ -8,9 +8,10 @@ segment, a long lane and a wide batch; whether two launches of each
 kernel on the same inputs give the same bits; that the instances the
 library of kernel A reports are the ones its wrapper takes; that scans
 beyond D = 3 take the plain version on the card, counted, as the JAX
-package takes XLA's scan there; and the carry kernel of the time-sharded
-scans (every instance against its plain version, the sharded scans against
-the unsharded kernel scan, a loss evaluated by worker threads at once).
+package takes XLA's scan there; and the carried scan of the time-sharded
+scans (every instance of its two phases against its plain version, the
+sharded scans against the unsharded kernel scan, one chunk against the
+uncarried scan bit for bit, a loss evaluated by worker threads at once).
 
 The kernels have no CPU mode, so every test here needs a CUDA card and
 ``nvcc``; on a machine without them each one skips. On the card (where JAX is
@@ -452,12 +453,12 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 # --------------------------------------------------------------------------- #
-# the carry combine of a time-sharded scan (prefix_scan.cu's second entry)
+# the carried scan of a time-sharded sequence (prefix_scan.cu's phases A and B)
 # --------------------------------------------------------------------------- #
 def _carry_operands(dev, kind, N, T, D, seed):
-    """(carry, local) and symmetric tangents for them: the total of a scanned
-    chunk and the next chunk's own scan in scan order, from the elements of
-    a filtered random walk."""
+    """(carry, local) and symmetric tangents for them: the total of the five
+    steps before the chunk in scan order (after it in time, for the
+    smoother) and the chunk's own T elements, from a filtered random walk."""
     if kind == "smoother":
         planes, tangents = _smoother_planes(dev, N, T + 5, 2 * D if D > 1 else 2, D, seed=seed)
         total, local = planes[..., T:].contiguous(), planes[..., :T].contiguous()
@@ -473,8 +474,7 @@ def _carry_operands(dev, kind, N, T, D, seed):
         dtotal, dlocal = tangents[..., :5].contiguous(), tangents[..., 5:].contiguous()
         plain, edge = fused_filter.filter_prefix_plain, -1
     tot, dtot = torch.func.jvp(plain, (total,), (dtotal,))
-    loc, dloc = torch.func.jvp(plain, (local,), (dlocal,))
-    return tot[..., edge].contiguous(), dtot[..., edge].contiguous(), loc.contiguous(), dloc.contiguous()
+    return tot[..., edge].contiguous(), dtot[..., edge].contiguous(), local, dlocal
 
 
 @pytest.mark.parametrize("kind", ["filter", "smoother"])
@@ -482,49 +482,65 @@ def _carry_operands(dev, kind, N, T, D, seed):
 @pytest.mark.parametrize("D", [1, 2, 3])
 @pytest.mark.parametrize("N,T", [(1, 1), (3, 127), (3, 128), (2, 129), (4, 1000)])
 def test_carry_kernel_matches_plain(dev, kind, paired, D, N, T):
-    """Every instance of the carry kernel against its plain version, one
-    launch counted, at a single step and at step counts either side of a
-    block of 128 threads."""
-    c, dc, loc, dloc = _carry_operands(dev, kind, N, T, D, seed=T + D)
+    """Every instance of the carried scan (phase A, then the downsweep from
+    a carry) against its plain version, counted once as a scan and once as
+    a carried downsweep, and its chunk total against the plain scan's edge,
+    at a single step and at step counts either side of a block of 128
+    threads; a second call gives the same bits."""
+    c, dc, x, dx = _carry_operands(dev, kind, N, T, D, seed=T + D)
     key = (kind, paired, D)
-    before = fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key]
+    before = (fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key], fused_filter.LAUNCHES_BY_INSTANCE[key])
     if paired:
-        out, dout = fused_filter.carry_combine_paired(c, dc, loc, dloc, kind)
-        want, dwant = torch.func.jvp(lambda a, b: fused_filter.carry_combine_plain(a, b, kind), (c, loc), (dc, dloc))
-        torch.cuda.synchronize()
-        _close(dout, dwant)
+        def run():
+            return torch.cat(fused_filter.scan_carried(x, c, kind, dx, dc), dim=1)
+
+        out = run()
+        want = torch.cat(torch.func.jvp(lambda a, b: fused_filter.scan_carried_plain(a, b, kind), (x, c), (dx, dc)),
+                         dim=1)
+        total = torch.cat(fused_filter.scan_total(x, kind, dx), dim=1)
+        want_total = torch.cat(torch.func.jvp(lambda a: fused_filter.scan_total_plain(a, kind), (x,), (dx,)), dim=1)
     else:
-        out = fused_filter.carry_combine(c, loc, kind)
-        want = fused_filter.carry_combine_plain(c, loc, kind)
-        torch.cuda.synchronize()
-    assert fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key] == before + 1
+        def run():
+            return fused_filter.scan_carried(x, c, kind)
+
+        out = run()
+        want = fused_filter.scan_carried_plain(x, c, kind)
+        total, want_total = fused_filter.scan_total(x, kind), fused_filter.scan_total_plain(x, kind)
+    torch.cuda.synchronize()
+    assert (fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key], fused_filter.LAUNCHES_BY_INSTANCE[key]) == (
+        before[0] + 1, before[1] + 1)
     _close(out, want)
-    again = fused_filter.carry_combine_paired(c, dc, loc, dloc, kind)[0] if paired else \
-        fused_filter.carry_combine(c, loc, kind)
+    _close(total, want_total)
+    again = run()
     torch.cuda.synchronize()
     assert torch.equal(again, out)
+
+
+def _scan_operands(dev, kind, N, T, D):
+    """(planes, tangents) of N lanes of T steps, symmetric tangents for the
+    filter, and the instance's whole-sequence and sharded scans, float and
+    paired."""
+    from eks_tpu_torch.parallel import mesh
+
+    if kind == "smoother":
+        planes, tangents = _smoother_planes(dev, N, T, 2 * D if D > 1 else 2, D, seed=D)
+        return (planes, tangents, fused_filter.smoother_suffix, fused_filter.smoother_suffix_paired,
+                mesh.smoother_suffix_sharded, mesh.smoother_suffix_paired_sharded)
+    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, max(2 * D - 2, 2), D))
+    planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
+    tangents = _symmetric_cj(0.1 * torch.ones_like(planes), D)
+    return (planes, tangents, fused_filter.filter_prefix, fused_filter.filter_prefix_paired,
+            mesh.filter_prefix_sharded, mesh.filter_prefix_paired_sharded)
 
 
 @pytest.mark.parametrize("kind", ["filter", "smoother"])
 @pytest.mark.parametrize("D", [1, 2, 3])
 @pytest.mark.parametrize("sizes", [(1, 300), (257, 1, 40, 2), (2500, 2500, 2500, 2500)])
 def test_sharded_scans_match_the_unsharded_kernel_scan(dev, kind, D, sizes):
-    """Chunks of uneven length, scanned by the kernel and carried by the
-    carry kernel, against the kernel's scan of the whole sequence, float and
+    """Chunks of uneven length, each scanned by phase A, then from its carry
+    by phase B, against the kernel's scan of the whole sequence, float and
     paired (the tangents keep C and J symmetric)."""
-    from eks_tpu_torch.parallel import mesh
-
-    T = sum(sizes)
-    if kind == "smoother":
-        planes, tangents = _smoother_planes(dev, 2, T, 2 * D if D > 1 else 2, D, seed=D)
-        whole, whole_p = fused_filter.smoother_suffix, fused_filter.smoother_suffix_paired
-        sharded, sharded_p = mesh.smoother_suffix_sharded, mesh.smoother_suffix_paired_sharded
-    else:
-        ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(2, T, max(2 * D - 2, 2), D))
-        planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
-        tangents = _symmetric_cj(0.1 * torch.ones_like(planes), D)
-        whole, whole_p = fused_filter.filter_prefix, fused_filter.filter_prefix_paired
-        sharded, sharded_p = mesh.filter_prefix_sharded, mesh.filter_prefix_paired_sharded
+    planes, tangents, whole, whole_p, sharded, sharded_p = _scan_operands(dev, kind, 2, sum(sizes), D)
     chunks = [x.contiguous() for x in torch.split(planes, list(sizes), dim=-1)]
     dchunks = [x.contiguous() for x in torch.split(tangents, list(sizes), dim=-1)]
     before = fused_filter.CARRY_LAUNCHES_BY_INSTANCE[(kind, False, D)]
@@ -538,23 +554,51 @@ def test_sharded_scans_match_the_unsharded_kernel_scan(dev, kind, D, sizes):
     _close(got_p[1], want_p[1])
 
 
+@pytest.mark.parametrize("kind", ["filter", "smoother"])
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_uncarried_scan_is_the_one_chunk_sharded_scan_bit_for_bit(dev, kind, paired, D):
+    """The uncarried scan of one input gives the same bits in two launches,
+    the same bits as the sharded scan of that input as one chunk, and the
+    same bits as its two phases with no carry (phase A over every segment,
+    then the uncarried downsweep: the first chunk in scan order of a sharded
+    scan), whose extra total changes no exclusive prefix."""
+    planes, tangents, whole, whole_p, sharded, sharded_p = _scan_operands(dev, kind, 3, 3000, D)
+    if paired:
+        first, second = torch.cat(whole_p(planes, tangents), 1), torch.cat(whole_p(planes, tangents), 1)
+        one_chunk = torch.cat(sharded_p([planes], [tangents])[0], 1)
+        phases = torch.cat(fused_filter.chunk_scan(fused_filter.chunk_total(planes, kind, tangents)), 1)
+    else:
+        first, second, one_chunk = whole(planes), whole(planes), sharded([planes])[0]
+        phases = fused_filter.chunk_scan(fused_filter.chunk_total(planes, kind))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, one_chunk)
+    assert torch.equal(first, phases)
+
+
 def test_carry_wrappers_refuse_what_the_kernel_does_not_take(dev):
-    c, dc, loc, dloc = _carry_operands(dev, "filter", 2, 16, 2, seed=0)
+    c, dc, x, dx = _carry_operands(dev, "filter", 2, 16, 2, seed=0)
     with pytest.raises(TypeError):
-        fused_filter.carry_combine(c.double(), loc.double(), "filter")
+        fused_filter.scan_carried(x, c.double(), "filter")
+    with pytest.raises(TypeError):
+        fused_filter.scan_carried(x.double(), c, "filter")
     with pytest.raises(ValueError):
-        fused_filter.carry_combine(c[:1], loc, "filter")
+        fused_filter.scan_carried(x, c[:1], "filter")
     with pytest.raises(ValueError):
-        fused_filter.carry_combine(c.cpu(), loc, "filter")
+        fused_filter.scan_carried(x, c.cpu(), "filter")
+    with pytest.raises(ValueError):
+        fused_filter.scan_carried(x, c, "filter", dx, dc[:, :3])
     with pytest.raises(NotImplementedError):  # the kernel stops at D = 3 (the wrapper takes the plain route)
-        fused_filter._carry_cuda(torch.zeros(2, 36, device=dev), torch.zeros(2, 36, 8, device=dev),
-                                 "smoother", False)
-    # beyond D = 3 the wrapper runs the plain version on the card, counted
-    # apart from the scans' plain route
+        fused_filter._total_cuda(torch.zeros(2, 36, 8, device=dev), "smoother", False)
+    # beyond D = 3 the wrapper runs the plain version on the card: the
+    # chunk's plain scan counted on the scans' plain route, its carry
+    # combine apart
     before = (fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES)
     x = torch.zeros(2, 3 * 16 + 8, 8, device=dev)
-    fused_filter.carry_combine(x[..., 0].contiguous(), x, "filter")
-    assert (fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES) == (before[0] + 1, before[1])
+    fused_filter.scan_carried(x, x[..., 0].contiguous(), "filter")
+    assert (fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES) == (before[0] + 1,
+                                                                                            before[1] + 1)
 
 
 def test_time_sharded_loss_in_a_worker_thread_gives_the_main_threads_bits(dev):

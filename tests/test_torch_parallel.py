@@ -328,23 +328,66 @@ def test_sharded_scan_matches_the_unsharded_plain_scan(kind, D, sizes):
 @pytest.mark.parametrize("kind", ["filter", "smoother"])
 def test_carry_combine_plain_is_the_algebras_combine(kind):
     """carry_combine_plain(carry, local) is the algebra's combine of the
-    carry with every step, and combining a chunk's first-step prefix as the
-    carry of the rest gives the whole scan (the smoother's carry is the
-    later element)."""
+    carry with every step, and scan_carried_plain of a chunk from the
+    prefix of the steps before it gives the whole scan (the smoother's carry
+    is the suffix of the steps after it, the later element)."""
     x = _elements(kind, 3, 25, 2)
     combine = pkalman._combine_filter if kind == "filter" else pkalman._combine_smoother
     carry = x[:, :, 0]
-    got = fused_filter.carry_combine(carry, x[:, :, 1:].contiguous(), kind)
+    got = fused_filter.carry_combine_plain(carry, x[:, :, 1:].contiguous(), kind)
     for t in (0, 11, 23):
         assert torch.equal(got[:, :, t:t + 1], combine(carry[..., None], x[:, :, t + 1:t + 2]))
     plain = fused_filter.filter_prefix_plain if kind == "filter" else fused_filter.smoother_suffix_plain
     whole = plain(x)
     if kind == "filter":
-        rest = fused_filter.carry_combine(whole[:, :, 9], plain(x[:, :, 10:].contiguous()), kind)
+        rest = fused_filter.scan_carried_plain(x[:, :, 10:].contiguous(), whole[:, :, 9], kind)
         torch.testing.assert_close(rest, whole[:, :, 10:], rtol=1e-10, atol=1e-10)
     else:
-        head = fused_filter.carry_combine(whole[:, :, 10], plain(x[:, :, :10].contiguous()), kind)
+        head = fused_filter.scan_carried_plain(x[:, :, :10].contiguous(), whole[:, :, 10], kind)
         torch.testing.assert_close(head, whole[:, :, :10], rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("kind", ["filter", "smoother"])
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("paired", [False, True])
+def test_chunk_phases_are_their_plain_versions_on_the_cpu(kind, D, paired):
+    """On a CPU tensor the two phases of a chunk's carried scan run their
+    plain versions: scan_total is the edge of the plain scan (its last step
+    for the filter, its first for the smoother), scan_carried is
+    carry_combine_plain of the plain scan, and both agree with the plain
+    scan of the whole sequence that the chunk and its carry cut; paired,
+    torch.func.jvp of the plain versions. Float64, 1e-9 relative."""
+    x, dx = torch.func.jvp(lambda q: _elements(kind, 2, 31, D, q), (torch.tensor(0.2, dtype=torch.float64),),
+                           (torch.tensor(1.0, dtype=torch.float64),))
+    plain = fused_filter.filter_prefix_plain if kind == "filter" else fused_filter.smoother_suffix_plain
+    whole, dwhole = torch.func.jvp(plain, (x,), (dx,))
+    # the chunk is 24 steps; its carry the 7 steps before it (filter) or after it (smoother)
+    cut, edge = (slice(7, None), 6) if kind == "filter" else (slice(None, 24), 24)
+    chunk, dchunk = x[..., cut].contiguous(), dx[..., cut].contiguous()
+    carry, dcarry = whole[..., edge], dwhole[..., edge]
+
+    def close(a, b):
+        assert float(((a - b).abs() / (1 + b.abs())).max()) < 1e-9
+
+    if paired:
+        total = fused_filter.scan_total(chunk, kind, dchunk)
+        got = fused_filter.scan_carried(chunk, carry, kind, dchunk, dcarry)
+        want_total = torch.func.jvp(lambda c: fused_filter.scan_total_plain(c, kind), (chunk,), (dchunk,))
+        want = torch.func.jvp(lambda c, a: fused_filter.scan_carried_plain(c, a, kind), (chunk, carry),
+                              (dchunk, dcarry))
+        edge_of_scan = torch.func.jvp(plain, (chunk,), (dchunk,))
+        pairs = [(total[i], want_total[i]) for i in range(2)] + [(got[i], want[i]) for i in range(2)]
+        pairs += [(total[i], edge_of_scan[i][..., 0 if kind == "smoother" else -1]) for i in range(2)]
+        pairs += [(got[0], whole[..., cut]), (got[1], dwhole[..., cut])]
+    else:
+        total = fused_filter.scan_total(chunk, kind)
+        got = fused_filter.scan_carried(chunk, carry, kind)
+        pairs = [(total, fused_filter.scan_total_plain(chunk, kind)),
+                 (total, plain(chunk)[..., 0 if kind == "smoother" else -1]),
+                 (got, fused_filter.carry_combine_plain(carry, plain(chunk), kind)),
+                 (got, whole[..., cut])]
+    for a, b in pairs:
+        close(a, b)
 
 
 def _linear_problem(T, D, O, dt=torch.float64, N=2):
