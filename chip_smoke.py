@@ -115,8 +115,9 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      (a) writes the headline session (phase 5's arrays) as 5 DLC CSVs, runs
      ``python -m eks_tpu_torch.cli.main singlecam --verbose`` on them in a
      process of its own, timed from start to exit, and prints the split of
-     that wall from the process's run report (imports, CUDA context, kernel
-     build and library load, CSV read, the entry point's stages, CSV write);
+     that wall from the process's run report (the package's import, CUDA
+     context, kernel build and library load, CSV read, the entry point's
+     stages and table, CSV write);
      holds its output table and s within 1e-6 of ``fit_eks_singlecam`` in
      this process with the arguments the CLI forwards; runs the same command
      line through ``main()`` in this process, counting launches (kernel A
@@ -733,7 +734,12 @@ def cli_phase(torch, np, pd, card, reset_counts, read_counts, a_key, golden_gap)
         if proc.returncode != 0 or found is None:
             raise AssertionError(f"the CLI process ended with {proc.returncode}:\n{proc.stderr[-4000:]}")
         rep = json.loads(found.group(1))
-        sec = rep["seconds"]
+        # seconds by name: the process record's, then each span's total
+        sec = {**rep["process"], **{k: v["s"] for k, v in rep["spans"].items()}}
+        builds = {k.split(".", 1)[1]: v for k, v in rep["process"].items() if k.startswith("kernel_build.")}
+        loads = [v for k, v in rep["process"].items() if k.startswith("kernel_load.")]
+        # nvcc runs once per library, all at once: the longest is the build's wall
+        sec.update(kernel_build=max(builds.values(), default=0.0), kernel_load=sum(loads))
         table_sub = read(os.path.join(out_cli, "eks_singlecam.csv"))
 
         # the entry point in this process, with the arguments the CLI forwards
@@ -756,7 +762,7 @@ def cli_phase(torch, np, pd, card, reset_counts, read_counts, a_key, golden_gap)
         reset_counts()
         rep_main = cli(*argv)
         launches_cli = read_counts()
-        iters_cli = rep_main["seconds"]["adam_iters"]
+        iters_cli = rep_main["spans"]["adam.loss"]["n"]
         want_launches = {"fused_nll_paired": iters_cli, a_key(2, 2, True): iters_cli,
                          "prefix_scan_filter": 1, "prefix_scan_smoother": 1}
         launches_ok = iters_cli > 0 and all(launches_cli[k] == want_launches.get(k, 0) for k in launches_cli)
@@ -778,23 +784,24 @@ def cli_phase(torch, np, pd, card, reset_counts, read_counts, a_key, golden_gap)
         with open(w_native, "rb") as f_n, open(w_pandas, "rb") as f_p:
             write_same_bytes = f_n.read() == f_p.read()
 
-        accounted = sum(sec.get(k, 0.0) for k in ("imports", "device_context", "kernel_build", "kernel_load", "fit"))
+        accounted = sum(sec.get(k, 0.0) for k in ("import", "device_context", "kernel_build", "kernel_load", "fit"))
         headline = {
             "frames": T_HEAD, "keypoints": K_HEAD, "seeds": SEEDS_HEAD, "returncode": proc.returncode,
             "cli_wall_s": wall_sub,
             "split_s": {
                 "interpreter_start_argparse_exit": wall_sub - accounted,
-                "imports_torch_and_eks_tpu_torch": sec.get("imports"),
+                "imports_torch_and_eks_tpu_torch": sec.get("import"),
                 "cuda_context": sec.get("device_context"),
                 "kernel_build": sec.get("kernel_build"), "kernel_library_load": sec.get("kernel_load"),
                 "csv_read": sec.get("read"), "prep": sec.get("prep"), "optimizer": sec.get("optimizer"),
-                "final_pass": sec.get("final_pass"), "package": sec.get("package"), "csv_write": sec.get("write"),
-                "entry_point_call": sec.get("fit"),
+                "final_pass": sec.get("final_pass"), "package": sec.get("package"), "table": sec.get("table"),
+                "csv_write": sec.get("write"), "entry_point_call": sec.get("fit"),
             },
-            "adam_iters": sec.get("adam_iters"), "kernels_built_by_cli": rep.get("kernels_built"),
+            "adam_iters": rep["spans"]["adam.loss"]["n"], "kernels_built_by_cli": builds,
             "csv_libraries_built_by_cli": rep.get("csv_libraries_built"),
             "cli_csv_reads": rep["csv_reads"], "cli_csv_writes": rep["csv_writes"],
-            "in_process_wall_s": wall_in, "in_process_timings": tm_in,
+            "in_process_wall_s": wall_in,
+            "in_process_timings": {k: v for k, v in tm_in.items() if k not in ("spans", "counts")},
             "table_max_abs_gap_vs_in_process": table_gap[0], "table_rel_gap_vs_in_process": table_gap[1],
             "s_max_abs_gap_vs_in_process": s_cli_gap[0], "s_rel_gap_vs_in_process": s_cli_gap[1],
             "in_process_main_table_rel_gap": main_gap[1], "rtol": 1e-6, "columns_match": same_cols,
@@ -812,7 +819,7 @@ def cli_phase(torch, np, pd, card, reset_counts, read_counts, a_key, golden_gap)
         if not launches_ok:
             failures.append(f"the CLI's launches are not one A (2, 2) an Adam iteration and one B filter and "
                             f"smoother: {launches_cli}")
-        if rep.get("kernels_built") or rep.get("csv_libraries_built"):
+        if builds or rep.get("csv_libraries_built"):
             failures.append("the CLI process built libraries the checkout already had")
         if rep["csv_reads"] != {"native": SEEDS_HEAD, "pandas": 0} or rep["csv_writes"] != {"native": 1, "pandas": 0}:
             failures.append(f"the CLI process's CSVs took pandas: {rep['csv_reads']}, {rep['csv_writes']}")
@@ -936,6 +943,7 @@ def main() -> int:
         from eks_tpu_torch.marker_array import MarkerArray
         from eks_tpu_torch.core import run_kalman_smoother
         from eks_tpu_torch.models import ibl_pupil, multicam
+        from eks_tpu_torch import tracing
         from eks_tpu_torch.ops import cuda_build, fused_filter, fused_nll, pkalman
         from eks_tpu_torch.ops.kalman import kalman_smoother
     except ImportError as exc:
@@ -948,39 +956,29 @@ def main() -> int:
         """The count and row name of kernel A's instance (d, o)."""
         return f"fused_nll{'_paired' if paired else ''}_d{d}_o{o}"
 
-    def reset_counts():
-        fused_nll.LAUNCHES = fused_nll.PAIRED_LAUNCHES = 0
-        fused_nll.TV_LAUNCHES = fused_nll.TV_PAIRED_LAUNCHES = 0
-        fused_filter.LAUNCHES = fused_filter.PLAIN_ROUTE_LAUNCHES = fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES = 0
-        for key in fused_filter.LAUNCHES_BY_INSTANCE:
-            fused_filter.LAUNCHES_BY_INSTANCE[key] = 0
-        for key in fused_nll.LAUNCHES_BY_SHAPE:
-            fused_nll.LAUNCHES_BY_SHAPE[key] = 0
-        for key in fused_filter.CARRY_LAUNCHES_BY_INSTANCE:
-            fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key] = 0
+    reset_counts = tracing.reset_launches
 
     def read_counts():
+        launches = tracing.launches
+        scans = {
+            ("filter", False, 2): "prefix_scan_filter", ("filter", False, 3): "prefix_scan_filter_d3",
+            ("smoother", False, 2): "prefix_scan_smoother", ("smoother", False, 3): "prefix_scan_smoother_d3",
+        }
+        for kind in ("filter", "smoother"):
+            for paired in (False, True):
+                for d in (1, 2, 3):
+                    scans.setdefault((kind, paired, d), f"prefix_scan_{kind}{'_paired' if paired else ''}_d{d}")
         return {
-            "fused_nll": fused_nll.LAUNCHES,
-            "fused_nll_paired": fused_nll.PAIRED_LAUNCHES,
-            "fused_nll_tv": fused_nll.TV_LAUNCHES,
-            "fused_nll_tv_paired": fused_nll.TV_PAIRED_LAUNCHES,
-            "prefix_scan_filter": fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 2)],
-            "prefix_scan_filter_d3": fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 3)],
-            "prefix_scan_smoother": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", False, 2)],
-            "prefix_scan_smoother_d3": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", False, 3)],
-            "prefix_scan_filter_paired_d2": fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 2)],
-            "prefix_scan_filter_paired_d3": fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 3)],
-            "prefix_scan_smoother_paired_d2": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", True, 2)],
-            "prefix_scan_smoother_paired_d3": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", True, 3)],
-            "prefix_scan_filter_d1": fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 1)],
-            "prefix_scan_smoother_d1": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", False, 1)],
-            "prefix_scan_filter_paired_d1": fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 1)],
-            "prefix_scan_smoother_paired_d1": fused_filter.LAUNCHES_BY_INSTANCE[("smoother", True, 1)],
-            "plain_route": fused_filter.PLAIN_ROUTE_LAUNCHES,
-            "carry_plain_route": fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES,
-            **{a_key(d, o, paired): v for (d, o, paired), v in fused_nll.LAUNCHES_BY_SHAPE.items()},
-            **{carry_key(*k): v for k, v in fused_filter.CARRY_LAUNCHES_BY_INSTANCE.items()},
+            "fused_nll": launches("A", None, None, False),
+            "fused_nll_paired": launches("A", None, None, True),
+            "fused_nll_tv": launches("C", False),
+            "fused_nll_tv_paired": launches("C", True),
+            **{name: launches("scan", *key) for key, name in scans.items()},
+            "plain_route": launches("scan_plain_route"),
+            "carry_plain_route": launches("scan_carried_plain_route"),
+            **{a_key(d, o, paired): launches("A", d, o, paired)
+               for d, o in fused_nll._CUDA_SHAPES for paired in (False, True)},
+            **{carry_key(*k): launches("scan_carried", *k) for k in scans},
         }
 
     def carry_key(kind, paired, d):
@@ -1390,7 +1388,7 @@ def main() -> int:
         "bound_ms": b_a[0], "bound_by": b_a[1], "paired_bound_ms": b_ap[0],
         "paired_bound_by": b_ap[1], "segments_G": plan_a["G"], "threads": plan_a["threads"],
         "deterministic": det_a, "ptxas": nll_ptxas(D, O), "ok": ok_a,
-        "launches": {"fused_nll": fused_nll.LAUNCHES, "fused_nll_paired": fused_nll.PAIRED_LAUNCHES},
+        "launches": {k: v for k, v in read_counts().items() if k in ("fused_nll", "fused_nll_paired")},
     })
     if not ok_a:
         raise AssertionError("kernel A disagrees with its plain version or is not deterministic")
@@ -1410,7 +1408,7 @@ def main() -> int:
     emit({
         "phase": "kernel_B", "N": N, "P": planes.shape[1], "T": T, "rtol": RTOL_SCAN,
         "max_abs_err": e_b, "rel_err": r_b, "ms": ms_b, "device_ms": dev_b, "plain_ms": ms_b_plain,
-        "bound_ms": b_b[0], "ok": ok_b, "launches": {"prefix_scan_filter": fused_filter.LAUNCHES},
+        "bound_ms": b_b[0], "ok": ok_b, "launches": {"prefix_scan_filter": tracing.launches("scan")},
         "segments_G": fused_filter.scan_plan(N, T, "filter", False, D, dev)["G"],
         "threads": fused_filter.scan_plan(N, T, "filter", False, D, dev)["threads"], "deterministic": det_b,
     })
@@ -1475,7 +1473,7 @@ def main() -> int:
           "lanes": {str(n): v for n, v in b3.items()},
           "smoother_lanes": {str(n): v for n, v in sm_pupil.items()},
           "smoother_paired_1_lane": sm_pupil_paired,
-          "launches": {"prefix_scan_filter_d3": fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 3)]}})
+          "launches": {"prefix_scan_filter_d3": tracing.launches("scan", "filter", False, 3)}})
     if not all(v["ok"] for v in list(b3.values()) + list(sm_pupil.values()) + [sm_pupil_paired]):
         raise AssertionError("kernel B at D = 3 disagrees with its plain version")
 
@@ -1637,8 +1635,8 @@ def main() -> int:
     }
     emit({"phase": "kernel_C", "T": T_PUPIL, "D": 3, "O": 8, "rtol": RTOL_NLL_TV, "sessions": {str(n): v for n, v in c_res.items()},
           "clipped": clipped,
-          "launches": {"fused_nll_tv": fused_nll.TV_LAUNCHES,
-                       "fused_nll_tv_paired": fused_nll.TV_PAIRED_LAUNCHES}})
+          "launches": {"fused_nll_tv": tracing.launches("C", False),
+                       "fused_nll_tv_paired": tracing.launches("C", True)}})
     if not (all(v["ok"] for v in c_res.values()) and clipped["ok"]):
         raise AssertionError("kernel C disagrees with its plain version or is not deterministic")
 

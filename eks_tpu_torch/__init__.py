@@ -12,8 +12,8 @@ import; it is the counterpart of the JAX package's ``highest_precision``.
 
 import time
 
-#: when the package began to import (``time.perf_counter``): the command line
-#: reports its import seconds from here
+#: when the package began to import (``time.perf_counter``): the process
+#: record's "import" runs from here to the end of this file
 _IMPORT_STARTED = time.perf_counter()
 
 import torch  # noqa: E402
@@ -21,6 +21,7 @@ import torch  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from eks_tpu_torch import tracing  # noqa: E402
 from eks_tpu_torch.marker_array import MarkerArray  # noqa: E402
 from eks_tpu_torch.models.ibl_paw import fit_eks_multicam_ibl_paw  # noqa: E402
 from eks_tpu_torch.models.ibl_pupil import (  # noqa: E402
@@ -70,3 +71,5 @@ __all__ = [
     "fit_eks_singlecam",
     "fit_eks_singlecam_sessions",
 ]
+
+tracing.imported(_IMPORT_STARTED)

@@ -15,13 +15,13 @@ import argparse
 import logging
 import os
 import re
-import time
 from pathlib import Path
 
 import numpy as np
 import pandas as pd
 import torch
 
+from eks_tpu_torch import tracing
 from eks_tpu_torch.ops import cuda_build
 from eks_tpu_torch.utils import resolve_device
 
@@ -303,34 +303,30 @@ add_com_s = _builder(
 # --------------------------------------------------------------------------- #
 def prepare_device(args: argparse.Namespace) -> None:
     """Check ``--device`` and make the card ready before any input is read:
-    create the CUDA context, build the kernel libraries that are not built
-    yet (one ``nvcc`` each, in parallel) and load them. Their seconds go into
-    the run report. Raises when ``cuda`` is asked for and no card is
+    create the CUDA context (the span "device_context"), build the kernel
+    libraries that are not built yet (one ``nvcc`` each, in parallel) and
+    load them (the process record's "kernel_build.<lib>" and
+    "kernel_load.<lib>"). Raises when ``cuda`` is asked for and no card is
     visible."""
     dev = resolve_device(args.device)
     if dev.type != "cuda":
         return
-    stages = args.report["seconds"]
-    t0 = time.perf_counter()
+    span = tracing.begin(args.timings, "device_context")
     torch.zeros(1, device=dev)
-    torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
-    built = cuda_build.build()
-    t2 = time.perf_counter()
+    tracing.end(args.timings, span, dev)
+    cuda_build.build()
     for name in cuda_build.KERNEL_SOURCES:
         cuda_build.load(name)
-    stages.update(device_context=t1 - t0, kernel_build=t2 - t1, kernel_load=time.perf_counter() - t2)
-    args.report["kernels_built"] = {name: seconds for name, (seconds, _) in built.items()}
 
 
 def timed_fit(args: argparse.Namespace, fit, **kwargs):
-    """``fit(**kwargs)``, its seconds recorded in the run report as "fit"
-    and the smoothing parameters it ended with as "s", one list per session
-    (every entry point returns them second; a sessions entry point returns
-    one result per session)."""
-    t0 = time.perf_counter()
+    """``fit(**kwargs)`` in the span "fit", and the smoothing parameters it
+    ended with in the run report as "s", one list per session (every entry
+    point returns them second; a sessions entry point returns one result
+    per session)."""
+    span = tracing.begin(args.timings, "fit")
     out = fit(**kwargs)
-    args.report["seconds"]["fit"] = time.perf_counter() - t0
+    tracing.end(args.timings, span)
     runs = out if isinstance(out, list) else [out]
     args.report["s"] = [np.asarray(run[1], dtype=float).tolist() for run in runs]
     return out

@@ -66,8 +66,8 @@ def cmd_singlecam(args: argparse.Namespace) -> None:
         devices=args.devices,
         partition=args.partition,
         device=args.device,
-        # under --verbose the entry point's stage seconds join the run report
-        timings=args.report["seconds"] if args.verbose else None,
+        # under --verbose the entry point's spans join the run report
+        timings=args.timings,
     )
 
     if args.make_plot:

@@ -38,12 +38,12 @@ into chunks with carries across them).
 from __future__ import annotations
 
 import logging
-import time
 from typing import Literal
 
 import numpy as np
 import torch
 
+from eks_tpu_torch import tracing
 from eks_tpu_torch.marker_array import MarkerArray
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
 from eks_tpu_torch.ops.linalg import jvp
@@ -265,7 +265,9 @@ def _joint_masked_adam(loss_and_grad, init: torch.Tensor, lr: float, tol: float,
     through eps. A lane stops when |loss - prev| < tol * |log(max(prev,
     1e-12))| + 1e-6 or at ``safety_cap`` iterations; its state commits only
     while it is active, and the loop ends when no lane is (one host sync per
-    iteration). Returns (param, last_loss (n_lanes,), iters (n_lanes,))."""
+    iteration). With ``timings`` each iteration records its spans
+    "adam.stop_test", "adam.loss" and "adam.update" (``tracing``). Returns
+    (param, last_loss (n_lanes,), iters (n_lanes,))."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     step = 1.0 if scale_gradient else lr
     dev, dt = init.device, init.dtype
@@ -282,12 +284,23 @@ def _joint_masked_adam(loss_and_grad, init: torch.Tensor, lr: float, tol: float,
     b1_t = torch.tensor(b1, dtype=dt, device=dev)
     b2_t = torch.tensor(b2, dtype=dt, device=dev)
     n_iter = 0
+    sp = tracing.adam_spans(timings)
     while True:
+        if sp is not None:
+            i = sp.begin("adam.stop_test")
         active = ~done & (iters < safety_cap)
-        if not bool(active.any()):
+        running = bool(active.any())
+        if sp is not None:
+            sp.end(i)
+        if not running:
             break
         n_iter += 1
+        if sp is not None:
+            i = sp.begin("adam.loss")
         loss, grad = loss_and_grad(s_log)
+        if sp is not None:
+            sp.end(i)
+            i = sp.begin("adam.update")
         g = grad * lr if scale_gradient else grad
         mu_new = (1 - b1) * g + b1 * mu
         nu_new = (1 - b2) * (g * g) + b2 * nu
@@ -306,6 +319,10 @@ def _joint_masked_adam(loss_and_grad, init: torch.Tensor, lr: float, tol: float,
         prev_loss = torch.where(active, loss, prev_loss)
         iters = torch.where(active, iters + 1, iters)
         done = torch.where(active, stop, done)
+        if sp is not None:
+            sp.end(i)
+    if sp is not None:
+        tracing.first_loss(sp)
     if timings is not None:
         timings["adam_iters"] = n_iter
     return s_log, prev_loss, iters
@@ -517,13 +534,7 @@ def _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, h_fn=None, sequential=Fa
     return res.smoothed_means, res.smoothed_covs
 
 
-def _sync(*devices: torch.device):
-    """Wait for every CUDA device among ``devices``."""
-    for dev in dict.fromkeys(devices):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-
+@tracing.entry_point
 def run_kalman_smoother(
     ys: torch.Tensor,  # (K, T, O)
     m0s: torch.Tensor,  # (K, D)
@@ -555,7 +566,8 @@ def run_kalman_smoother(
     linearization trajectories) is optional. Every tensor lies on one
     device. With ``timings`` (a dict) the devices are synchronized between
     the stages and their seconds are recorded ("optimizer", "final_pass")
-    with the Adam iteration count.
+    with the Adam iteration count, their spans and the Adam iterations'
+    (``eks_tpu_torch.tracing``), and this call's kernel launches.
 
     ``devices`` > 1 shards the work over a mesh of that many devices of the
     type of ``ys``'s (``parallel.make_mesh``: it raises when the host has
@@ -583,7 +595,7 @@ def run_kalman_smoother(
     if ensemble_vars.shape[0] < 2:
         raise ValueError("Initial-s heuristic needs at least two frames of ensemble variance.")
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "optimizer")
     if smooth_param is not None:
         s_finals = torch.as_tensor(
             np.broadcast_to(np.asarray(smooth_param, dtype=np.float64), (K,)).copy(),
@@ -598,11 +610,9 @@ def run_kalman_smoother(
             h_fn=h_fn, sequential=sequential, x_init=x_init, timings=timings,
             mesh=mesh, partition=partition,
         )
-    if timings is not None:
-        _sync(*synced)
-        timings["optimizer"] = time.perf_counter() - t0
+    tracing.end(timings, span, *synced, stage=True)
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "final_pass")
     rs = torch.clamp(ensemble_vars.transpose(0, 1), min=1e-12).contiguous()  # (K, T, O)
     if mesh is not None and partition == "keypoint":
         from eks_tpu_torch.parallel.mesh import smooth_all_sharded
@@ -612,7 +622,5 @@ def run_kalman_smoother(
     else:
         ms, Vs = _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, h_fn=h_fn, sequential=sequential,
                              time_mesh=mesh)
-    if timings is not None:
-        _sync(*synced)
-        timings["final_pass"] = time.perf_counter() - t0
+    tracing.end(timings, span, *synced, stage=True)
     return s_finals.cpu().numpy().astype(np.float64), ms, Vs

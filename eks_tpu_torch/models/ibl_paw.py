@@ -19,6 +19,7 @@ import pandas as pd
 
 import torch
 
+from eks_tpu_torch import tracing
 from eks_tpu_torch.marker_array import MarkerArray, input_dfs_to_markerArray
 from eks_tpu_torch.models.multicam import ensemble_kalman_smoother_multicam
 from eks_tpu_torch.utils import convert_lp_dlc, save_dlc_csv
@@ -60,6 +61,7 @@ def add_camera_means(
     return out
 
 
+@tracing.entry_point
 def fit_eks_multicam_ibl_paw(
     input_source: str,
     save_dir: str,

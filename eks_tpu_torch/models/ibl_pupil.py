@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 import warnings
 from typing import Literal
 
@@ -45,7 +44,8 @@ import numpy as np
 import pandas as pd
 import torch
 
-from eks_tpu_torch.core import _joint_masked_adam, _sync, ensemble
+from eks_tpu_torch import tracing
+from eks_tpu_torch.core import _joint_masked_adam, ensemble
 from eks_tpu_torch.marker_array import MarkerArray, input_dfs_to_markerArray
 from eks_tpu_torch.ops.fused_nll import fused_nll_tv_paired
 from eks_tpu_torch.ops.kalman import kalman_smoother
@@ -150,6 +150,7 @@ def add_mean_to_array(
     return out
 
 
+@tracing.entry_point
 def fit_eks_pupil(
     input_source: str | list,
     save_file: str,
@@ -197,6 +198,7 @@ def fit_eks_pupil(
     return df_smoothed, smooth_params_final, input_dfs_list, BODYPART_LIST
 
 
+@tracing.entry_point
 def ensemble_kalman_smoother_ibl_pupil(
     marker_array: MarkerArray,
     keypoint_names: list,
@@ -216,14 +218,15 @@ def ensemble_kalman_smoother_ibl_pupil(
 
     With ``timings`` (a dict) the device is synchronized between the stages
     and their seconds are recorded ("prep", "optimizer", "final_pass",
-    "package"), with the optimizer's Adam iteration count."""
+    "package"), with the optimizer's Adam iteration count, the spans of the
+    stages, of the Adam iterations and of the pandas table ("table") and
+    this call's kernel launches (``eks_tpu_torch.tracing``)."""
     resolve_device(device)
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "prep")
     prep = _pupil_prep(marker_array, keypoint_names, avg_mode, var_mode)
     (ensemble_preds, ensemble_vars, ensemble_likes, y_obs, m0, S0,
      mean_x_obs, mean_y_obs, diameters_var, x_var, y_var) = prep
-    if timings is not None:
-        timings["prep"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
 
     s_finals, ms, Vs = run_pupil_kalman_smoother(
         ys=y_obs,
@@ -245,13 +248,15 @@ def ensemble_kalman_smoother_ibl_pupil(
     )
     logger.debug(f"tuned pupil params: diameter_s={s_finals[0]}, com_s={s_finals[1]}")
 
-    t0 = time.perf_counter()
-    markers_df = _pupil_package(
+    span = tracing.begin(timings, "package")
+    block = _pupil_block(
         keypoint_names, ms, Vs, ensemble_preds, ensemble_vars, ensemble_likes,
         mean_x_obs, mean_y_obs,
     )
-    if timings is not None:
-        timings["package"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
+    span = tracing.begin(timings, "table")
+    markers_df = _pupil_table(keypoint_names, block)
+    tracing.end(timings, span)
     return markers_df, s_finals
 
 
@@ -299,6 +304,19 @@ def _pupil_prep(
     )
 
 
+_PUPIL_LABELS = [
+    "x",
+    "y",
+    "likelihood",
+    "x_ens_median",
+    "y_ens_median",
+    "x_ens_var",
+    "y_ens_var",
+    "x_posterior_var",
+    "y_posterior_var",
+]
+
+
 def _pupil_package(
     keypoint_names: list,
     ms: np.ndarray,
@@ -310,7 +328,26 @@ def _pupil_package(
     mean_y_obs: float,
 ) -> pd.DataFrame:
     """Host-side output packaging (all reference quirks preserved: see the
-    module docstring)."""
+    module docstring): the table of :func:`_pupil_block`."""
+    return _pupil_table(keypoint_names, _pupil_block(
+        keypoint_names, ms, Vs, ensemble_preds, ensemble_vars, ensemble_likes, mean_x_obs, mean_y_obs))
+
+
+def _pupil_table(keypoint_names: list, block: np.ndarray) -> pd.DataFrame:
+    return pd.DataFrame(block, columns=make_dlc_pandas_index(keypoint_names, labels=_PUPIL_LABELS))
+
+
+def _pupil_block(
+    keypoint_names: list,
+    ms: np.ndarray,
+    Vs: np.ndarray,
+    ensemble_preds: np.ndarray,
+    ensemble_vars: np.ndarray,
+    ensemble_likes: np.ndarray,
+    mean_x_obs: float,
+    mean_y_obs: float,
+) -> np.ndarray:
+    """The (T, 9 * 4) columns of the output table, in its order."""
     keys = [f"{kp}_{coord}" for kp in keypoint_names for coord in ["x", "y"]]
     y_m_smooth = ms @ PUPIL_C.T  # (T, 8)
     y_v_smooth = np.einsum("ij,tjl,ml->tim", PUPIL_C, Vs, PUPIL_C)  # (T, 8, 8)
@@ -325,17 +362,6 @@ def _pupil_package(
     ensemble_indices = [(0, 1), (4, 5), (2, 3), (6, 7)]
 
     data_arr = []
-    labels = [
-        "x",
-        "y",
-        "likelihood",
-        "x_ens_median",
-        "y_ens_median",
-        "x_ens_var",
-        "y_ens_var",
-        "x_posterior_var",
-        "y_posterior_var",
-    ]
     for i, key_pair in enumerate(key_pair_list):
         data_arr.extend(
             [
@@ -351,8 +377,7 @@ def _pupil_package(
             ]
         )
 
-    pdindex = make_dlc_pandas_index(keypoint_names, labels=labels)
-    return pd.DataFrame(np.asarray(data_arr).T, columns=pdindex)
+    return np.asarray(data_arr).T
 
 
 # --------------------------------------------------------------------------- #
@@ -564,7 +589,7 @@ def run_pupil_kalman_smoother(
     sequential filter and smoother instead of the parallel ones. ``devices``
     > 1 shards the frame axis of both stages over that many devices."""
     dev = resolve_device(device)
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "optimizer")
     s_d, s_c = pupil_optimize_smooth(
         ys=ys, m0=m0, S0=S0, C=C, ensemble_vars=ensemble_vars,
         diameters_var=diameters_var, x_var=x_var, y_var=y_var,
@@ -572,11 +597,9 @@ def run_pupil_kalman_smoother(
         lr=lr, tol=tol, safety_cap=safety_cap, devices=devices, device=dev,
         timings=timings,
     )
-    if timings is not None:
-        _sync(dev)
-        timings["optimizer"] = time.perf_counter() - t0
+    tracing.end(timings, span, dev, stage=True)
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "final_pass")
     r_np = np.clip(np.asarray(ensemble_vars), 1e-12, None)
     ms, Vs = _pupil_smooth(
         *_tensors(dev, np.asarray(ys)[None], np.asarray(m0)[None], np.asarray(S0)[None], C,
@@ -584,14 +607,14 @@ def run_pupil_kalman_smoother(
         sequential=sequential, time_mesh=_time_mesh(devices, dev),
     )
     ms, Vs = ms[0].cpu().numpy(), Vs[0].cpu().numpy()
-    if timings is not None:
-        timings["final_pass"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
     return [float(s_d), float(s_c)], ms, Vs
 
 
 # --------------------------------------------------------------------------- #
 # multi-session batching: N sessions as lanes of one device program
 # --------------------------------------------------------------------------- #
+@tracing.entry_point
 def ensemble_kalman_smoother_ibl_pupil_sessions(
     marker_arrays: list,
     keypoint_names: list | None = None,
@@ -620,7 +643,9 @@ def ensemble_kalman_smoother_ibl_pupil_sessions(
         smooth_params: None (tune every session), a single [s_diam, s_com]
             applied to all sessions, or a per-session list of such pairs.
         timings: if a dict, stage seconds of the batched run ("prep",
-            "optimizer", "final_pass", "package") and its Adam iterations.
+            "optimizer", "final_pass", "package") and its Adam iterations,
+            with the spans and launch counts of
+            :func:`ensemble_kalman_smoother_ibl_pupil`.
 
     Returns:
         list of (markers_df, [s_diam, s_com]) per session.
@@ -671,7 +696,7 @@ def ensemble_kalman_smoother_ibl_pupil_sessions(
             for i, ma in enumerate(marker_arrays)
         ]
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "prep")
     preps = [_pupil_prep(ma, names, avg_mode, var_mode) for ma in marker_arrays]
     (preds_l, vars_l, likes_l, yobs_l, m0_l, S0_l, mx_l, my_l,
      dv_l, xv_l, yv_l) = map(list, zip(*preps))
@@ -680,10 +705,9 @@ def ensemble_kalman_smoother_ibl_pupil_sessions(
     m0_t, S0_t, C_t, dv, xv, yv = _tensors(
         dev, np.stack(m0_l), np.stack(S0_l), PUPIL_C, dv_l, xv_l, yv_l
     )
-    if timings is not None:
-        timings["prep"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "optimizer")
     all_fixed = (
         fixed_flags is not None and all(fixed_flags)
     ) or (
@@ -714,32 +738,30 @@ def ensemble_kalman_smoother_ibl_pupil_sessions(
             f"[pupil sessions] joint iters={int(iters.max())} "
             f"s_diam={s_opt[:, 0]} s_com={s_opt[:, 1]}"
         )
-    if timings is not None:
-        _sync(dev)
-        timings["optimizer"] = time.perf_counter() - t0
+    tracing.end(timings, span, dev, stage=True)
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "final_pass")
     ms, Vs = _pupil_smooth(
         *_tensors(dev, ys_np), m0_t, S0_t, C_t,
         *_tensors(dev, r_np, s_opt[:, 0], s_opt[:, 1]), dv, xv, yv,
     )
     ms, Vs = ms.cpu().numpy(), Vs.cpu().numpy()  # one copy for every session
-    if timings is not None:
-        timings["final_pass"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
 
-    t0 = time.perf_counter()
-    results = []
-    for i in range(n_sessions):
-        df = _pupil_package(
-            names, ms[i], Vs[i], preds_l[i], vars_l[i], likes_l[i],
-            mx_l[i], my_l[i],
-        )
-        results.append((df, [float(s_opt[i, 0]), float(s_opt[i, 1])]))
-    if timings is not None:
-        timings["package"] = time.perf_counter() - t0
+    span = tracing.begin(timings, "package")
+    blocks = [
+        _pupil_block(names, ms[i], Vs[i], preds_l[i], vars_l[i], likes_l[i], mx_l[i], my_l[i])
+        for i in range(n_sessions)
+    ]
+    tracing.end(timings, span, stage=True)
+    span = tracing.begin(timings, "table")
+    results = [(_pupil_table(names, blocks[i]), [float(s_opt[i, 0]), float(s_opt[i, 1])])
+               for i in range(n_sessions)]
+    tracing.end(timings, span)
     return results
 
 
+@tracing.entry_point
 def fit_eks_pupil_sessions(
     input_sources: list,
     save_files: list,

@@ -40,18 +40,17 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import Literal, Optional
 
 import numpy as np
 import pandas as pd
 import torch
 
+from eks_tpu_torch import tracing
 from eks_tpu_torch.core import (
     _ensemble_kernel,
     _nanmedian,
     _nanvar,
-    _sync,
     ensemble,
     run_kalman_smoother,
 )
@@ -112,6 +111,7 @@ _LABELS_3D = ["x", "y", "z", "x_posterior_var", "y_posterior_var", "z_posterior_
 # --------------------------------------------------------------------------- #
 # public fit wrappers
 # --------------------------------------------------------------------------- #
+@tracing.entry_point
 def fit_eks_mirrored_multicam(
     input_source: str | list,
     save_file: str,
@@ -207,6 +207,7 @@ def fit_eks_mirrored_multicam(
     return final_df, s_finals, input_dfs_list, bodypart_list
 
 
+@tracing.entry_point
 def fit_eks_multicam(
     input_source: str | list | dict,
     save_dir: str,
@@ -281,6 +282,7 @@ def fit_eks_multicam(
 # --------------------------------------------------------------------------- #
 # array-level smoother
 # --------------------------------------------------------------------------- #
+@tracing.entry_point
 def ensemble_kalman_smoother_multicam(
     marker_array: MarkerArray,
     keypoint_names: list,
@@ -309,7 +311,10 @@ def ensemble_kalman_smoother_multicam(
         device: where the pipeline runs ("cuda" by default).
         timings: if a dict, the device is synchronized between stages and
             their seconds are recorded ("prep", "optimizer", "final_pass",
-            "package"), with the optimizer's Adam iteration count.
+            "package"), with the optimizer's Adam iteration count, the
+            spans of the stages, of the Adam iterations and of the pandas
+            tables ("table") and this call's kernel launches
+            (``eks_tpu_torch.tracing``).
 
     Returns:
         (camera_dfs, s_finals, df_3d)
@@ -340,7 +345,7 @@ def ensemble_kalman_smoother_multicam(
 
     # ensemble + centering, on the host: the general path consumes their
     # outputs host-side (centering, inflation, PCA)
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "prep")
     emA = ensemble(marker_array, avg_mode=avg_mode, var_mode=var_mode)
     emA_unsm = emA.slice_fields("x", "y")
     emA_vars = emA.slice_fields("var_x", "var_y")
@@ -390,8 +395,7 @@ def ensemble_kalman_smoother_multicam(
     infl = emA_inflated_vars.array[0]
     ys = np.moveaxis(obs, 2, 0).transpose(0, 2, 1, 3).reshape(K, T, 2 * V)
     ensemble_vars = np.moveaxis(infl, 2, 0).transpose(0, 2, 1, 3).reshape(K, T, 2 * V)
-    if timings is not None:
-        timings["prep"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
 
     s_finals, ms, Vs = run_kalman_smoother(
         ys=upload(ys),
@@ -406,7 +410,7 @@ def ensemble_kalman_smoother_multicam(
         timings=timings,
     )
     # one batched pull of the device-resident results
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "package")
     ms_dev, Vs_dev = ms, Vs
     ms, Vs = ms.cpu().numpy(), Vs.cpu().numpy()
 
@@ -433,19 +437,12 @@ def ensemble_kalman_smoother_multicam(
         xy_cols = [(y_m[..., 2 * c:2 * c + 2] + means[c][:, None]).transpose(1, 0, 2) for c in range(V)]
         post_cols = [post[..., 2 * c:2 * c + 2].transpose(1, 0, 2) for c in range(V)]
 
-    camera_dfs = []
-    for c in range(V):
-        block = np.concatenate(
-            [xy_cols[c], likes[c][..., None], unsm[c], var_cols[c], post_cols[c]], axis=-1
-        )  # (T, K, 9)
-        camera_dfs.append(
-            pd.DataFrame(
-                block.reshape(T, K * len(OUTPUT_LABELS)),
-                columns=make_dlc_pandas_index(keypoint_names, OUTPUT_LABELS),
-            )
-        )
+    blocks = [
+        np.concatenate([xy_cols[c], likes[c][..., None], unsm[c], var_cols[c], post_cols[c]], axis=-1)
+        for c in range(V)
+    ]  # (T, K, 9) each
 
-    # 3-D latent dataframe
+    # the 3-D latents' columns
     arr_3d = np.concatenate(
         [
             np.concatenate(
@@ -456,9 +453,8 @@ def ensemble_kalman_smoother_multicam(
         ],
         axis=-1,
     ) if ms.shape[-1] == 3 else np.zeros((T, K * 6))
-    df_3d = pd.DataFrame(arr_3d, columns=make_dlc_pandas_index(keypoint_names, _LABELS_3D))
-    if timings is not None:
-        timings["package"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
+    camera_dfs, df_3d = _tables(blocks, arr_3d, keypoint_names, timings)
     return camera_dfs, s_finals, df_3d
 
 
@@ -670,7 +666,7 @@ def _smoother_multicam_linear_fused(
     Output contract identical to the general path (same columns, quirks)."""
     M, V, T, K, _ = marker_array.shape
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "prep")
     arr = torch.as_tensor(
         np.ascontiguousarray(marker_array.array, dtype=np.float32), device=dev
     )  # (M, C, T, K, 3)
@@ -678,9 +674,7 @@ def _smoother_multicam_linear_fused(
         arr[..., 0], arr[..., 1], arr[..., 2],
         M, avg_mode, var_mode, int(n_latent), float(quantile_keep_pca),
     )
-    if timings is not None:
-        _sync(dev)
-        timings["prep"] = time.perf_counter() - t0
+    tracing.end(timings, span, dev, stage=True)
 
     s_finals, ms, Vs = run_kalman_smoother(
         ys=ys, m0s=m0s, S0s=S0s, As=As, Qs=Qs, Cs=Cs,
@@ -689,17 +683,16 @@ def _smoother_multicam_linear_fused(
         devices=devices, partition=partition, timings=timings,
     )
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "package")
     sm4 = _package_multicam_smoothed(means, Cs, ms, Vs, evars)
     if n_latent == 3:
         arr_3d = _package_3d(ms, Vs)
     else:
         arr_3d = torch.zeros((T, K * 6), dtype=sm4.dtype, device=dev)
     sm4_np, stats_np, arr_3d_np = (x.cpu().numpy() for x in (sm4, stats, arr_3d))
-    camera_dfs = _assemble_camera_dfs(sm4_np, stats_np, keypoint_names)
-    df_3d = pd.DataFrame(arr_3d_np, columns=make_dlc_pandas_index(keypoint_names, _LABELS_3D))
-    if timings is not None:
-        timings["package"] = time.perf_counter() - t0
+    blocks = _camera_blocks(sm4_np, stats_np)
+    tracing.end(timings, span, stage=True)
+    camera_dfs, df_3d = _tables(blocks, arr_3d_np, keypoint_names, timings)
     return camera_dfs, s_finals, df_3d
 
 
@@ -774,7 +767,7 @@ def _smoother_multicam_nonlinear_fused(
     camera-0 variance quirk)."""
     M = marker_array.shape[0]
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "prep")
     arr = torch.as_tensor(
         np.ascontiguousarray(marker_array.array, dtype=np.float32), device=dev
     )  # (M, C, T, K, 3)
@@ -785,9 +778,7 @@ def _smoother_multicam_nonlinear_fused(
         arr[..., 0], arr[..., 1], arr[..., 2], M, avg_mode, var_mode, Ks, dists, extr,
     )
     h_fn, _ = make_projection_from_camgroup(camgroup, device=dev)
-    if timings is not None:
-        _sync(dev)
-        timings["prep"] = time.perf_counter() - t0
+    tracing.end(timings, span, dev, stage=True)
 
     s_finals, ms, Vs = run_kalman_smoother(
         ys=ys, m0s=m0s, S0s=S0s, As=As, Qs=Qs, Cs=As,
@@ -796,24 +787,20 @@ def _smoother_multicam_nonlinear_fused(
         devices=devices, partition=partition, timings=timings,
     )
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "package")
     sm4 = _package_multicam_nonlinear(ms, Vs, evars, Ks, dists, extr)
     sm4_np, stats_np, arr_3d_np = (x.cpu().numpy() for x in (sm4, stats, _package_3d(ms, Vs)))
-    camera_dfs = _assemble_camera_dfs(sm4_np, stats_np, keypoint_names)
-    df_3d = pd.DataFrame(arr_3d_np, columns=make_dlc_pandas_index(keypoint_names, _LABELS_3D))
-    if timings is not None:
-        timings["package"] = time.perf_counter() - t0
+    blocks = _camera_blocks(sm4_np, stats_np)
+    tracing.end(timings, span, stage=True)
+    camera_dfs, df_3d = _tables(blocks, arr_3d_np, keypoint_names, timings)
     return camera_dfs, s_finals, df_3d
 
 
-def _assemble_camera_dfs(sm4_np, stats_np, keypoint_names) -> list:
+def _camera_blocks(sm4_np, stats_np) -> list:
     """Interleave the smoother-dependent block (C, T, K, 4) with the ensemble
-    stats (C, T, K, 5) into one 9-column-per-keypoint DataFrame per camera."""
-    V, T, K, _ = sm4_np.shape
-    cols = make_dlc_pandas_index(keypoint_names, OUTPUT_LABELS)
-    camera_dfs = []
-    for c in range(V):
-        block = np.concatenate(
+    stats (C, T, K, 5) into one (T, K, 9) block per camera."""
+    return [
+        np.concatenate(
             [
                 sm4_np[c][..., :2],  # x, y
                 stats_np[c][..., 4:5],  # likelihood
@@ -822,11 +809,21 @@ def _assemble_camera_dfs(sm4_np, stats_np, keypoint_names) -> list:
                 sm4_np[c][..., 2:4],  # x/y posterior var
             ],
             axis=-1,
-        )  # (T, K, 9)
-        camera_dfs.append(
-            pd.DataFrame(block.reshape(T, K * len(OUTPUT_LABELS)), columns=cols)
         )
-    return camera_dfs
+        for c in range(sm4_np.shape[0])
+    ]
+
+
+def _tables(blocks, arr_3d, keypoint_names, timings) -> tuple:
+    """The pandas tables of the outputs, in the span "table": one
+    9-column-per-keypoint DataFrame per camera from its (T, K, 9) block, and
+    the 3-D latents' from ``arr_3d`` (T, 6K)."""
+    span = tracing.begin(timings, "table")
+    cols = make_dlc_pandas_index(keypoint_names, OUTPUT_LABELS)
+    camera_dfs = [pd.DataFrame(b.reshape(b.shape[0], -1), columns=cols) for b in blocks]
+    df_3d = pd.DataFrame(arr_3d, columns=make_dlc_pandas_index(keypoint_names, _LABELS_3D))
+    tracing.end(timings, span)
+    return camera_dfs, df_3d
 
 
 # --------------------------------------------------------------------------- #

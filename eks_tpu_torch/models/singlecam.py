@@ -21,14 +21,14 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import Literal
 
 import numpy as np
 import pandas as pd
 import torch
 
-from eks_tpu_torch.core import _ensemble_kernel, _nanvar, _sync, run_kalman_smoother
+from eks_tpu_torch import tracing
+from eks_tpu_torch.core import _ensemble_kernel, _nanvar, run_kalman_smoother
 from eks_tpu_torch.marker_array import MarkerArray, input_dfs_to_markerArray
 from eks_tpu_torch.utils import format_data, make_dlc_pandas_index, resolve_device, save_dlc_csv
 
@@ -55,6 +55,7 @@ OUTPUT_LABELS = [
 ]
 
 
+@tracing.entry_point
 def fit_eks_singlecam(
     input_source: str | list,
     save_file: str,
@@ -94,15 +95,14 @@ def fit_eks_singlecam(
     Returns:
         (df_smoothed, s_finals, input_dfs_list, bodypart_list)
     """
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "read")
     input_dfs_list, keypoint_names = format_data(input_source)
     if bodypart_list is None:
         bodypart_list = keypoint_names
         logger.info(f"ensemble predictions loaded; keypoints: {bodypart_list}")
 
     marker_array = input_dfs_to_markerArray([input_dfs_list], bodypart_list, [""])
-    if timings is not None:
-        timings["read"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
     df_smoothed, s_finals = ensemble_kalman_smoother_singlecam(
         marker_array=marker_array,
         keypoint_names=bodypart_list,
@@ -117,16 +117,16 @@ def fit_eks_singlecam(
         timings=timings,
     )
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "write")
     save_dir = os.path.dirname(save_file)
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
     save_dlc_csv(df_smoothed, save_file)
-    if timings is not None:
-        timings["write"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
     return df_smoothed, s_finals, input_dfs_list, bodypart_list
 
 
+@tracing.entry_point
 def fit_eks_singlecam_sessions(
     input_sources: list,
     save_files: list,
@@ -193,6 +193,7 @@ def fit_eks_singlecam_sessions(
     return out
 
 
+@tracing.entry_point
 def ensemble_kalman_smoother_singlecam_sessions(
     marker_arrays: list,
     keypoint_names: list,
@@ -303,6 +304,7 @@ def ensemble_kalman_smoother_singlecam_sessions(
         stacked, merged_param, s_frames, merged_blocks, avg_mode, var_mode,
         devices, partition, device, timings,
     )
+    span = tracing.begin(timings, "table")
     n_frames = final_np.shape[0]
     n_labels = len(OUTPUT_LABELS)
     results = []
@@ -313,9 +315,11 @@ def ensemble_kalman_smoother_singlecam_sessions(
             columns=make_dlc_pandas_index(names, labels=OUTPUT_LABELS),
         )
         results.append((sub, s_all[lo:hi]))
+    tracing.end(timings, span)
     return results
 
 
+@tracing.entry_point
 def ensemble_kalman_smoother_singlecam(
     marker_array: MarkerArray,
     keypoint_names: list,
@@ -336,7 +340,10 @@ def ensemble_kalman_smoother_singlecam(
         device: where the pipeline runs ("cuda" by default).
         timings: if a dict, the device is synchronized between stages and
             their seconds are recorded ("prep", "optimizer", "final_pass",
-            "package"), with the optimizer's Adam iteration count.
+            "package"), with the optimizer's Adam iteration count, the
+            spans of the stages, of the Adam iterations and of the pandas
+            table ("table") and this call's kernel launches
+            (``eks_tpu_torch.tracing``).
 
     Returns:
         (markers_df, s_finals) — DataFrame with 9 labels per keypoint.
@@ -345,11 +352,13 @@ def ensemble_kalman_smoother_singlecam(
         marker_array, smooth_param, s_frames, blocks, avg_mode, var_mode,
         devices, partition, device, timings,
     )
+    span = tracing.begin(timings, "table")
     n_frames, n_keypoints = final_np.shape[:2]
     markers_df = pd.DataFrame(
         final_np.reshape(n_frames, n_keypoints * len(OUTPUT_LABELS)),
         columns=make_dlc_pandas_index(keypoint_names, labels=OUTPUT_LABELS),
     )
+    tracing.end(timings, span)
     return markers_df, s_finals
 
 
@@ -370,7 +379,7 @@ def _singlecam_smooth_table(
     dev = resolve_device(device)
     n_models, _, _, n_keypoints, _ = marker_array.shape
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "prep")
     arr = torch.as_tensor(
         np.ascontiguousarray(marker_array.array[:, 0], dtype=np.float32), device=dev
     )  # (M, T, K, 3)
@@ -379,9 +388,7 @@ def _singlecam_smooth_table(
     )
     eye = torch.eye(2, dtype=torch.float32, device=dev).expand(n_keypoints, 2, 2).contiguous()
     m0s = torch.zeros((n_keypoints, 2), dtype=torch.float32, device=dev)
-    if timings is not None:
-        _sync(dev)
-        timings["prep"] = time.perf_counter() - t0
+    tracing.end(timings, span, dev, stage=True)
 
     s_finals, ms, Vs = run_kalman_smoother(
         ys=ys, m0s=m0s, S0s=S0s, As=eye, Cs=eye, Qs=eye,
@@ -390,10 +397,9 @@ def _singlecam_smooth_table(
         devices=devices, partition=partition, timings=timings,
     )
 
-    t0 = time.perf_counter()
+    span = tracing.begin(timings, "package")
     final_np = _package_singlecam_full(stats, means, ms, Vs, eye).cpu().numpy()
-    if timings is not None:
-        timings["package"] = time.perf_counter() - t0
+    tracing.end(timings, span, stage=True)
     return final_np, s_finals
 
 

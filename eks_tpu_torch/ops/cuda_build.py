@@ -6,7 +6,8 @@ into ``eks_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags, so an edited source rebuilds and a stale library is never
 loaded. ``build()`` starts one ``nvcc`` per missing library, all at once.
 Building and loading hold a lock, so a caller's threads that launch at once
-build and load each library once.
+build and load each library once. A library's first load, and each
+``nvcc`` build, are spans of the process record (``tracing``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["COUNT_LOCK", "KERNEL_SOURCES", "build", "load"]
+from eks_tpu_torch import tracing
+
+__all__ = ["KERNEL_SOURCES", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -40,10 +43,6 @@ _NVCC_FLAGS = (
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.RLock()
-
-#: held by the kernel wrappers while they add to their launch counts, which
-#: a caller's threads may update at once
-COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -93,7 +92,9 @@ def _build(names: list) -> dict:
             failed.append(f"--- nvcc {KERNEL_SOURCES[n]} for {n} (rc={proc.returncode}) ---\n{out}")
             continue
         os.replace(tmp, _library_path(n))
-        report[n] = (time.perf_counter() - t0, out)
+        t1 = time.perf_counter()
+        tracing.process_add(f"kernel_build.{n}", t0, t1)
+        report[n] = (t1 - t0, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
@@ -106,6 +107,10 @@ def load(name: str) -> ctypes.CDLL:
         with _LOCK:
             lib = _LOADED.get(name)
             if lib is None:
-                build([name])
-                lib = _LOADED[name] = ctypes.CDLL(str(_library_path(name)))
+                span = tracing.process_begin(f"kernel_load.{name}")
+                try:
+                    build([name])
+                    lib = _LOADED[name] = ctypes.CDLL(str(_library_path(name)))
+                finally:
+                    tracing.process_end(span)
     return lib

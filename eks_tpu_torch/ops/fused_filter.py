@@ -21,7 +21,7 @@ tensor at D <= 3 it launches the kernel or raises: a failed build or launch
 is never answered with the plain version. Beyond D = 3 the JAX package has no
 Pallas scan (``_use_pallas``) and runs XLA's ``associative_scan``; the port
 follows that dispatch by shape and runs the plain version on the card,
-counted in ``PLAIN_ROUTE_LAUNCHES`` (the multi-camera family at
+counted as ``("scan_plain_route", kind)`` (the multi-camera family at
 ``n_latent`` 4 and above).
 
 A chunk of a time-sharded scan (``parallel/mesh.py``) runs the same three
@@ -32,7 +32,11 @@ chunks before it in scan order, which the host combines from their totals in
 between); ``scan_total`` and ``scan_carried`` are the two in one call. This
 replaces no Pallas kernel: the JAX package carries those combines with XLA
 collectives. Beyond D = 3 it follows the scans' dispatch, the plain version on
-the card, its carry combine counted apart in ``CARRY_PLAIN_ROUTE_LAUNCHES``.
+the card, its carry combine counted apart (``("scan_carried_plain_route",
+kind)``).
+
+Every launch is counted in ``tracing.LAUNCHES``: ``("scan", kind, paired,
+D)``, a carried downsweep also as ``("scan_carried", kind, paired, D)``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from dataclasses import dataclass
 
 import torch
 
+from eks_tpu_torch import tracing
 from eks_tpu_torch.ops import cuda_build
 from eks_tpu_torch.ops.linalg import jvp
 from eks_tpu_torch.ops.pkalman import (
@@ -53,11 +58,6 @@ from eks_tpu_torch.ops.pkalman import (
 )
 
 __all__ = [
-    "CARRY_LAUNCHES_BY_INSTANCE",
-    "LAUNCHES",
-    "LAUNCHES_BY_INSTANCE",
-    "CARRY_PLAIN_ROUTE_LAUNCHES",
-    "PLAIN_ROUTE_LAUNCHES",
     "ChunkTotal",
     "carry_combine_plain",
     "check_scratch",
@@ -81,21 +81,6 @@ __all__ = [
 #: state dimensions the CUDA kernel is instantiated for (singlecam: 2; the
 #: pupil and multi-camera families: 3; multi-camera at n_latent 1 and 2: 1, 2)
 _CUDA_D = (1, 2, 3)
-
-#: kernel launches since import (or since a caller last reset them): in all,
-#: and of every instance by (kind, paired, D)
-LAUNCHES = 0
-LAUNCHES_BY_INSTANCE = {
-    (kind, paired, D): 0
-    for kind in ("filter", "smoother") for paired in (False, True) for D in _CUDA_D
-}
-#: scans of CUDA tensors beyond D = 3, run by the plain version on the card
-PLAIN_ROUTE_LAUNCHES = 0
-#: carried downsweeps (phase B of a chunk after the first in scan order) of
-#: every instance by (kind, paired, D); each also counts as a scan above
-CARRY_LAUNCHES_BY_INSTANCE = dict.fromkeys(LAUNCHES_BY_INSTANCE, 0)
-#: carry combines of CUDA tensors beyond D = 3, run by the plain version
-CARRY_PLAIN_ROUTE_LAUNCHES = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -237,12 +222,9 @@ def _call(entry: str, device: torch.device, ptrs: tuple, N: int, T: int, D: int,
 
 
 def _count(kind: str, paired: bool, D: int, carried: bool = False) -> None:
-    global LAUNCHES
-    with cuda_build.COUNT_LOCK:
-        LAUNCHES += 1
-        LAUNCHES_BY_INSTANCE[(kind, paired, D)] += 1
-        if carried:
-            CARRY_LAUNCHES_BY_INSTANCE[(kind, paired, D)] += 1
+    tracing.count(("scan", kind, paired, D))
+    if carried:
+        tracing.count(("scan_carried", kind, paired, D))
 
 
 def _scan_cuda(planes: torch.Tensor, kind: str, paired: bool, scratch=None) -> torch.Tensor:
@@ -271,11 +253,9 @@ def _state_dim(n_planes: int, kind: str) -> int:
 def _plain_route(planes: torch.Tensor, kind: str) -> bool:
     """Whether a CUDA scan takes the plain version by shape: D > 3, where
     the JAX package runs XLA's associative scan. Counted when it does."""
-    global PLAIN_ROUTE_LAUNCHES
     if _state_dim(planes.shape[-2], kind) <= max(_CUDA_D):
         return False
-    with cuda_build.COUNT_LOCK:
-        PLAIN_ROUTE_LAUNCHES += 1
+    tracing.count(("scan_plain_route", kind))
     return True
 
 
@@ -396,7 +376,7 @@ def chunk_total(planes: torch.Tensor, kind: str, tangents: torch.Tensor | None =
     scan along them): on a CUDA tensor at D <= 3 two launches that leave
     the chunk's total and what phase B reads; else the plain scan, whose
     edge is the total (beyond D = 3 on the card counted in
-    ``PLAIN_ROUTE_LAUNCHES``)."""
+    ``("scan_plain_route", kind)``)."""
     paired = tangents is not None
     if planes.shape[-1] < 1:
         raise ValueError("a chunk holds at least one step")
@@ -418,17 +398,15 @@ def chunk_scan(chunk: ChunkTotal, carry=None):
     chunks before it in scan order, (N, P) (with tangents the pair (carry,
     its tangent)), or from nothing (None: the first chunk in scan order).
     On the card one launch, the downsweep, counted as the chunk's scan (and
-    with a carry in ``CARRY_LAUNCHES_BY_INSTANCE``); returns (N, P, T), or
+    with a carry as ``("scan_carried", kind, paired, D)``); returns (N, P, T), or
     with tangents the pair (scan, its tangent)."""
-    global CARRY_PLAIN_ROUTE_LAUNCHES
     kind, paired = chunk.kind, chunk.paired
     if chunk.planes is None:
         if carry is None:
             return chunk.local
         local = chunk.local[0] if paired else chunk.local
         if local.device.type == "cuda":  # beyond D = 3
-            with cuda_build.COUNT_LOCK:
-                CARRY_PLAIN_ROUTE_LAUNCHES += 1
+            tracing.count(("scan_carried_plain_route", kind))
 
         def plain(c, x):
             return carry_combine_plain(c, x, kind)

@@ -50,6 +50,7 @@ import ctypes
 
 import torch
 
+from eks_tpu_torch import tracing
 from eks_tpu_torch.ops import cuda_build
 from eks_tpu_torch.ops.fused_filter import check_scratch, filter_prefix_plain, segment_partition, sm_count
 from eks_tpu_torch.ops.pkalman import (
@@ -63,11 +64,6 @@ from eks_tpu_torch.ops.pkalman import (
 )
 
 __all__ = [
-    "LAUNCHES",
-    "LAUNCHES_BY_SHAPE",
-    "PAIRED_LAUNCHES",
-    "TV_LAUNCHES",
-    "TV_PAIRED_LAUNCHES",
     "built_shapes",
     "filter_nll_fused_batched",
     "filter_nll_fused_tv_batched",
@@ -84,15 +80,6 @@ __all__ = [
 #: the JAX package's fused route; kernel C at the pupil family's (3, 8)
 _CUDA_SHAPES = tuple((D, O) for D in (1, 2, 3) for O in (2, 4, 6, 8))
 _CUDA_SHAPES_TV = ((3, 8),)
-
-#: launches of the plain and of the paired form of kernel A and of kernel C
-#: since import (or since a caller last reset them), and kernel A's by
-#: instance (D, O, paired)
-LAUNCHES = 0
-PAIRED_LAUNCHES = 0
-TV_LAUNCHES = 0
-TV_PAIRED_LAUNCHES = 0
-LAUNCHES_BY_SHAPE = {(D, O, paired): 0 for D, O in _CUDA_SHAPES for paired in (False, True)}
 
 
 # --------------------------------------------------------------------------- #
@@ -241,30 +228,24 @@ def _launch(table, dtable, y, tv: bool = False, scratch=None) -> torch.Tensor:
 def fused_nll(table: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Log-likelihoods (N,) of N constant-R filters from their scalar tables
     (N, n_scal) and observation planes y (N, O, T)."""
-    global LAUNCHES
     if y.device.type == "cpu":
         return _fused_nll_plain(table, y)
     if y.device.type != "cuda":
         raise RuntimeError(f"no fused NLL for device {y.device}")
     out = _launch(table, None, y)
-    with cuda_build.COUNT_LOCK:
-        LAUNCHES += 1
-        LAUNCHES_BY_SHAPE[(_table_dims(table.shape[1], y.shape[1]), y.shape[1], False)] += 1
+    tracing.count(("A", _table_dims(table.shape[1], y.shape[1]), y.shape[1], False))
     return out[0]
 
 
 def fused_nll_paired(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor):
     """(ll (N,), d ll (N,)): the log-likelihoods and their derivative along
     the table tangent ``dtable`` (N, n_scal), in one launch on the card."""
-    global PAIRED_LAUNCHES
     if y.device.type == "cpu":
         return _fused_nll_paired_plain(table, dtable, y)
     if y.device.type != "cuda":
         raise RuntimeError(f"no fused NLL for device {y.device}")
     out = _launch(table, dtable, y)
-    with cuda_build.COUNT_LOCK:
-        PAIRED_LAUNCHES += 1
-        LAUNCHES_BY_SHAPE[(_table_dims(table.shape[1], y.shape[1]), y.shape[1], True)] += 1
+    tracing.count(("A", _table_dims(table.shape[1], y.shape[1]), y.shape[1], True))
     return out[0], out[1]
 
 
@@ -278,14 +259,12 @@ def filter_nll_fused_batched(ys, m0, S0, A, Q, C, r) -> torch.Tensor:
 def fused_nll_tv(table: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
     """Log-likelihoods (N,) of N time-varying-R filters from their tables
     (N, n_scal_tv) and the planes yr (N, 2O, T): y rows, then r rows."""
-    global TV_LAUNCHES
     if yr.device.type == "cpu":
         return _fused_nll_tv_plain(table, yr)
     if yr.device.type != "cuda":
         raise RuntimeError(f"no fused NLL for device {yr.device}")
     out = _launch(table, None, yr, tv=True)
-    with cuda_build.COUNT_LOCK:
-        TV_LAUNCHES += 1
+    tracing.count(("C", False))
     return out[0]
 
 
@@ -293,14 +272,12 @@ def fused_nll_tv_paired(table: torch.Tensor, dtable: torch.Tensor, yr: torch.Ten
     """(ll (N,), d ll (N,)) of N time-varying-R filters: the log-likelihoods
     and their derivative along the table tangent ``dtable``, in one launch
     on the card."""
-    global TV_PAIRED_LAUNCHES
     if yr.device.type == "cpu":
         return _fused_nll_tv_paired_plain(table, dtable, yr)
     if yr.device.type != "cuda":
         raise RuntimeError(f"no fused NLL for device {yr.device}")
     out = _launch(table, dtable, yr, tv=True)
-    with cuda_build.COUNT_LOCK:
-        TV_PAIRED_LAUNCHES += 1
+    tracing.count(("C", True))
     return out[0], out[1]
 
 

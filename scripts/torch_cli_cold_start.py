@@ -14,7 +14,8 @@ each timed from start to exit:
     step's seconds; the process's wall less their sum is the interpreter's
     start and exit;
   - ``cli``: ``python -m eks_tpu_torch.cli.main singlecam --verbose`` on the
-    CSVs, as a user runs it, with its run report (the stages' seconds);
+    CSVs, as a user runs it, with its run report (the process record's
+    seconds and each span's);
   - ``cli_dynamo_first``: the same command line with ``torch._dynamo``
     imported before it starts, so the optimizer's seconds in its report
     lack that import.
@@ -124,13 +125,15 @@ def main() -> int:
             for key, cmd in (("cli", [sys.executable, "-m", "eks_tpu_torch.cli.main", *cli_args]),
                              ("cli_dynamo_first", [sys.executable, "-c", DYNAMO_FIRST, *cli_args])):
                 wall, proc = timed(cmd)
-                out[key].append({"wall_s": wall, **run_report(proc)["seconds"]})
+                rep = run_report(proc)
+                out[key].append({"wall_s": wall, **rep["process"], **{k: v["s"] for k, v in rep["spans"].items()}})
         in_process = []
         for _ in range(2):
             tm = {}
             t0 = time.perf_counter()
             eks_tpu_torch.fit_eks_singlecam(src, os.path.join(tmp, "in.csv"), device=args.device, timings=tm)
-            in_process.append({"wall_s": time.perf_counter() - t0, **tm})
+            in_process.append({"wall_s": time.perf_counter() - t0,
+                               **{k: v for k, v in tm.items() if k not in ("spans", "counts")}})
         out["in_process_first_then_warm"] = in_process
     print(json.dumps(out), flush=True)
     return 0

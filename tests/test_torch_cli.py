@@ -446,7 +446,8 @@ def test_sessions_cli_matches_jax_cli(tmp_path, cropped, argv, prefix):
 
 
 def test_verbose_run_report(tmp_path, cropped, caplog):
-    """``--verbose`` ends with the run report: the stages' seconds, and every
+    """``--verbose`` ends with the run report: the import's seconds from the
+    process record, each stage's span once with its seconds, and every
     read and write on the native path."""
     import json
 
@@ -455,7 +456,11 @@ def test_verbose_run_report(tmp_path, cropped, caplog):
                   "--s", "2.0", "--verbose"])
     line = next(r.getMessage() for r in caplog.records if r.getMessage().startswith("run report: "))
     report = json.loads(line[len("run report: "):])
-    assert {"imports", "read", "prep", "optimizer", "final_pass", "package", "write", "fit"} <= set(report["seconds"])
+    assert report["process"]["import"] > 0
+    stages = {"read", "prep", "optimizer", "final_pass", "package", "table", "write", "fit"}
+    assert stages <= set(report["spans"])
+    assert all(report["spans"][k]["n"] == 1 and report["spans"][k]["s"] > 0 for k in stages)
+    assert report["launches"] == {}  # the CPU runs the kernels' plain versions
     assert report["s"] == [[2.0, 2.0, 2.0]]
     assert report["csv_reads"] == {"native": 5, "pandas": 0}
     assert report["csv_writes"] == {"native": 1, "pandas": 0}

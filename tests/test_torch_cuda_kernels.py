@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from eks_tpu_torch import tracing
 from eks_tpu_torch.ops import fused_filter, fused_nll, pkalman
 
 pytestmark = pytest.mark.cuda
@@ -35,6 +36,11 @@ RTOL = 1e-5
 # kernel A's d ll/d log s on a lane against the float64 plain version,
 # relative to 1 + the lane's own |d ll| (see test_kernel_a_instances_match_plain)
 RTOL_DLL_LANE = 1e-4
+
+
+def _kernel_a_launches() -> tuple:
+    """Kernel A's launches, plain and paired, summed over its instances."""
+    return tracing.launches("A", None, None, False), tracing.launches("A", None, None, True)
 
 
 @pytest.fixture
@@ -117,11 +123,11 @@ def _nll_operands(dev, N, T, O=2, D=2, walk=True):
 @pytest.mark.parametrize("N,T", [(1, 1), (3, 5), (4, 255), (2, 257), (20, 1000)])
 def test_kernel_a_matches_plain(dev, N, T):
     table, dtable, y = _nll_operands(dev, N, T)
-    before = (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES)
+    before = _kernel_a_launches()
     ll = fused_nll.fused_nll(table, y)
     ll_p, dll_p = fused_nll.fused_nll_paired(table, dtable, y)
     torch.cuda.synchronize()
-    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _kernel_a_launches() == (before[0] + 1, before[1] + 1)
     want = fused_nll._fused_nll_plain(table, y)
     want_p, want_dp = fused_nll._fused_nll_paired_plain(table, dtable, y)
     _close(ll, want)
@@ -135,11 +141,11 @@ def test_kernel_a_matches_plain(dev, N, T):
 def test_kernel_a_at_d3_matches_plain(dev, N, T, O):
     """The multi-camera instances, (D, O) = (3, 4), (3, 6), (3, 8)."""
     table, dtable, y = _nll_operands(dev, N, T, O=O, D=3)
-    before = (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES)
+    before = _kernel_a_launches()
     ll = fused_nll.fused_nll(table, y)
     ll_p, dll_p = fused_nll.fused_nll_paired(table, dtable, y)
     torch.cuda.synchronize()
-    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _kernel_a_launches() == (before[0] + 1, before[1] + 1)
     want_p, want_dp = fused_nll._fused_nll_paired_plain(table, dtable, y)
     _close(ll, want_p)
     _close(ll_p, want_p)
@@ -165,11 +171,11 @@ def test_kernel_a_instances_match_plain(dev, D, O, N, T, walk):
     AR(1) lanes (the float32 plain version's 2.3e-6 there)."""
     T = _steps(T, ("A", D))
     table, dtable, y = _nll_operands(dev, N, T, O=O, D=D, walk=walk)
-    before = (fused_nll.LAUNCHES_BY_SHAPE[(D, O, False)], fused_nll.LAUNCHES_BY_SHAPE[(D, O, True)])
+    before = (tracing.launches("A", D, O, False), tracing.launches("A", D, O, True))
     ll = fused_nll.fused_nll(table, y)
     ll_p, dll_p = fused_nll.fused_nll_paired(table, dtable, y)
     torch.cuda.synchronize()
-    assert (fused_nll.LAUNCHES_BY_SHAPE[(D, O, False)], fused_nll.LAUNCHES_BY_SHAPE[(D, O, True)]) == (
+    assert (tracing.launches("A", D, O, False), tracing.launches("A", D, O, True)) == (
         before[0] + 1, before[1] + 1)
     want_p, want_dp = fused_nll._fused_nll_paired_plain(table, dtable, y)
     _close(ll, want_p)
@@ -194,11 +200,13 @@ def test_staged_nll_at_n_latent_4_takes_the_plain_route(dev):
     counted as the plain route; no kernel launches. The final pass's two
     scans too."""
     table, dtable, y = _nll_operands(dev, 3, 300, O=4, D=4)
-    before = (fused_nll.PAIRED_LAUNCHES, fused_filter.LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES)
+    def counts():
+        return tracing.launches("A", None, None, True), tracing.launches("scan"), tracing.launches("scan_plain_route")
+
+    before = counts()
     ll, dll = pkalman.filter_nll_paired_batched(table, dtable, y)
     torch.cuda.synchronize()
-    assert (fused_nll.PAIRED_LAUNCHES, fused_filter.LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES) == (
-        before[0], before[1], before[2] + 1)
+    assert counts() == (before[0], before[1], before[2] + 1)
     assert ll.device.type == "cuda"
     want, want_d = pkalman._staged_nll_paired(table.cpu(), dtable.cpu(), y.cpu())
     _close(ll.cpu(), want)
@@ -206,7 +214,7 @@ def test_staged_nll_at_n_latent_4_takes_the_plain_route(dev):
     ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(3, 300, 4, 4))
     res = pkalman.kalman_smoother_parallel(ys, m0, S0, 0.95 * A, Q, C, r_tv)
     torch.cuda.synchronize()
-    assert fused_filter.PLAIN_ROUTE_LAUNCHES == before[2] + 3 and fused_filter.LAUNCHES == before[1]
+    assert tracing.launches("scan_plain_route") == before[2] + 3 and tracing.launches("scan") == before[1]
     want_s = pkalman.kalman_smoother_parallel(*(x.cpu() for x in (ys, m0, S0, 0.95 * A, Q, C, r_tv)))
     _close(res.smoothed_means.cpu(), want_s.smoothed_means)
 
@@ -215,10 +223,10 @@ def test_staged_nll_at_12_observations_matches_plain(dev):
     """Beyond kernel A's sizes (six cameras: O = 12) the loss is the staged
     plane NLL: one paired lane-batched scan launch, no kernel A launch."""
     table, dtable, y = _nll_operands(dev, 3, 300, O=12, D=3)
-    before = (fused_nll.PAIRED_LAUNCHES, fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 3)])
+    before = (tracing.launches("A", None, None, True), tracing.launches("scan", "filter", True, 3))
     ll, dll = pkalman._staged_nll_paired(table, dtable, y)
     torch.cuda.synchronize()
-    assert (fused_nll.PAIRED_LAUNCHES, fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 3)]) == (
+    assert (tracing.launches("A", None, None, True), tracing.launches("scan", "filter", True, 3)) == (
         before[0], before[1] + 1)
     want, want_d = pkalman._staged_nll_paired(table.cpu(), dtable.cpu(), y.cpu())
     _close(ll.cpu(), want)
@@ -254,11 +262,11 @@ def _nll_tv_operands(dev, N, T, walk=True):
                          + [(N, T, False) for N, T in SEGMENT_CASES])
 def test_kernel_c_matches_plain(dev, N, T, walk):
     table, dtable, yr = _nll_tv_operands(dev, N, _steps(T, "C"), walk)
-    before = (fused_nll.TV_LAUNCHES, fused_nll.TV_PAIRED_LAUNCHES)
+    before = (tracing.launches("C", False), tracing.launches("C", True))
     ll = fused_nll.fused_nll_tv(table, yr)
     ll_p, dll_p = fused_nll.fused_nll_tv_paired(table, dtable, yr)
     torch.cuda.synchronize()
-    assert (fused_nll.TV_LAUNCHES, fused_nll.TV_PAIRED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (tracing.launches("C", False), tracing.launches("C", True)) == (before[0] + 1, before[1] + 1)
     want = fused_nll._fused_nll_tv_plain(table, yr)
     want_p, want_dp = fused_nll._fused_nll_tv_paired_plain(table, dtable, yr)
     _close(ll, want)
@@ -290,10 +298,10 @@ def test_kernel_b_matches_plain(dev, N, T, O, D):
     T = _steps(T, ("filter", False, D))
     ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, O, D, seed=T))
     planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
-    before = fused_filter.LAUNCHES
+    before = tracing.launches("scan")
     out = fused_filter.filter_prefix(planes)
     torch.cuda.synchronize()
-    assert fused_filter.LAUNCHES == before + 1
+    assert tracing.launches("scan") == before + 1
     _close(out, fused_filter.filter_prefix_plain(planes))
 
 
@@ -315,10 +323,10 @@ def test_smoother_kernel_matches_plain(dev, N, T, O, D):
     T = _steps(T, ("smoother", False, D))
     planes, _ = _smoother_planes(dev, N, T, O, D, seed=T)
     key = ("smoother", False, D)
-    before = fused_filter.LAUNCHES_BY_INSTANCE[key]
+    before = tracing.launches("scan", *key)
     out = fused_filter.smoother_suffix(planes)
     torch.cuda.synchronize()
-    assert fused_filter.LAUNCHES_BY_INSTANCE[key] == before + 1
+    assert tracing.launches("scan", *key) == before + 1
     _close(out, fused_filter.smoother_suffix_plain(planes))
     # the last step is the last element itself (E = 0, g = m_T, L = P_T)
     assert torch.equal(out[..., -1], planes[..., -1])
@@ -354,10 +362,10 @@ def test_paired_scan_kernels_match_plain(dev, kind, N, T, O, D):
         tangents = _symmetric_cj((0.1 * torch.randn(planes.shape, generator=gen)).to(dev), D)
         scan, plain = fused_filter.filter_prefix_paired, fused_filter.filter_prefix_plain
     key = (kind, True, D)
-    before = fused_filter.LAUNCHES_BY_INSTANCE[key]
+    before = tracing.launches("scan", *key)
     out, dout = scan(planes, tangents)
     torch.cuda.synchronize()
-    assert fused_filter.LAUNCHES_BY_INSTANCE[key] == before + 1
+    assert tracing.launches("scan", *key) == before + 1
     want, dwant = torch.func.jvp(plain, (planes,), (tangents,))
     _close(out, want)
     _close(dout, dwant)
@@ -441,10 +449,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_filter.filter_prefix_paired(planes, planes[:1])
     # a scratch buffer of the wrong shape is refused before any launch
     G = fused_filter.scan_plan(2, 8, "filter", False, 2, dev)["G"]
-    before = fused_filter.LAUNCHES
+    before = tracing.launches("scan")
     with pytest.raises(ValueError):
         fused_filter._scan_cuda(planes, "filter", False, scratch=torch.empty(2, G + 1, 16, device=dev))
-    assert fused_filter.LAUNCHES == before
+    assert tracing.launches("scan") == before
     table, dtable, yr = _nll_tv_operands(dev, 2, 16)
     G = fused_nll.tv_plan(2, 16, dev)["G"]
     with pytest.raises(ValueError):
@@ -489,7 +497,7 @@ def test_carry_kernel_matches_plain(dev, kind, paired, D, N, T):
     threads; a second call gives the same bits."""
     c, dc, x, dx = _carry_operands(dev, kind, N, T, D, seed=T + D)
     key = (kind, paired, D)
-    before = (fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key], fused_filter.LAUNCHES_BY_INSTANCE[key])
+    before = (tracing.launches("scan_carried", *key), tracing.launches("scan", *key))
     if paired:
         def run():
             return torch.cat(fused_filter.scan_carried(x, c, kind, dx, dc), dim=1)
@@ -507,7 +515,7 @@ def test_carry_kernel_matches_plain(dev, kind, paired, D, N, T):
         want = fused_filter.scan_carried_plain(x, c, kind)
         total, want_total = fused_filter.scan_total(x, kind), fused_filter.scan_total_plain(x, kind)
     torch.cuda.synchronize()
-    assert (fused_filter.CARRY_LAUNCHES_BY_INSTANCE[key], fused_filter.LAUNCHES_BY_INSTANCE[key]) == (
+    assert (tracing.launches("scan_carried", *key), tracing.launches("scan", *key)) == (
         before[0] + 1, before[1] + 1)
     _close(out, want)
     _close(total, want_total)
@@ -543,12 +551,12 @@ def test_sharded_scans_match_the_unsharded_kernel_scan(dev, kind, D, sizes):
     planes, tangents, whole, whole_p, sharded, sharded_p = _scan_operands(dev, kind, 2, sum(sizes), D)
     chunks = [x.contiguous() for x in torch.split(planes, list(sizes), dim=-1)]
     dchunks = [x.contiguous() for x in torch.split(tangents, list(sizes), dim=-1)]
-    before = fused_filter.CARRY_LAUNCHES_BY_INSTANCE[(kind, False, D)]
+    before = tracing.launches("scan_carried", kind, False, D)
     got = torch.cat(sharded(chunks), dim=-1)
     got_p = [torch.cat(x, dim=-1) for x in zip(*sharded_p(chunks, dchunks))]
     want, want_p = whole(planes), whole_p(planes, tangents)
     torch.cuda.synchronize()
-    assert fused_filter.CARRY_LAUNCHES_BY_INSTANCE[(kind, False, D)] == before + len(sizes) - 1
+    assert tracing.launches("scan_carried", kind, False, D) == before + len(sizes) - 1
     _close(got, want)
     _close(got_p[0], want_p[0])
     _close(got_p[1], want_p[1])
@@ -594,10 +602,10 @@ def test_carry_wrappers_refuse_what_the_kernel_does_not_take(dev):
     # beyond D = 3 the wrapper runs the plain version on the card: the
     # chunk's plain scan counted on the scans' plain route, its carry
     # combine apart
-    before = (fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES)
+    before = (tracing.launches("scan_carried_plain_route"), tracing.launches("scan_plain_route"))
     x = torch.zeros(2, 3 * 16 + 8, 8, device=dev)
     fused_filter.scan_carried(x, x[..., 0].contiguous(), "filter")
-    assert (fused_filter.CARRY_PLAIN_ROUTE_LAUNCHES, fused_filter.PLAIN_ROUTE_LAUNCHES) == (before[0] + 1,
+    assert (tracing.launches("scan_carried_plain_route"), tracing.launches("scan_plain_route")) == (before[0] + 1,
                                                                                             before[1] + 1)
 
 
@@ -613,7 +621,7 @@ def test_time_sharded_loss_in_a_worker_thread_gives_the_main_threads_bits(dev):
     table, dtable, y = _nll_operands(dev, 3, 2000, O=2, D=2, walk=True)
     shards = mesh.TimeShards((dev,) * 4, y.shape[-1])
     main = torch.stack(pkalman._staged_nll_paired(table, dtable, y, shards))
-    before = fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 2)]
+    before = tracing.launches("scan", "filter", True, 2)
     seen = []
 
     def work():
@@ -627,4 +635,4 @@ def test_time_sharded_loss_in_a_worker_thread_gives_the_main_threads_bits(dev):
         t.join()
     torch.cuda.synchronize()
     assert len(seen) == 2 and all(torch.equal(s, main) for s in seen)
-    assert fused_filter.LAUNCHES_BY_INSTANCE[("filter", True, 2)] == before + 8
+    assert tracing.launches("scan", "filter", True, 2) == before + 8

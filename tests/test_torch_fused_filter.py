@@ -16,6 +16,7 @@ from jax import vmap
 
 from eks_tpu.ops import pkalman as jax_pk
 from eks_tpu.ops.pallas_filter import _scan_fn_batched, filter_prefix_pallas, smoother_suffix_pallas
+from eks_tpu_torch import tracing
 from eks_tpu_torch.convert import params_from_numpy, smoother_planes_from_numpy
 from eks_tpu_torch.ops import fused_filter, pkalman
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
@@ -278,10 +279,10 @@ def test_kernel_b_wrapper_refuses_cuda_without_a_card():
         pytest.skip("a CUDA card is visible; chip_smoke.py runs the kernel")
     ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(0), 2, 16)
     planes = pkalman._make_filter_elements(torch.as_tensor(ys), *params_from_numpy(m0, S0, A, Q, C, r))
-    before = fused_filter.LAUNCHES
+    before = tracing.launches("scan")
     with pytest.raises((RuntimeError, AssertionError)):
         fused_filter.filter_prefix(_FakeCuda(planes))
-    assert fused_filter.LAUNCHES == before
+    assert tracing.launches("scan") == before
     with pytest.raises(ValueError):
         fused_filter._scan_cuda(planes, "filter", False)  # a CPU tensor is never launched
     with pytest.raises(RuntimeError):
@@ -293,7 +294,7 @@ def test_kernel_b_wrapper_refuses_cuda_without_a_card():
             fused_filter.filter_prefix(_FakeCuda(torch.zeros(2, P, 16)))
     with pytest.raises(NotImplementedError):  # the kernel itself is built for D <= 3 only
         fused_filter._scan_cuda(_FakeCuda(torch.zeros(2, 56, 16)), "filter", False)
-    assert fused_filter.LAUNCHES == before and fused_filter.LAUNCHES_BY_INSTANCE[("filter", False, 3)] == 0
+    assert tracing.launches("scan") == before and tracing.launches("scan", "filter", False, 3) == 0
 
 
 def test_smoother_and_paired_wrappers_refuse_cuda_without_a_card():
@@ -302,7 +303,7 @@ def test_smoother_and_paired_wrappers_refuse_cuda_without_a_card():
     for are refused before any launch, and no count moves."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible; chip_smoke.py runs the kernels")
-    before = dict(fused_filter.LAUNCHES_BY_INSTANCE)
+    before = tracing.snapshot()
     for P in (10, 21):  # D = 2, 3 go on to the card
         with pytest.raises((RuntimeError, AssertionError)):
             fused_filter.smoother_suffix(_FakeCuda(torch.zeros(2, P, 16)))
@@ -318,16 +319,15 @@ def test_smoother_and_paired_wrappers_refuse_cuda_without_a_card():
         fused_filter._scan_cuda(torch.zeros(2, 20, 16), "smoother", True)
     with pytest.raises(ValueError):  # 33 planes cannot be P primal + P tangent
         fused_filter._scan_cuda(_FakeCuda(torch.zeros(2, 33, 16)), "filter", True)
-    assert fused_filter.LAUNCHES_BY_INSTANCE == before
-    assert sorted(before) == sorted(
-        (k, p, d) for k in ("filter", "smoother") for p in (False, True) for d in (1, 2, 3))
+    assert tracing.since(before) == {}
+    assert fused_filter._CUDA_D == (1, 2, 3)  # the instances: (kind, paired, D) for D in these
 
 
 @pytest.mark.parametrize("kind", ["filter", "smoother"])
 def test_scans_beyond_d3_take_the_counted_plain_route_on_the_card(monkeypatch, kind):
     """On a CUDA tensor the scans launch the kernel at D <= 3 and, beyond,
     run the plain version (the JAX package's XLA associative scan there),
-    chosen by shape and counted in PLAIN_ROUTE_LAUNCHES; paired too."""
+    chosen by shape and counted as ("scan_plain_route", kind); paired too."""
     taken = []
     monkeypatch.setattr(fused_filter, "_scan_cuda", lambda planes, k, paired: taken.append(("kernel", paired)))
     plain_name = "filter_prefix_plain" if kind == "filter" else "smoother_suffix_plain"
@@ -335,18 +335,18 @@ def test_scans_beyond_d3_take_the_counted_plain_route_on_the_card(monkeypatch, k
     scan, scan_paired = {"filter": (fused_filter.filter_prefix, fused_filter.filter_prefix_paired),
                          "smoother": (fused_filter.smoother_suffix, fused_filter.smoother_suffix_paired)}[kind]
     dim = pkalman.filter_state_dim if kind == "filter" else pkalman.smoother_state_dim
-    before = fused_filter.PLAIN_ROUTE_LAUNCHES
+    before = tracing.launches("scan_plain_route")
     for P in ((5, 16, 33, 56, 85) if kind == "filter" else (3, 10, 21, 36, 55)):
         scan(_FakeCuda(torch.zeros(2, P, 16)))
         assert taken[-1] == (("kernel", False) if dim(P) <= 3 else ("plain", False))
-    assert fused_filter.PLAIN_ROUTE_LAUNCHES == before + 2
+    assert tracing.launches("scan_plain_route") == before + 2
     # paired: on to the kernel's Dual instance up to D = 3 (whose operand
     # a CPU stand-in for a CUDA tensor cannot build); beyond, the plain
     # version's jvp, which it cannot enter either: only the route is read
     P_small, P_large = (33, 56) if kind == "filter" else (21, 36)
     with pytest.raises(TypeError):
         scan_paired(_FakeCuda(torch.zeros(2, P_small, 16)), _FakeCuda(torch.zeros(2, P_small, 16)))
-    assert fused_filter.PLAIN_ROUTE_LAUNCHES == before + 2
+    assert tracing.launches("scan_plain_route") == before + 2
     with pytest.raises(Exception):
         scan_paired(_FakeCuda(torch.zeros(2, P_large, 16)), _FakeCuda(torch.zeros(2, P_large, 16)))
-    assert fused_filter.PLAIN_ROUTE_LAUNCHES == before + 3
+    assert tracing.launches("scan_plain_route") == before + 3

@@ -13,6 +13,7 @@ import torch
 from jax import vmap
 
 from eks_tpu.ops import pallas_nll as jax_nll
+from eks_tpu_torch import tracing
 from eks_tpu_torch.convert import params_from_numpy, scalar_table_from_numpy
 from eks_tpu_torch.ops import fused_nll, pkalman
 
@@ -47,13 +48,13 @@ def test_plain_kernel_a_matches_jax_fused_nll(N, T, O, D):
     ll_jax = jax_nll.filter_nll_fused_batched(
         *(jnp.asarray(x) for x in (ys, m0, S0, A, Q, C, r)), interpret=True
     )
-    before = dict(fused_nll.LAUNCHES_BY_SHAPE)
+    before = tracing.snapshot()
     ll_port = fused_nll.filter_nll_fused_batched(
         torch.as_tensor(ys), *params_from_numpy(m0, S0, A, Q, C, r)
     )
     np.testing.assert_allclose(ll_port.numpy(), np.asarray(ll_jax), rtol=RTOL)
     # the plain version on CPU tensors is no launch of the kernel
-    assert fused_nll.LAUNCHES_BY_SHAPE == before
+    assert tracing.since(before) == {}
 
 
 @pytest.mark.parametrize("N,T,O,D", SHAPES)
@@ -154,12 +155,12 @@ def test_kernel_a_wrappers_refuse_cuda_without_a_card():
     ys, m0, S0, A, Q, C, r = _problem(np.random.default_rng(0), 2, 16, 2, 2)
     table = pkalman._pack_scalars(torch.as_tensor(ys[:, 0]), *params_from_numpy(m0, S0, A, Q, C, r))
     y_planes = torch.as_tensor(np.ascontiguousarray(ys.transpose(0, 2, 1)))
-    before = (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES, dict(fused_nll.LAUNCHES_BY_SHAPE))
+    before = tracing.snapshot()
     with pytest.raises((RuntimeError, AssertionError)):
         fused_nll.fused_nll(_FakeCuda(table), _FakeCuda(y_planes))
     with pytest.raises((RuntimeError, AssertionError)):
         fused_nll.fused_nll_paired(_FakeCuda(table), _FakeCuda(table), _FakeCuda(y_planes))
-    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES, fused_nll.LAUNCHES_BY_SHAPE) == before
+    assert tracing.snapshot() == before
     # shapes the CUDA kernel is not built for are refused before any launch:
     # beyond D = 3 or O = 8, and an odd O (observations come in x, y pairs)
     for D, O in ((4, 4), (3, 10), (1, 3), (2, 12)):
@@ -172,7 +173,7 @@ def test_kernel_a_wrappers_refuse_cuda_without_a_card():
         tab = torch.zeros(2, pkalman._scalar_offsets(D, O)[1])
         with pytest.raises((RuntimeError, AssertionError)):
             fused_nll.fused_nll_paired(_FakeCuda(tab), _FakeCuda(tab), _FakeCuda(torch.zeros(2, O, 16)))
-    assert (fused_nll.LAUNCHES, fused_nll.PAIRED_LAUNCHES, fused_nll.LAUNCHES_BY_SHAPE) == before
+    assert tracing.snapshot() == before
 
 
 def test_staged_nll_at_12_observations_matches_jax_staged_pipeline():

@@ -16,6 +16,7 @@ from jax import vmap
 
 from eks_tpu.ops import pallas_nll as jax_nll
 from eks_tpu.ops import pkalman as jax_pk
+from eks_tpu_torch import tracing
 from eks_tpu_torch.convert import (
     params_from_numpy,
     tv_planes_from_numpy,
@@ -174,12 +175,12 @@ def test_kernel_c_wrappers_refuse_cuda_without_a_card():
     ys, m0, S0, A, Q, C, r = _tv_problem(np.random.default_rng(0), 2, 16, 8, 3)
     table = pkalman._pack_scalars_tv(*params_from_numpy(m0, S0, A, Q, C, r)[:5])
     yr = tv_planes_from_numpy(ys, r)
-    before = (fused_nll.TV_LAUNCHES, fused_nll.TV_PAIRED_LAUNCHES)
+    before = (tracing.launches("C", False), tracing.launches("C", True))
     with pytest.raises((RuntimeError, AssertionError)):
         fused_nll.fused_nll_tv(_FakeCuda(table), _FakeCuda(yr))
     with pytest.raises((RuntimeError, AssertionError)):
         fused_nll.fused_nll_tv_paired(_FakeCuda(table), _FakeCuda(table), _FakeCuda(yr))
-    assert (fused_nll.TV_LAUNCHES, fused_nll.TV_PAIRED_LAUNCHES) == before
+    assert (tracing.launches("C", False), tracing.launches("C", True)) == before
     with pytest.raises(RuntimeError):
         fused_nll.fused_nll_tv(table.to("meta"), yr.to("meta"))  # nor any other device
     # shapes the CUDA kernel is not built for are refused before any launch

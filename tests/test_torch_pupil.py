@@ -111,7 +111,7 @@ def test_fit_auto_s_matches_jax(session_array):
         session_array, NAMES, device="cpu", timings=timings, **kw
     )
     assert timings["adam_iters"] == 8
-    assert set(timings) == {"prep", "optimizer", "final_pass", "package", "adam_iters"}
+    assert set(timings) == {"prep", "optimizer", "final_pass", "package", "adam_iters", "spans", "counts"}
     assert np.abs(np.asarray(s_p) - [0.98902, 0.97904]).max() > 1e-5  # the optimizer moved
     np.testing.assert_allclose(s_p, s_j, rtol=0, atol=5e-4)
     assert _columns(df_p) == _columns(df_j)
