@@ -21,12 +21,15 @@ Semantics kept from the JAX package:
 The loss runs through the fused NLL (kernel A, paired form) on the card, or
 at more than eight observations through the staged plane NLL and the paired
 lane-batched scan; its derivative is forward-mode, from the scalar table's
-tangent. With a nonlinear emission ``h_fn`` (the calibrated multi-camera
-family) the loss is the iterated-EKF plane NLL, relinearized
-``_EKF_OPT_SWEEPS_WARM + 1`` times per evaluation from a given linearization
-trajectory ``x_init`` (``_EKF_OPT_SWEEPS_COLD + 1`` from the broadcast
-prior), each sweep one paired lane-batched scan; the final pass is the
-iterated parallel EKF smoother, started from the broadcast prior.
+tangent. At kernel A's shapes the table and its tangent are one launch of
+the table kernel on the card; beyond them, forward mode through
+``pkalman._pack_scalars`` (``pkalman.scalar_table_paired`` chooses). With a
+nonlinear emission ``h_fn`` (the calibrated multi-camera family) the loss is
+the iterated-EKF plane NLL, relinearized ``_EKF_OPT_SWEEPS_WARM + 1`` times
+per evaluation from a given linearization trajectory ``x_init``
+(``_EKF_OPT_SWEEPS_COLD + 1`` from the broadcast prior), each sweep one
+paired lane-batched scan; the final pass is the iterated parallel EKF
+smoother, started from the broadcast prior.
 
 With ``devices`` > 1 the smoothing step is sharded over a mesh of that many
 devices (``parallel/mesh.py``): the keypoint axis (``partition="keypoint"``,
@@ -48,11 +51,12 @@ from eks_tpu_torch.marker_array import MarkerArray
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
 from eks_tpu_torch.ops.linalg import jvp
 from eks_tpu_torch.ops.pkalman import (
-    _pack_scalars,
     ekf_nll_paired_batched,
     eks_parallel,
     filter_nll_paired_batched,
     kalman_smoother_parallel,
+    paired_scaled_q,
+    scalar_table_paired,
     _staged_nll_paired,
 )
 from eks_tpu_torch.utils import crop_frames
@@ -353,9 +357,11 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
                            timings=None, h_fn=None, xB=None, time_mesh=None):
     """Tune one log s per block: every iteration evaluates all
     n_blocks * B_max member filters at once and sums the masked member NLLs
-    per block. On the card that is one paired kernel A launch up to D = 3
-    and O = 8 observations, and beyond (five cameras or more) the staged
-    plane NLL with one paired lane-batched scan launch. With a nonlinear
+    per block. On the card that is one launch of the table kernel (the
+    scalar table and its tangent from log s) and one paired kernel A launch
+    at kernel A's (D, O) instances, and beyond (five cameras or more) the
+    forward-mode table and the staged plane NLL with one paired lane-batched
+    scan launch. With a nonlinear
     emission ``h_fn`` (``CB`` is not read) it is the iterated-EKF NLL
     (``pkalman.ekf_nll_paired_batched``: one paired lane-batched scan per
     sweep), relinearized from ``xB`` (n_blocks, B_max, T, D), or from the
@@ -377,17 +383,14 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
     def flat(x):
         return x.reshape((n_flat,) + tuple(x.shape[2:]))
 
-    yF, rF, m0F, S0F, AF = map(flat, (yB, rB, m0B, S0B, AB))
+    yF, rF, m0F, S0F, AF, QF = map(flat, (yB, rB, m0B, S0B, AB, QB))
     CF = None if h_fn is not None else flat(CB)
     maskF = flat(maskB)
 
-    def scaled_q(s_log):
-        s = torch.exp(torch.clamp(s_log, s_lo, s_hi))
-        return (s[:, None, None, None] * QB).reshape(n_flat, D, D)
-
-    # the members' (ll, d ll / d log s) from s Q and its tangent
+    # the members' (ll, d ll / d log s) at log s
     if sequential:
-        def member_lls(sQ, dsQ):
+        def member_lls(s_log):
+            sQ, dsQ = paired_scaled_q(s_log, QF, b_max, s_lo, s_hi)
             return jvp(
                 lambda q: kalman_filter(yF, m0F, S0F, AF, q, CF, rF, h_fn=h_fn).log_likelihood, (sQ,), (dsQ,))
     elif h_fn is not None:
@@ -396,21 +399,22 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
         else:
             xF, n_sweeps = flat(xB), _EKF_OPT_SWEEPS_WARM + 1
 
-        def member_lls(sQ, dsQ):
+        def member_lls(s_log):
+            sQ, dsQ = paired_scaled_q(s_log, QF, b_max, s_lo, s_hi)
             return ekf_nll_paired_batched(yF, m0F, S0F, AF, sQ, dsQ, h_fn, rF, xF, n_sweeps=n_sweeps,
                                           shards=shards)
     else:
         y_planes = yF.transpose(1, 2).contiguous()
+        y0F = yF[:, 0].contiguous()
 
-        def member_lls(sQ, dsQ):
-            table, dtable = jvp(lambda q: _pack_scalars(yF[:, 0], m0F, S0F, AF, q, CF, rF), (sQ,), (dsQ,))
+        def member_lls(s_log):
+            table, dtable = scalar_table_paired(s_log, y0F, m0F, S0F, AF, QF, CF, rF, b_max, s_lo, s_hi)
             if shards is not None:
                 return _staged_nll_paired(table, dtable, y_planes, shards)
             return filter_nll_paired_batched(table.contiguous(), dtable.contiguous(), y_planes)
 
     def loss_and_grad(s_log):
-        sQ, dsQ = jvp(scaled_q, (s_log,), (torch.ones_like(s_log),))
-        return _block_nll_sums(*member_lls(sQ, dsQ), maskF, n_blocks, b_max)
+        return _block_nll_sums(*member_lls(s_log), maskF, n_blocks, b_max)
 
     return _joint_masked_adam(loss_and_grad, s_log_init, lr, tol, safety_cap, timings)
 

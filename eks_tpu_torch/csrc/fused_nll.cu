@@ -51,8 +51,24 @@
 // play no part: the products are D x D and O x D with D <= 3 inside a chain
 // of dependent steps, and wgmma's smallest tile is 64 rows.
 //
-// FUSED_NLL_SHAPES is the one list of instances: the C dispatch and
-// fused_nll_shapes() both expand it.
+// FUSED_NLL_SHAPES is the one list of instances: the C dispatch,
+// fused_nll_shapes() and the table kernel's dispatch expand it.
+//
+// The table kernel (nll_table_paired_kernel, the same instances): the
+// s-optimizer's paired scalar table (table, dtable), d(table)/d(log s), for
+// every lane straight from its block's log s. Replaces no Pallas kernel: the
+// JAX package builds the table in eks_tpu/ops/pallas_nll.py::_pack_scalars
+// under jax.jvp inside its jitted loss, which XLA fuses; eagerly, forward mode
+// of ops/pkalman.py::_pack_scalars is some 230 host-dispatched operations an
+// Adam iteration, this is one launch. It follows _pack_scalars step for step
+// on Dual numbers: s Q and its tangent (torch's forward-mode clamp: the
+// tangent passes where s_lo <= log s <= s_hi), S_c = C sQ Cᵀ + diag(r)
+// symmetrized with 1e-9 on the diagonal, the unrolled Cholesky solve of
+// ops/linalg.py::psd_solve, then K_c, I - K_c C, M_c, the element blocks;
+// b_first and C_first, which depend on S0 alone, in float with zero
+// tangents, and the verbatim blocks. Bound: a few hundred flops a lane, so
+// the bytes, 2 N n_scal floats written (7.4 KB at 20 lanes, (2, 2)): well
+// under a microsecond; one thread a lane, since the point is one launch.
 #include "filter_algebra.cuh"
 
 // (D, O) instances of kernel A
@@ -304,6 +320,218 @@ int launch(const float* y, const float* table, const float* dtable, float* out, 
   return (int)cudaErrorInvalidValue;
 }
 
+// the s-optimizer's paired table: psd_solve (ops/linalg.py) of a (symmetric
+// positive definite) O x O matrix against an O x D right-hand side, in its
+// order: symmetrize, 1e-9 on the diagonal, the unrolled Cholesky factor row by
+// row, then each column's forward and back substitution
+template <typename S, int O, int D>
+__device__ __forceinline__ void psd_solve(const S (&a)[O][O], const S (&b)[O][D], S (&x)[O][D]) {
+  using Sc = eks::Scalar<S>;
+  S L[O][O];
+#pragma unroll
+  for (int i = 0; i < O; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      S s = (a[i][j] + a[j][i]) * 0.5f;
+      if (i == j) s = s + Sc::c(1e-9f);
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
+      L[i][j] = i == j ? eks::sqrt_(s) : s / L[j][j];
+    }
+#pragma unroll
+  for (int m = 0; m < D; ++m) {
+    S y[O];
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+      S s = b[i][m];
+#pragma unroll
+      for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
+      y[i] = s / L[i][i];
+    }
+#pragma unroll
+    for (int i = O - 1; i >= 0; --i) {
+      S s = y[i];
+#pragma unroll
+      for (int k = i + 1; k < O; ++k) s = s - L[k][i] * x[k][m];
+      x[i][m] = s / L[i][i];
+    }
+  }
+}
+
+// a (D, O) lane's paired table, ops/pkalman.py::_pack_scalars on Dual numbers
+// with Q = s Q_base carrying the tangent along log s; one thread a lane
+template <int D, int O>
+__global__ void __launch_bounds__(NT) nll_table_paired_kernel(
+    const float* __restrict__ s_log, const float* __restrict__ y0, const float* __restrict__ m0,
+    const float* __restrict__ S0, const float* __restrict__ A, const float* __restrict__ Qb,
+    const float* __restrict__ C, const float* __restrict__ r, float* __restrict__ table,
+    float* __restrict__ dtable, int N, int b_max, float s_lo, float s_hi) {
+  using Lt = Layout<D, O>;
+  using eks::Dual;
+  const int lane = blockIdx.x * NT + threadIdx.x;
+  if (lane >= N) return;
+  // s = exp(clamp(log s)); a NaN passes the clamp, as torch.clamp's, and gets
+  // a zero tangent, as its forward mode gives
+  const float x = s_log[lane / b_max];
+  const float s = expf(x < s_lo ? s_lo : (x > s_hi ? s_hi : x));
+  const bool inside = x >= s_lo && x <= s_hi;
+  float Af[D][D], Cf[O][D], rf[O], m0f[D], S0f[D][D], yf[O];
+  Dual Q[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    m0f[i] = m0[lane * D + i];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      Af[i][j] = A[(lane * D + i) * D + j];
+      S0f[i][j] = S0[(lane * D + i) * D + j];
+      const float q = s * Qb[(lane * D + i) * D + j];
+      Q[i][j] = {q, inside ? q : 0.f};
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+    rf[o] = r[lane * O + o];
+    yf[o] = y0[lane * O + o];
+#pragma unroll
+    for (int k = 0; k < D; ++k) Cf[o][k] = C[(lane * O + o) * D + k];
+  }
+  // C sQ, C A, S_c = (C sQ) Cᵀ + diag(r)
+  Dual CQ[O][D], S_c[O][O];
+  float CA[O][D];
+#pragma unroll
+  for (int o = 0; o < O; ++o)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      Dual q = Q[0][j] * Cf[o][0];
+      float a = Cf[o][0] * Af[0][j];
+#pragma unroll
+      for (int k = 1; k < D; ++k) {
+        q = q + Q[k][j] * Cf[o][k];
+        a = a + Cf[o][k] * Af[k][j];
+      }
+      CQ[o][j] = q;
+      CA[o][j] = a;
+    }
+#pragma unroll
+  for (int i = 0; i < O; ++i)
+#pragma unroll
+    for (int j = 0; j < O; ++j) {
+      Dual v = CQ[i][0] * Cf[j][0];
+#pragma unroll
+      for (int k = 1; k < D; ++k) v = v + CQ[i][k] * Cf[j][k];
+      S_c[i][j] = i == j ? v + rf[i] : v;
+    }
+  // X = S_c⁻¹ C sQ (K_c = Xᵀ) and M_c = S_c⁻¹ C A
+  Dual CAd[O][D], X[O][D], M[O][D];
+#pragma unroll
+  for (int o = 0; o < O; ++o)
+#pragma unroll
+    for (int j = 0; j < D; ++j) CAd[o][j] = {CA[o][j], 0.f};
+  psd_solve<Dual, O, D>(S_c, CQ, X);
+  psd_solve<Dual, O, D>(S_c, CAd, M);
+  // I - K_c C, then A_el = (I - K_c C) A, C_el = (I - K_c C) sQ, J_el = (C A)ᵀ M_c
+  Dual IKC[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      Dual v = X[0][i] * Cf[0][j];
+#pragma unroll
+      for (int o = 1; o < O; ++o) v = v + X[o][i] * Cf[o][j];
+      IKC[i][j] = Dual{i == j ? 1.f : 0.f, 0.f} - v;
+    }
+  float* tv = table + (size_t)lane * Lt::N_SCAL;
+  float* td = dtable + (size_t)lane * Lt::N_SCAL;
+  auto put = [&](int k, Dual v) {
+    tv[k] = v.v;
+    td[k] = v.d;
+  };
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      Dual a = IKC[i][0] * Af[0][j];
+      Dual c = IKC[i][0] * Q[0][j];
+      Dual J = M[0][j] * CA[0][i];
+#pragma unroll
+      for (int k = 1; k < D; ++k) {
+        a = a + IKC[i][k] * Af[k][j];
+        c = c + IKC[i][k] * Q[k][j];
+      }
+#pragma unroll
+      for (int o = 1; o < O; ++o) J = J + M[o][j] * CA[o][i];
+      put(Lt::A_EL + i * D + j, a);
+      put(Lt::C_EL + i * D + j, c);
+      put(Lt::J_EL + i * D + j, J);
+      put(Lt::Q + i * D + j, Q[i][j]);
+    }
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int o = 0; o < O; ++o) {
+      put(Lt::K_C + d * O + o, X[o][d]);
+      put(Lt::M_CT + d * O + o, M[o][d]);
+    }
+  // the t = 0 posterior, from the prior alone: S_0 = (C S0) Cᵀ + diag(r),
+  // K_0 = (S_0⁻¹ C S0)ᵀ, b_first = m0 + K_0 (y_0 - C m0), C_first = (I - K_0 C) S0
+  float CS0[O][D], S_0[O][O], X0[O][D], innov[O];
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+    float m = Cf[o][0] * m0f[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) m = m + Cf[o][k] * m0f[k];
+    innov[o] = yf[o] - m;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      float v = Cf[o][0] * S0f[0][j];
+#pragma unroll
+      for (int k = 1; k < D; ++k) v = v + Cf[o][k] * S0f[k][j];
+      CS0[o][j] = v;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < O; ++i)
+#pragma unroll
+    for (int j = 0; j < O; ++j) {
+      float v = CS0[i][0] * Cf[j][0];
+#pragma unroll
+      for (int k = 1; k < D; ++k) v = v + CS0[i][k] * Cf[j][k];
+      S_0[i][j] = i == j ? v + rf[i] : v;
+    }
+  psd_solve<float, O, D>(S_0, CS0, X0);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float b = X0[0][i] * innov[0];
+#pragma unroll
+    for (int o = 1; o < O; ++o) b = b + X0[o][i] * innov[o];
+    put(Lt::B_FIRST + i, {m0f[i] + b, 0.f});
+    float IK[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      float v = X0[0][i] * Cf[0][j];
+#pragma unroll
+      for (int o = 1; o < O; ++o) v = v + X0[o][i] * Cf[o][j];
+      IK[j] = (i == j ? 1.f : 0.f) - v;
+    }
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      float v = IK[0] * S0f[0][j];
+#pragma unroll
+      for (int k = 1; k < D; ++k) v = v + IK[k] * S0f[k][j];
+      put(Lt::C_FIRST + i * D + j, {v, 0.f});
+      put(Lt::A + i * D + j, {Af[i][j], 0.f});
+      put(Lt::S0 + i * D + j, {S0f[i][j], 0.f});
+    }
+    put(Lt::M0 + i, {m0f[i], 0.f});
+  }
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+    put(Lt::R + o, {rf[o], 0.f});
+#pragma unroll
+    for (int k = 0; k < D; ++k) put(Lt::COBS + o * D + k, {Cf[o][k], 0.f});
+  }
+}
+
 }  // namespace
 
 // The threads per block and the most steps a segment may hold: what the
@@ -343,4 +571,28 @@ extern "C" int fused_nll_paired_f32(const float* y, const float* table, const fl
                                     float* totals, float* partials, int N, int T, int D, int O, int G,
                                     void* stream) {
   return launch<eks::Dual>(y, table, dtable, out, totals, partials, N, T, D, O, G, stream);
+}
+
+// The s-optimizer's paired scalar table: for each of N = n_blocks * b_max
+// lanes, table and dtable (N, n_scal) in ops/pkalman.py::_scalar_offsets'
+// layout, at Q = exp(clamp(s_log[lane / b_max], s_lo, s_hi)) Q_base and along
+// log s. s_log (n_blocks,); y0 and r (N, O); m0 (N, D); S0, A and Q_base
+// (N, D, D); C (N, O, D). float32, contiguous. Returns the CUDA error of the
+// launch (0 on success); a (D, O) the library does not build, or a b_max
+// that does not divide N, returns cudaErrorInvalidValue without launching.
+extern "C" int nll_table_paired_f32(const float* s_log, const float* y0, const float* m0, const float* S0,
+                                    const float* A, const float* Q_base, const float* C, const float* r,
+                                    float* table, float* dtable, int N, int b_max, int D, int O, float s_lo,
+                                    float s_hi, void* stream) {
+  if (N <= 0 || b_max <= 0 || N % b_max) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define NLL_TABLE_TRY(d, o)                                                                             \
+  if (D == d && O == o) {                                                                               \
+    nll_table_paired_kernel<d, o><<<(N + NT - 1) / NT, NT, 0, s>>>(s_log, y0, m0, S0, A, Q_base, C, r, \
+                                                                   table, dtable, N, b_max, s_lo, s_hi); \
+    return (int)cudaGetLastError();                                                                     \
+  }
+  FUSED_NLL_SHAPES(NLL_TABLE_TRY)
+#undef NLL_TABLE_TRY
+  return (int)cudaErrorInvalidValue;
 }

@@ -25,6 +25,14 @@ the staged plane NLL of the JAX package. Its paired form is
 ``torch.func.jvp`` of the plain version. The wrappers take the plain version
 only for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
 
+The table kernel (``table_paired``, in ``csrc/fused_nll.cu`` at kernel A's
+instances): the s-optimizer's paired table, (table, d table / d log s), for
+every lane straight from its block's log s, in one launch. Its plain
+version is forward mode twice, ``pkalman.paired_scaled_q`` and then
+``pkalman._pack_scalars``, what the optimizer ran before the kernel and
+still runs at shapes kernel A does not take (``pkalman.scalar_table_paired``
+chooses).
+
 Kernel C: time-varying diagonal R (the pupil optimizer's loss). Replaces
 ``eks_tpu/ops/pallas_nll.py`` ``_make_fused_kernel_tv`` (plain and paired),
 reached there through ``filter_nll_fused_tv_batched``. Its T-sized input is
@@ -53,14 +61,17 @@ import torch
 from eks_tpu_torch import tracing
 from eks_tpu_torch.ops import cuda_build
 from eks_tpu_torch.ops.fused_filter import check_scratch, filter_prefix_plain, segment_partition, sm_count
+from eks_tpu_torch.ops.linalg import jvp
 from eks_tpu_torch.ops.pkalman import (
     _jvp_or_call,
     _pack_scalars,
     _pack_scalars_tv,
+    _scalar_offsets,
     _scalar_offsets_tv,
     _staged_nll,
     _table_dims,
     _table_nll_tv,
+    paired_scaled_q,
 )
 
 __all__ = [
@@ -72,6 +83,8 @@ __all__ = [
     "fused_nll_tv",
     "fused_nll_tv_paired",
     "nll_plan",
+    "table_paired",
+    "table_paired_plain",
     "tv_plan",
 ]
 
@@ -96,6 +109,13 @@ def _fused_nll_paired_plain(table, dtable, y):
     return _jvp_or_call(_fused_nll_plain, (table, y.contiguous()), (dtable, None))
 
 
+def table_paired_plain(s_log, y0, m0, S0, A, Q, C, r, b_max: int, s_lo: float, s_hi: float):
+    """Plain version of the table kernel: ``paired_scaled_q``, then
+    ``pkalman._pack_scalars`` in forward mode along its tangent."""
+    sQ, dsQ = paired_scaled_q(s_log, Q, b_max, s_lo, s_hi)
+    return jvp(lambda q: _pack_scalars(y0, m0, S0, A, q, C, r), (sQ,), (dsQ,))
+
+
 def _fused_nll_tv_plain(table: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of kernel C: (N,) log-likelihoods."""
     return _table_nll_tv(table, yr, filter_prefix_plain)
@@ -115,6 +135,15 @@ def _lib(paired: bool, tv: bool):
     if fn.argtypes is None:
         # y (or yr), table[, dtable], out, totals, partials; N, T, D, O, G
         fn.argtypes = [ctypes.c_void_p] * (6 if paired else 5) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _table_lib():
+    fn = cuda_build.load("fused_nll").nll_table_paired_f32
+    if fn.argtypes is None:
+        # s_log, y0, m0, S0, A, Q_base, C, r, table, dtable; N, b_max, D, O; s_lo, s_hi; stream
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -246,6 +275,42 @@ def fused_nll_paired(table: torch.Tensor, dtable: torch.Tensor, y: torch.Tensor)
         raise RuntimeError(f"no fused NLL for device {y.device}")
     out = _launch(table, dtable, y)
     tracing.count(("A", _table_dims(table.shape[1], y.shape[1]), y.shape[1], True))
+    return out[0], out[1]
+
+
+def table_paired(s_log, y0, m0, S0, A, Q, C, r, b_max: int, s_lo: float, s_hi: float):
+    """(table, dtable) (N, n_scal): the scalar tables of N = n_blocks * b_max
+    lanes at process noise s Q, s = exp(clamp(log s, s_lo, s_hi)) of the
+    lane's block, and their derivative along log s. s_log (n_blocks,); y0
+    and r (N, O); m0 (N, D); S0, A and Q (N, D, D); C (N, O, D). One launch
+    on the card at kernel A's (D, O) instances; the plain version for CPU
+    tensors."""
+    if s_log.device.type == "cpu":
+        return table_paired_plain(s_log, y0, m0, S0, A, Q, C, r, b_max, s_lo, s_hi)
+    if s_log.device.type != "cuda":
+        raise RuntimeError(f"no table kernel for device {s_log.device}")
+    N, O, D = C.shape
+    if (D, O) not in _CUDA_SHAPES:
+        raise NotImplementedError(f"the table kernel is built for (D, O) in {_CUDA_SHAPES}, got {(D, O)}")
+    if b_max < 1 or s_log.ndim != 1 or N != s_log.shape[0] * b_max:
+        raise ValueError(f"table_paired: {N} lanes are not {tuple(s_log.shape)} blocks of {b_max}")
+    operands = {"s_log": (s_log, (N // b_max,)), "y0": (y0, (N, O)), "m0": (m0, (N, D)),
+                "S0": (S0, (N, D, D)), "A": (A, (N, D, D)), "Q": (Q, (N, D, D)), "C": (C, (N, O, D)),
+                "r": (r, (N, O))}
+    for name, (x, shape) in operands.items():
+        _check(name, x, shape)
+        if x.device != s_log.device:
+            raise ValueError("table_paired: every operand must be on one device")
+    out = torch.empty((2, N, _scalar_offsets(D, O)[1]), dtype=torch.float32, device=s_log.device)
+    if N == 0:
+        return out[0], out[1]
+    with torch.cuda.device(s_log.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _table_lib()(*(x.data_ptr() for x, _ in operands.values()), out[0].data_ptr(), out[1].data_ptr(),
+                          N, b_max, D, O, s_lo, s_hi, stream)
+    if rc != 0:
+        raise RuntimeError(f"table kernel launch failed with CUDA error {rc}")
+    tracing.count(("table", D, O))
     return out[0], out[1]
 
 

@@ -53,6 +53,8 @@ __all__ = [
     "filter_nll_parallel_planes_tv",
     "kalman_filter_parallel",
     "kalman_smoother_parallel",
+    "paired_scaled_q",
+    "scalar_table_paired",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -334,6 +336,20 @@ def _pack_scalars(y0, m0, S0, A, Q, C, r) -> torch.Tensor:
             A, Q, C, r, m0, S0,
         )
     ], dim=-1)
+
+
+def paired_scaled_q(s_log, Q, b_max: int, s_lo: float, s_hi: float):
+    """(s Q, d(s Q)/d log s) of N = n_blocks * b_max lanes, s =
+    exp(clamp(log s, s_lo, s_hi)) of the lane's block: s_log (n_blocks,),
+    Q (N, D, D). Forward mode; the tangent is zero outside the bounds."""
+    N, D = Q.shape[0], Q.shape[-1]
+    QB = Q.reshape(s_log.shape[0], b_max, D, D)
+
+    def scaled_q(sl):
+        s = torch.exp(torch.clamp(sl, s_lo, s_hi))
+        return (s[:, None, None, None] * QB).reshape(N, D, D)
+
+    return jvp(scaled_q, (s_log,), (torch.ones_like(s_log),))
 
 
 def _unpack_scalars(table: torch.Tensor, D: int, O: int):
@@ -763,6 +779,21 @@ def filter_nll_paired_batched(table: torch.Tensor, dtable: torch.Tensor, y: torc
     if _table_dims(table.shape[1], O) <= _FUSED_MAX_D and O <= _FUSED_MAX_O:
         return fused_nll_paired(table, dtable, y)
     return _staged_nll_paired(table, dtable, y)
+
+
+def scalar_table_paired(s_log, y0, m0, S0, A, Q, C, r, b_max: int, s_lo: float, s_hi: float):
+    """(table, dtable) (N, n_scal): the s-optimizer's scalar tables of N =
+    n_blocks * b_max lanes at s Q, s = exp(clamp(log s, s_lo, s_hi)) of the
+    lane's block, and their derivative along log s. The table kernel
+    (``fused_nll.table_paired``) where kernel A takes (D, O), forward mode
+    of ``_pack_scalars`` along ``paired_scaled_q`` beyond
+    (``fused_nll.table_paired_plain``). The only place that chooses."""
+    from eks_tpu_torch.ops import fused_nll
+
+    O, D = C.shape[-2:]
+    if D <= _FUSED_MAX_D and O <= _FUSED_MAX_O:
+        return fused_nll.table_paired(s_log, y0, m0, S0, A, Q, C, r, b_max, s_lo, s_hi)
+    return fused_nll.table_paired_plain(s_log, y0, m0, S0, A, Q, C, r, b_max, s_lo, s_hi)
 
 
 def _table_nll_tv(table: torch.Tensor, yr: torch.Tensor, prefix) -> torch.Tensor:

@@ -22,9 +22,11 @@ Nothing else switches spans on: without a dict a span site costs one
 
 Launch counters. ``LAUNCHES`` counts every kernel launch of the process,
 always, by kernel and instance: ``("A", D, O, paired)`` (kernel A),
-``("C", paired)`` (kernel C), ``("scan", kind, paired, D)`` (kernels B and
-D), ``("scan_carried", kind, paired, D)`` (a carried downsweep, also
-counted as a scan), and ``("scan_plain_route", kind)`` and
+``("table", D, O)`` (the s-optimizer's table kernel, one launch an Adam
+iteration at kernel A's shapes), ``("C", paired)`` (kernel C),
+``("scan", kind, paired, D)`` (kernels B and D), ``("scan_carried", kind,
+paired, D)`` (a carried downsweep, also counted as a scan), and
+``("scan_plain_route", kind)`` and
 ``("scan_carried_plain_route", kind)`` (scans and carry combines of CUDA
 tensors beyond D = 3, which the plain version runs). ``launches`` sums it
 over a pattern.

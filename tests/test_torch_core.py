@@ -13,7 +13,7 @@ from eks_tpu.ops import kalman as jax_kalman
 from eks_tpu.ops import linalg as jax_linalg
 from eks_tpu_torch import core
 from eks_tpu_torch.convert import params_from_numpy
-from eks_tpu_torch.ops import kalman, linalg
+from eks_tpu_torch.ops import fused_nll, kalman, linalg
 
 
 def _spd(rng, *batch, d):
@@ -190,7 +190,7 @@ def test_joint_masked_adam_matches_jax_optimizer_loop(monkeypatch):
 
         return torch.func.jvp(ll, (table,), (dtable,))
 
-    monkeypatch.setattr(core, "_pack_scalars", fake_pack)
+    monkeypatch.setattr(fused_nll, "_pack_scalars", fake_pack)
     monkeypatch.setattr(core, "filter_nll_paired_batched", fake_paired)
     t = torch.as_tensor
     sp, lp, ip = core._optimize_blocks_joint(
@@ -218,7 +218,7 @@ def test_non_finite_member_nll_counts_as_penalty(monkeypatch):
         bad[0] = True  # block 0's only member
         return torch.where(bad, float("nan"), ll), dll
 
-    monkeypatch.setattr(core, "_pack_scalars", fake_pack)
+    monkeypatch.setattr(fused_nll, "_pack_scalars", fake_pack)
     monkeypatch.setattr(core, "filter_nll_paired_batched", fake_paired)
     t = torch.as_tensor
     s, loss, iters = core._optimize_blocks_joint(

@@ -11,7 +11,10 @@ beyond D = 3 take the plain version on the card, counted, as the JAX
 package takes XLA's scan there; and the carried scan of the time-sharded
 scans (every instance of its two phases against its plain version, the
 sharded scans against the unsharded kernel scan, one chunk against the
-uncarried scan bit for bit, a loss evaluated by worker threads at once).
+uncarried scan bit for bit, a loss evaluated by worker threads at once);
+and the s-optimizer's table kernel (every instance against its plain
+version, the optimizer on the card against its CPU route, one launch an
+Adam iteration, and no ``torch._dynamo`` on a tuned fit's path).
 
 The kernels have no CPU mode, so every test here needs a CUDA card and
 ``nvcc``; on a machine without them each one skips. On the card (where JAX is
@@ -20,14 +23,18 @@ not installed, hence no conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from eks_tpu_torch import tracing
+from eks_tpu_torch import core, tracing
 from eks_tpu_torch.ops import fused_filter, fused_nll, pkalman
 
 pytestmark = pytest.mark.cuda
+
+REPO = Path(__file__).resolve().parent.parent
 
 # the kernels combine the same elements as the plain versions in another
 # association order (segments, per-thread chunks and block sweeps against a
@@ -453,6 +460,21 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fused_filter._scan_cuda(planes, "filter", False, scratch=torch.empty(2, G + 1, 16, device=dev))
     assert tracing.launches("scan") == before
+    ops = _table_lanes(dev, 2, 1, 2, 2, [0.0, 0.5])
+    before = tracing.launches("table")
+    with pytest.raises(TypeError):
+        fused_nll.table_paired(*[x.double() for x in ops], 1, -8.0, 8.0)
+    with pytest.raises(ValueError):  # an operand on the CPU
+        fused_nll.table_paired(*ops[:3], ops[3].cpu(), *ops[4:], 1, -8.0, 8.0)
+    with pytest.raises(ValueError):  # y0 of another shape
+        fused_nll.table_paired(ops[0], ops[1][:, :1].contiguous(), *ops[2:], 1, -8.0, 8.0)
+    with pytest.raises(ValueError):  # a transposed S0
+        fused_nll.table_paired(*ops[:3], ops[3].transpose(1, 2), *ops[4:], 1, -8.0, 8.0)
+    with pytest.raises(ValueError):  # two lanes are not blocks of 3
+        fused_nll.table_paired(*ops, 3, -8.0, 8.0)
+    with pytest.raises(NotImplementedError):  # (D, O) = (3, 12) is beyond kernel A's instances
+        fused_nll.table_paired(*_table_lanes(dev, 2, 1, 12, 3, [0.0, 0.5]), 1, -8.0, 8.0)
+    assert tracing.launches("table") == before
     table, dtable, yr = _nll_tv_operands(dev, 2, 16)
     G = fused_nll.tv_plan(2, 16, dev)["G"]
     with pytest.raises(ValueError):
@@ -636,3 +658,191 @@ def test_time_sharded_loss_in_a_worker_thread_gives_the_main_threads_bits(dev):
     torch.cuda.synchronize()
     assert len(seen) == 2 and all(torch.equal(s, main) for s in seen)
     assert tracing.launches("scan", "filter", True, 2) == before + 8
+
+
+# --------------------------------------------------------------------------- #
+# the s-optimizer's table kernel (fused_nll.table_paired)
+# --------------------------------------------------------------------------- #
+# the table kernel against its plain version, entry by entry relative to
+# 1 + |plain|, table and tangent: kernel A's limit, on operands whose solves
+# are well conditioned (the bounds below sit at s = e^-1 and e^1.5)
+RTOL_TABLE = 1e-6
+TABLE_BOUNDS = (-1.0, 1.5)
+# at the optimizer's own bounds (log s = +-8) the table is ill conditioned:
+# with s Q some 1e4 times R, I - K_c C is a difference of nearly equal
+# numbers, and any float32 evaluation loses digits. There the kernel is held
+# to the float64 plain version, per entry relative to 1 + |float64|: on an
+# H100 over the twelve instances the kernel read up to 3.2e-4 from it and
+# the plain float32 version up to 3.0e-4, neither a fixed multiple of the
+# other (at (1, 4): 2.3e-4 and 6.0e-5); the limit sits six times above the
+# largest, and a wrong entry or tangent reads about 1. Inside the bounds the
+# kernel read up to 6.3e-7 from the plain version at 80 lanes
+RTOL_TABLE_BOUNDS = 2e-3
+
+
+def _table_lanes(dev, n_blocks, b_max, O, D, s_log):
+    """The table's operands for n_blocks blocks of b_max lanes on ``dev``
+    (``_lanes``' well-conditioned ones), with the optimizer's padding: in
+    every other block the lanes past the first repeat it."""
+    ys, m0, S0, A, Q, C, r, _ = _lanes(n_blocks * b_max, 1, O, D, seed=n_blocks + O)
+    ops = [torch.as_tensor(x) for x in (ys[:, 0], m0, S0, A, Q, C, r)]
+    for blk in range(0, n_blocks, 2):
+        for x in ops:
+            x[blk * b_max + 1:(blk + 1) * b_max] = x[blk * b_max]
+    return [torch.as_tensor(np.asarray(s_log, np.float32), device=dev)] + [x.to(dev) for x in ops]
+
+
+def _table_gap(got, want) -> float:
+    return float(((got.double() - want.double()).abs() / (1.0 + want.double().abs())).max())
+
+
+TABLE_LANES = [(1, 1), (20, 1), (80, 1), (1, 3), (7, 3), (27, 3)]
+
+
+@pytest.mark.parametrize("D,O", fused_nll._CUDA_SHAPES)
+@pytest.mark.parametrize("n_blocks,b_max", TABLE_LANES)
+def test_table_kernel_matches_plain(dev, D, O, n_blocks, b_max):
+    """Every instance, at 1, 20 and 80 blocks of one lane and at blocks of
+    three with padding lanes, log s below, at and above each bound: the
+    kernel's table and tangent against its plain version; the tangent is
+    exactly zero outside the bounds; one launch counted."""
+    lo, hi = TABLE_BOUNDS
+    cycle = [lo - 0.5, lo, -0.3, 0.4, hi, hi + 0.5, float(np.nextafter(np.float32(lo), np.float32(-2.0)))]
+    s_log = [cycle[i % len(cycle)] for i in range(n_blocks)]
+    ops = _table_lanes(dev, n_blocks, b_max, O, D, s_log)
+    before = tracing.launches("table", D, O)
+    table, dtable = fused_nll.table_paired(*ops, b_max, lo, hi)
+    torch.cuda.synchronize()
+    assert tracing.launches("table", D, O) == before + 1
+    want, dwant = fused_nll.table_paired_plain(*ops, b_max, lo, hi)
+    assert table.shape == dtable.shape == want.shape and table.is_contiguous() and dtable.is_contiguous()
+    assert _table_gap(table, want) <= RTOL_TABLE and _table_gap(dtable, dwant) <= RTOL_TABLE
+    outside = torch.as_tensor([not lo <= float(np.float32(x)) <= hi for x in s_log], device=dev)
+    outside = outside.repeat_interleave(b_max)
+    assert torch.equal(dtable[outside], torch.zeros_like(dtable[outside]))
+    assert bool((dtable[~outside] != 0).any(dim=1).all())
+
+
+@pytest.mark.parametrize("D,O", fused_nll._CUDA_SHAPES)
+def test_table_kernel_at_the_optimizers_bounds_keeps_float32_accuracy(dev, D, O):
+    """At log s = -8 and 8 and beyond (the s-optimizer's bounds), where the
+    solves lose digits, the kernel's table and tangent are within
+    RTOL_TABLE_BOUNDS of the float64 plain version (the float32 plain
+    version's own gaps in the message)."""
+    s_log = [-9.0, -8.0, -7.5, 7.5, 8.0, 9.0, 0.0, 3.0]
+    ops = _table_lanes(dev, len(s_log), 1, O, D, s_log)
+    table, dtable = fused_nll.table_paired(*ops, 1, -8.0, 8.0)
+    want, dwant = fused_nll.table_paired_plain(*ops, 1, -8.0, 8.0)
+    w64, dw64 = fused_nll.table_paired_plain(*[x.double() for x in ops], 1, -8.0, 8.0)
+    gaps = [_table_gap(x, ref) for x, ref in ((table, w64), (dtable, dw64), (want, w64), (dwant, dw64))]
+    assert max(gaps[:2]) <= RTOL_TABLE_BOUNDS, gaps
+    for i in (0, 5):
+        assert torch.equal(dtable[i], torch.zeros_like(dtable[i]))
+
+
+def _headline_blocks(T, K=20, seed=0):
+    """The s-optimizer's operands for K keypoints (D = O = 2, one lane a
+    block), as ``optimize_smooth_param`` builds them: a random walk seen
+    through noise of per-keypoint variance, the constant R its variance,
+    the prior the observations' spread, log s from a guess of 1."""
+    rng = np.random.default_rng(seed)
+    sd = rng.uniform(0.5, 3.0, size=(K, 1, 2))
+    x = np.cumsum(rng.normal(size=(K, T, 2)) * rng.uniform(0.3, 2.0, size=(K, 1, 1)), axis=1)
+    ys = (x + rng.normal(size=(K, T, 2)) * sd).astype(np.float32)
+    eye = np.broadcast_to(np.eye(2, dtype=np.float32), (K, 1, 2, 2)).copy()
+    t = torch.as_tensor
+    return (t(ys[:, None]), t((sd[:, 0] ** 2).astype(np.float32)[:, None]), torch.zeros(K, 1, 2),
+            t(eye * ys.var(axis=1)[:, None, :, None]), t(eye), t(eye), t(eye), torch.ones(K, 1), torch.zeros(K))
+
+
+# a stop test whose |change in loss| lies within this share of |loss| of its
+# threshold is a tie: the card's float32 losses and the CPU's differ by
+# rounding (kernel A against its plain version: 2.4e-7 of |ll| at most), so
+# such a lane may stop at another iteration on each. The benchmark's replay
+# of the optimizer takes the same share (benchmark/reference/optimizer.py)
+STOP_TIE = 1e-6
+
+
+def test_s_optimizer_on_the_card_matches_its_cpu_route(dev, monkeypatch):
+    """``_optimize_blocks_joint`` at the headline shape (20 lanes, (2, 2),
+    10,000 frames): on the card (table kernel, kernel A, one table launch an
+    Adam iteration) against the CPU route (forward mode, plain kernel A).
+    Every lane takes the CPU's Adam iterations, but for a lane whose stop is
+    a tie on the CPU (a rehearsal with the kernel's arithmetic on the CPU
+    stopped one lane 6 iterations early, 4.5e-8 of |loss| from its
+    threshold); and each lane's log s is within 5e-3 (the benchmark's s
+    limit) of the CPU's at the iteration where the lane stopped on the card,
+    read from a CPU run with the stop rule off."""
+    ops = _headline_blocks(10_000)
+    kw = dict(lr=0.25, s_lo=-8.0, s_hi=8.0, tol=1e-2, safety_cap=300)
+    before = tracing.launches("table")
+    timings = {}
+    s_card, _, it_card = core._optimize_blocks_joint(*(x.to(dev) for x in ops), timings=timings, **kw)
+    assert tracing.launches("table") - before == timings["adam_iters"] == int(it_card.max())
+    s_cpu, _, it_cpu = core._optimize_blocks_joint(*ops, **kw)
+    # the CPU's trajectory and losses, every lane to the card's last iteration
+    trajectory, losses = [], []
+    adam = core._joint_masked_adam
+
+    def recording(loss_and_grad, init, *args, **kwargs):
+        def recorded(s_log):
+            trajectory.append(s_log.clone())
+            out = loss_and_grad(s_log)
+            losses.append(out[0].clone())
+            return out
+        return adam(recorded, init, *args, **kwargs)
+
+    monkeypatch.setattr(core, "_joint_masked_adam", recording)
+    core._optimize_blocks_joint(*ops, **{**kw, "tol": -1.0, "safety_cap": int(it_card.max()) + 1})
+    loss = torch.stack(losses).double()
+    it_card = it_card.cpu()
+    for k in range(it_card.shape[0]):
+        n_c, n_p = int(it_card[k]), int(it_cpu[k])
+        if n_c != n_p:  # a stop at iteration n compares loss n with loss n - 1
+            n = min(n_c, n_p)
+            thr = 1e-2 * abs(float(torch.log(loss[n - 2, k]))) + 1e-6
+            assert abs(abs(float(loss[n - 1, k] - loss[n - 2, k])) - thr) <= STOP_TIE * abs(float(loss[n - 1, k])), k
+        assert abs(float(s_card[k]) - float(trajectory[n_c][k])) <= 5e-3, k
+
+
+def test_tuned_fit_launches_the_table_once_an_adam_iteration(dev, tmp_path):
+    """A tuned singlecam fit counts one table launch for each Adam
+    iteration; with s given, none."""
+    import eks_tpu_torch
+
+    for smooth_param in (None, 2.0):
+        timings = {}
+        before = tracing.launches("table")
+        eks_tpu_torch.fit_eks_singlecam(str(REPO / "data" / "singlecam"), str(tmp_path / "out.csv"),
+                                        smooth_param=smooth_param,
+                                        device="cuda", timings=timings)
+        assert tracing.launches("table") - before == timings.get("adam_iters", 0)
+        assert (timings.get("adam_iters", 0) > 0) == (smooth_param is None)
+
+
+def test_tuned_fit_imports_no_torch_dynamo(dev, tmp_path):
+    """A fresh process that runs a tuned singlecam fit on the card leaves
+    ``torch._dynamo`` unimported (forward mode's Python reference path
+    imports it, seconds of a first call); where something does import it,
+    the failure shows the stack."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, traceback\n"
+        "stacks = []\n"
+        "class Watch:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'torch._dynamo' and not stacks:\n"
+        "            stacks.append(''.join(traceback.format_stack()))\n"
+        "sys.meta_path.insert(0, Watch())\n"
+        "import eks_tpu_torch\n"
+        "timings = {}\n"
+        "eks_tpu_torch.fit_eks_singlecam(sys.argv[2], sys.argv[1], device='cuda', timings=timings)\n"
+        "assert timings['adam_iters'] > 0\n"
+        "print('torch._dynamo' in sys.modules)\n"
+        "print(stacks[0] if stacks else '')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "out.csv"), str(REPO / "data" / "singlecam")],
+                         cwd=REPO, capture_output=True, text=True, timeout=600, check=True).stdout
+    assert out.startswith("False"), out

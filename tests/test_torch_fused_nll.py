@@ -249,8 +249,9 @@ def test_nll_dispatch_takes_the_fused_kernel_up_to_8_observations(monkeypatch):
 
 def test_cuda_shapes_are_the_sources_instance_list():
     """The wrapper's ``_CUDA_SHAPES`` are ``FUSED_NLL_SHAPES`` of
-    csrc/fused_nll.cu, the one list the C dispatch and ``fused_nll_shapes``
-    expand (the card tests ask the built library)."""
+    csrc/fused_nll.cu, the one list the C dispatches of kernel A and of the
+    table kernel and ``fused_nll_shapes`` expand (the card tests ask the
+    built library)."""
     import re
     from pathlib import Path
 
@@ -259,4 +260,145 @@ def test_cuda_shapes_are_the_sources_instance_list():
     listed = tuple((int(d), int(o)) for d, o in re.findall(r"X\((\d), (\d)\)", macro))
     assert listed == fused_nll._CUDA_SHAPES
     assert listed == tuple((D, O) for D in (1, 2, 3) for O in (2, 4, 6, 8))
-    assert text.count("FUSED_NLL_SHAPES(") == 3  # the definition, the dispatch and fused_nll_shapes
+    # the definition, kernel A's dispatch, fused_nll_shapes and the table kernel's dispatch
+    assert text.count("FUSED_NLL_SHAPES(") == 4
+
+
+# --------------------------------------------------------------------------- #
+# the s-optimizer's paired table (fused_nll.table_paired)
+# --------------------------------------------------------------------------- #
+def _table_operands(rng, n_blocks, b_max, O, D, s_log=None):
+    """Flat (N = n_blocks * b_max) operands of the s-optimizer's table, the
+    optimizer's padding included: a block's lanes past its first repeat it."""
+    ys, m0, S0, A, Q, C, r = _problem(rng, n_blocks * b_max, 3, O, D)
+    ops = [torch.as_tensor(x) for x in (ys[:, 0], m0, S0, A, Q, C, r)]
+    if b_max > 1:  # the last block holds one member and b_max - 1 padding lanes
+        ops = [x.clone() for x in ops]
+        for x in ops:
+            x[-b_max + 1:] = x[-b_max]
+    if s_log is None:
+        s_log = rng.uniform(-1.0, 1.0, size=n_blocks)
+    return [torch.as_tensor(np.asarray(s_log, np.float32))] + ops
+
+
+def _table_composition(s_log, y0, m0, S0, A, Q, C, r, b_max, s_lo, s_hi):
+    """The s-optimizer's loss before the table kernel: forward mode of the
+    scaled process noise, then of ``_pack_scalars`` along it."""
+    N, D = Q.shape[0], Q.shape[-1]
+    QB = Q.reshape(-1, b_max, D, D)
+
+    def scaled_q(sl):
+        s = torch.exp(torch.clamp(sl, s_lo, s_hi))
+        return (s[:, None, None, None] * QB).reshape(N, D, D)
+
+    sQ, dsQ = torch.func.jvp(scaled_q, (s_log,), (torch.ones_like(s_log),))
+    return torch.func.jvp(lambda q: pkalman._pack_scalars(y0, m0, S0, A, q, C, r), (sQ,), (dsQ,))
+
+
+# kernel A's instances, beyond them (five cameras, n_latent 4), and padded blocks
+TABLE_SHAPES = [(5, 1, 2, 2), (3, 3, 2, 2), (2, 2, 4, 3), (4, 1, 8, 1), (2, 1, 8, 3), (2, 1, 12, 3), (2, 2, 4, 4)]
+
+
+@pytest.mark.parametrize("n_blocks,b_max,O,D", TABLE_SHAPES)
+def test_plain_table_paired_is_the_forward_mode_composition_bit_for_bit(n_blocks, b_max, O, D):
+    """On CPU tensors ``table_paired`` is its plain version, which is the
+    optimizer's former loss prologue to the bit, bounds included; no launch
+    is counted."""
+    rng = np.random.default_rng(n_blocks * 10 + O)
+    s_log = rng.uniform(-9.0, 9.0, size=n_blocks)
+    s_log[0] = -8.0
+    ops = _table_operands(rng, n_blocks, b_max, O, D, s_log)
+    before = tracing.snapshot()
+    table, dtable = fused_nll.table_paired(*ops, b_max, -8.0, 8.0)
+    want, dwant = _table_composition(*ops, b_max, -8.0, 8.0)
+    assert tracing.since(before) == {}
+    assert table.shape == (n_blocks * b_max, pkalman._scalar_offsets(D, O)[1])
+    assert torch.equal(table, want) and torch.equal(dtable, dwant)
+
+
+@pytest.mark.parametrize("n_blocks,b_max,O,D", TABLE_SHAPES)
+def test_table_tangent_matches_a_float64_central_difference(n_blocks, b_max, O, D):
+    """d table / d log s of the plain version, float32, against a float64
+    central difference of ``_pack_scalars`` in log s (step 1e-4: the float64
+    jvp is within 1.1e-9 of it), entry by entry relative to 1 + |difference|:
+    float32 rounding of the table's solves, measured at most 2.0e-7 on these
+    operands; the limit sits ten times above."""
+    rng = np.random.default_rng(n_blocks + O)
+    s_log, y0, m0, S0, A, Q, C, r = _table_operands(rng, n_blocks, b_max, O, D)
+    _, dtable = fused_nll.table_paired(s_log, y0, m0, S0, A, Q, C, r, b_max, -8.0, 8.0)
+    p64 = [x.double() for x in (y0, m0, S0, A, Q, C, r)]
+    s_lane = s_log.double().repeat_interleave(b_max)[:, None, None]
+    h = 1e-4
+
+    def pack(sl):
+        return pkalman._pack_scalars(p64[0], p64[1], p64[2], p64[3], torch.exp(sl) * p64[4], p64[5], p64[6])
+
+    fd = (pack(s_lane + h) - pack(s_lane - h)) / (2 * h)
+    err = float(((dtable.double() - fd).abs() / (1 + fd.abs())).max())
+    assert err <= 2e-6, err
+
+
+def test_table_tangent_is_zero_outside_the_bounds():
+    """The clamp's forward mode passes the tangent where s_lo <= log s <=
+    s_hi, bounds included, and zero outside: a block beyond a bound has the
+    bound's table and no tangent."""
+    rng = np.random.default_rng(0)
+    s_log = [-9.0, -8.0, -7.5, 7.5, 8.0, 9.0, float(np.nextafter(np.float32(-8.0), np.float32(-9.0)))]
+    ops = _table_operands(rng, len(s_log), 1, 2, 2, s_log)
+    table, dtable = fused_nll.table_paired(*ops, 1, -8.0, 8.0)
+    for i in (0, 5, 6):
+        assert torch.equal(dtable[i], torch.zeros_like(dtable[i]))
+    for i in (1, 2, 3, 4):
+        assert bool((dtable[i] != 0).any())
+    at_bounds = _table_operands(np.random.default_rng(0), len(s_log), 1, 2, 2, [-8.0, -8.0, 0, 0, 8.0, 8.0, -8.0])
+    clamped, _ = fused_nll.table_paired(*at_bounds, 1, -8.0, 8.0)
+    for i in (0, 5, 6):
+        assert torch.equal(table[i], clamped[i])
+
+
+@pytest.mark.parametrize("D,O,route", [(2, 2, "kernel"), (3, 8, "kernel"), (3, 12, "plain"), (4, 4, "plain")])
+def test_optimizer_takes_the_table_kernel_at_kernel_a_shapes(monkeypatch, D, O, route):
+    """The s-optimizer's linear loss asks ``table_paired`` for its table at
+    kernel A's (D, O) instances (singlecam; two to four cameras) and the
+    forward-mode plain version beyond them (five cameras and more, n_latent
+    4), once per Adam iteration."""
+    from eks_tpu_torch import core
+
+    taken = []
+    plain = fused_nll.table_paired_plain
+
+    def spy(name):
+        def fn(*args):
+            taken.append(name)
+            return plain(*args)
+        return fn
+
+    monkeypatch.setattr(fused_nll, "table_paired", spy("kernel"))
+    monkeypatch.setattr(fused_nll, "table_paired_plain", spy("plain"))
+    n_blocks, b_max, T = 2, 1, 6
+    ys, m0, S0, A, Q, C, r = _problem(np.random.default_rng(D * O), n_blocks, T, O, D)
+    t = torch.as_tensor
+    B = (n_blocks, b_max)
+    _, _, iters = core._optimize_blocks_joint(
+        t(ys).reshape(*B, T, O), t(r).reshape(*B, O), t(m0).reshape(*B, D), t(S0).reshape(*B, D, D),
+        t(A).reshape(*B, D, D), t(Q).reshape(*B, D, D), t(C).reshape(*B, O, D), torch.ones(B),
+        torch.zeros(n_blocks), lr=0.25, s_lo=-8.0, s_hi=8.0, tol=1e-2, safety_cap=2)
+    assert taken == [route] * int(iters.max())
+
+
+def test_table_paired_refuses_cuda_without_a_card():
+    """A CUDA request for the table reaches the kernel path and fails there,
+    never returning the plain version's answer; a (D, O) kernel A does not
+    take, or lanes that are not whole blocks, are refused first."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible; tests/test_torch_cuda_kernels.py runs the kernel")
+    before = tracing.snapshot()
+    for D, O in ((2, 2), (3, 8), (4, 4), (3, 12)):
+        ops = [_FakeCuda(x) for x in _table_operands(np.random.default_rng(0), 2, 1, O, D)]
+        err = (RuntimeError, AssertionError) if (D, O) in fused_nll._CUDA_SHAPES else NotImplementedError
+        with pytest.raises(err):
+            fused_nll.table_paired(*ops, 1, -8.0, 8.0)
+    with pytest.raises(ValueError):
+        fused_nll.table_paired(*[_FakeCuda(x) for x in _table_operands(np.random.default_rng(0), 2, 1, 2, 2)],
+                               3, -8.0, 8.0)
+    assert tracing.snapshot() == before
