@@ -551,7 +551,7 @@ def _percentile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
 
 
 def _prep_multicam_linear(
-    data_x, data_y, data_lh, n_models, avg_mode, var_mode, n_latent, quantile
+    data_x, data_y, data_lh, n_models, avg_mode, var_mode, n_latent, quantile, timings=None
 ):
     """Device twin of ensemble() + center_predictions + compute_pca +
     initialize_kalman_filter_pca for the linear multicam family, with no
@@ -565,7 +565,9 @@ def _prep_multicam_linear(
 
     Inputs (M, C, T, K) prediction planes; returns
     (stats (C,T,K,5), ys (K,T,2C), evars (K,T,2C), m0s, S0s, As, Qs,
-    Cs (K,2C,L), means (C,K,2)).
+    Cs (K,2C,L), means (C,K,2)). With ``timings`` the centring, the PCA fit
+    and the latent's S0 and Q are the span "prep.pca", the device
+    synchronized at both ends.
     """
     stats = _ensemble_kernel(
         data_x, data_y, data_lh, n_models, avg_mode, var_mode, 1000.0
@@ -589,6 +591,9 @@ def _prep_multicam_linear(
     w = (mask & (rank <= n_good)).to(dt)  # (T, K)
     denom = n_good.to(dt)
 
+    if timings is not None:
+        tracing.sync(dev)
+    span = tracing.begin(timings, "prep.pca")
     means = torch.einsum("tk,ctko->cko", w, preds) / denom  # (C, K, 2)
     centered = preds - means[:, None]  # (C, T, K, 2)
     X = centered.permute(2, 1, 0, 3).reshape(K, T, 2 * C)  # ys
@@ -627,6 +632,7 @@ def _prep_multicam_linear(
     qcov = dc.transpose(1, 2) @ dc / (n_d - 1.0)[:, None, None]
     peak = qcov.abs().amax(dim=(1, 2))[:, None, None]
     Qs = torch.where(peak > 0, qcov / peak, qcov)
+    tracing.end(timings, span, dev)
 
     m0s = torch.zeros((K, n_latent), dtype=dt, device=dev)
     As = torch.eye(n_latent, dtype=dt, device=dev).expand(K, n_latent, n_latent).contiguous()
@@ -672,7 +678,7 @@ def _smoother_multicam_linear_fused(
     )  # (M, C, T, K, 3)
     stats, ys, evars, m0s, S0s, As, Qs, Cs, means = _prep_multicam_linear(
         arr[..., 0], arr[..., 1], arr[..., 2],
-        M, avg_mode, var_mode, int(n_latent), float(quantile_keep_pca),
+        M, avg_mode, var_mode, int(n_latent), float(quantile_keep_pca), timings,
     )
     tracing.end(timings, span, dev, stage=True)
 

@@ -265,5 +265,5 @@ def test_a_call_on_the_card_counts_its_launches_by_instance(dev):
         _singlecam_array(np.random.default_rng(3), T=500), ["a", "b", "c"], device="cuda", timings=timings)
     n = timings["adam_iters"]
     assert n > 0
-    assert timings["counts"] == {("A", 2, 2, True): n, ("scan", "filter", False, 2): 1,
+    assert timings["counts"] == {("table", 2, 2): n, ("A", 2, 2, True): n, ("scan", "filter", False, 2): 1,
                                  ("scan", "smoother", False, 2): 1}
