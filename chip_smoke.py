@@ -29,6 +29,13 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      operations an iteration of each, and holds the kernel's per-lane stops
      to the plain table's (a lane elsewhere only at a tie of its stop test,
      at most three) and its log s within 5e-3;
+ 5d. holds the s-optimizer's Adam step kernel against the plain step on the
+     card at 20, 80 and 10 blocks (one step's state bit for bit, two
+     launches the same bits), timing both with the kernel's bound from its
+     bytes; then runs the headline's s-optimizer with the kernel and with
+     the plain step in turns, printing Adam iterations, wall, the
+     ``adam.*`` spans and device operations an iteration of each, and
+     holds their log s, last losses and iterations bit for bit;
   6. holds kernel C (the fused time-varying-R NLL, plain and paired) against
      its plain version on the pupil optimizer's own operands: one session
      (2 lanes) and eight (16 lanes), 10,000 frames, D = 3, O = 8, and once
@@ -674,17 +681,21 @@ def adam_recorded(torch, core, run):
     """``run()`` with the one Adam loop it starts recorded: (its result,
     the log s each iteration starts from and the loss it reads, both
     (iterations, lanes) float64 on the host, and each lane's iterations)."""
+    import dataclasses
+
+    from eks_tpu_torch.ops.adam_step import block_nll_sums
+
     trajectory, losses, iters = [], [], []
     adam = core._joint_masked_adam
 
-    def recording(loss_and_grad, init, *args, **kwargs):
+    def recording(loss, init, *args, **kwargs):
         def recorded(s_log):
             trajectory.append(s_log.clone())
-            out = loss_and_grad(s_log)
-            losses.append(out[0].clone())
+            out = loss.member_lls(s_log)
+            losses.append(block_nll_sums(*out, loss.mask, loss.b_max)[0])
             return out
 
-        res = adam(recorded, init, *args, **kwargs)
+        res = adam(dataclasses.replace(loss, member_lls=recorded), init, *args, **kwargs)
         iters.append(res[2])
         return res
 
@@ -844,6 +855,144 @@ def table_phase(torch, np, dev, card, rng, head, deterministic) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 5d: the s-optimizer's Adam step kernel
+# --------------------------------------------------------------------------- #
+def step_bytes(n_blocks, b_max):
+    """What the Adam step kernel must move: each member's ll, d ll and
+    weight read, each block's state (six 4-byte words and a 1-byte flag)
+    read and written, the count of active blocks written."""
+    return 12 * n_blocks * b_max + 2 * 25 * n_blocks + 4
+
+
+def step_phase(torch, np, dev, card, head) -> dict:
+    """The Adam step kernel against the plain step on the card at 20, 80
+    and 10 blocks of one member: one step's state bit for bit, whether two
+    launches give the same bits, CUDA-event and profiler device times, the
+    host's dispatch, the bound from the bytes, the plain step's time. Then
+    the headline's s-optimizer (``head``: phase 5's ys, S0s and ensemble
+    variances) with the kernel and with the plain step in turns: log s, the
+    last loss and the iterations of every block bit for bit; wall, the
+    ``adam.*`` spans and device operations an iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eks_tpu_torch import core, tracing
+    from eks_tpu_torch.ops import adam_step
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(5)
+    res, ok = {}, True
+    cap = 2**31 - 1  # with tol < 0 no block stops: every step does all its work
+    for n in (K_HEAD, 4 * K_HEAD, K_MC):
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        lls, dlls = f32(-rng.uniform(1e3, 1e6, n)), f32(rng.normal(size=n) * 1e2)
+        mask, s0 = torch.ones(n, device=dev), f32(rng.uniform(-2.0, 2.0, n))
+        steps = [adam_step.AdamStep(s0, mask, 1, 0.25, -1.0, cap) for _ in range(2)]
+        before = tracing.launches("adam_step", 1)
+        steps[0].step(lls, dlls)
+        launched = tracing.launches("adam_step", 1) - before
+        steps[1].step(lls, dlls)
+        plain = adam_step.adam_step_plain(adam_step.adam_state(s0), lls, dlls, mask, 1, 0.25, -1.0, cap)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                               b.view(torch.int32) if b.is_floating_point() else b)
+                   for a, b in zip(steps[0].state, plain))
+        det = all(torch.equal(a, b) for a, b in zip(steps[0].state, steps[1].state))
+
+        def run_k(step=steps[0]):
+            step.step(lls, dlls)
+
+        def run_p(state=plain):
+            return adam_step.adam_step_plain(state, lls, dlls, mask, 1, 0.25, -1.0, cap)
+
+        dev_ms, _ = device_ms(torch, run_k, 20)
+        bound = bound_ms(step_bytes(n, 1), 0)
+        row = {
+            "blocks": n, "b_max": 1, "bit_equal_to_plain": same, "deterministic": det, "launches_per_call": launched,
+            "ms": time_cuda(torch, run_k, 50), "device_ms": dev_ms, "enqueue_ms": enqueue_ms(torch, run_k, 50),
+            "plain_ms": time_cuda(torch, run_p, 20), "plain_enqueue_ms": enqueue_ms(torch, run_p, 20),
+            "bound_ms": bound[0], "bound_by": bound[1],
+        }
+        row["share_of_bound"] = row["bound_ms"] / dev_ms
+        row["ok"] = same and det and launched == 1
+        ok = ok and row["ok"]
+        res[f"{n}_blocks"] = row
+
+    # the headline s-optimizer, the kernel step and the plain step
+    ys_s, S0s, ev = head
+    K = ys_s.shape[0]
+    eye = torch.eye(2, device=dev).expand(K, 2, 2).contiguous()
+    g = core._device_s_guesses(ev)
+    s_guess = torch.where(torch.isfinite(g) & (g > 0.0), g, torch.full_like(g, 2.0))
+
+    class TorchStep:
+        """The step in plain PyTorch on the card, with ``AdamStep``'s interface."""
+
+        def __init__(self, s_log, mask, b_max, lr, tol, safety_cap):
+            self.args, self.cap = (mask, b_max, lr, tol, safety_cap), safety_cap
+            self.state = adam_step.adam_state(s_log)
+
+        def running(self):
+            return bool((~self.state.done & (self.state.iters < self.cap)).any())
+
+        def step(self, lls, dlls):
+            self.state = adam_step.adam_step_plain(self.state, lls, dlls, *self.args)
+
+    kernel_step, adam = core.AdamStep, core._joint_masked_adam
+    results = {}
+
+    def optimize(route, timings=None):
+        core.AdamStep = kernel_step if route == "step_kernel" else TorchStep
+        try:
+            return core.optimize_smooth_param(ys_s, torch.zeros(K, 2, device=dev), S0s, eye, eye, eye, ev, None,
+                                              None, s_guess, timings=timings)
+        finally:
+            core.AdamStep = kernel_step
+
+    def kept(*args, **kwargs):
+        out = adam(*args, **kwargs)
+        results.setdefault(route, out)
+        return out
+
+    routes = {}
+    for route in ("torch_step", "step_kernel", "step_kernel", "torch_step"):
+        core._joint_masked_adam = kept
+        try:
+            optimize(route)  # the warm-up: the first run of each route keeps (log s, last loss, iterations)
+        finally:
+            core._joint_masked_adam = adam
+        torch.cuda.synchronize()
+        timings = {}
+        t0 = time.perf_counter()
+        optimize(route, timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            optimize(route)
+            torch.cuda.synchronize()
+        iters = timings["adam_iters"]
+        span_ms = {name: 1e3 * sum(t1 - t0 for n_, t0, t1, _ in timings["spans"] if n_ == name) / iters
+                   for name in ("adam.loss", "adam.update", "adam.stop_test")}
+        n_ops = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+        routes.setdefault(route, []).append({
+            "adam_iters": iters, "ms_per_adam_iter": wall / iters * 1e3, "adam_loss_host_ms": span_ms["adam.loss"],
+            "adam_update_host_ms": span_ms["adam.update"], "adam_stop_wait_ms": span_ms["adam.stop_test"],
+            "device_ops_per_adam_iter": n_ops / iters,
+        })
+    (s_k, l_k, i_k), (s_t, l_t, i_t) = results["step_kernel"], results["torch_step"]
+    bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x
+    iterates_equal = all(torch.equal(bits(a), bits(b)) for a, b in ((s_k, s_t), (l_k, l_t), (i_k, i_t)))
+    ok = ok and iterates_equal
+    out = {"phase": "adam_step_kernel", "shapes": res, "headline_optimizer": routes,
+           "iterates_bit_equal": iterates_equal, "adam_iters_by_block": i_k.tolist(),
+           "seconds": time.perf_counter() - t_phase, "card": card, "ok": ok}
+    emit(out)
+    if not ok:
+        raise AssertionError("the Adam step kernel disagrees with the plain step, is not deterministic, or the "
+                             f"headline optimizer's iterates differ between the routes: {res}, {iterates_equal}")
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phase 21: the command line, as a user runs it
 # --------------------------------------------------------------------------- #
 # the sessions' tables against the solo run's, absolute, by column: the
@@ -967,7 +1116,7 @@ def cli_phase(torch, np, pd, card, reset_counts, read_counts, a_key, golden_gap)
         launches_cli = read_counts()
         iters_cli = rep_main["spans"]["adam.loss"]["n"]
         want_launches = {"fused_nll_paired": iters_cli, a_key(2, 2, True): iters_cli, "nll_table_paired": iters_cli,
-                         "prefix_scan_filter": 1, "prefix_scan_smoother": 1}
+                         "adam_step": iters_cli, "prefix_scan_filter": 1, "prefix_scan_smoother": 1}
         launches_ok = iters_cli > 0 and all(launches_cli[k] == want_launches.get(k, 0) for k in launches_cli)
         main_gap = rel_gap(read(os.path.join(out_cli, "eks_singlecam.csv")).to_numpy().astype(np.float32),
                            df_in.to_numpy())
@@ -1177,6 +1326,7 @@ def main() -> int:
             "fused_nll_tv": launches("C", False),
             "fused_nll_tv_paired": launches("C", True),
             "nll_table_paired": launches("table"),
+            "adam_step": launches("adam_step"),
             **{name: launches("scan", *key) for key, name in scans.items()},
             "plain_route": launches("scan_plain_route"),
             "carry_plain_route": launches("scan_carried_plain_route"),
@@ -1768,8 +1918,9 @@ def main() -> int:
         raise AssertionError("headline output is not finite or has the wrong shape")
     if min(launches["fused_nll_paired"], launches["prefix_scan_filter"], launches["prefix_scan_smoother"]) <= 0:
         raise AssertionError(f"the main path did not run through its three kernels: {launches}")
-    if launches["nll_table_paired"] != iters:
-        raise AssertionError(f"{launches['nll_table_paired']} table launches in {iters} Adam iterations")
+    if launches["nll_table_paired"] != iters or launches["adam_step"] != iters:
+        raise AssertionError(f"{launches['nll_table_paired']} table and {launches['adam_step']} Adam step launches "
+                             f"in {iters} Adam iterations")
     if seq_gap > 1e-2:
         raise AssertionError(f"final pass is {seq_gap} from the float64 sequential smoother")
 
@@ -1790,6 +1941,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- 5c ---
     tab = table_phase(torch, np, dev, card, rng, (ys_s, S0s, stats[..., 2:4].contiguous()), deterministic)
+
+    # --------------------------------------------------------------- 5d ---
+    stp = step_phase(torch, np, dev, card, (ys_s, S0s, stats[..., 2:4].contiguous()))
 
     # ---------------------------------------------------------------- 6 ---
     # kernel C on the pupil optimizer's own operands at its starting
@@ -2943,6 +3097,7 @@ def main() -> int:
             table_k = sessions_table_gap(np, df_k, df_one)
             counts_ok_k = (launches_k[a_key(2, 2, True)] == sum(tm_k["adam_iters_per_shard"]) > 0
                            and launches_k["nll_table_paired"] == sum(tm_k["adam_iters_per_shard"])
+                           and launches_k["adam_step"] == sum(tm_k["adam_iters_per_shard"])
                            and launches_k["prefix_scan_filter"] == n_dev and launches_k["prefix_scan_smoother"] == n_dev
                            and not any(v for k, v in launches_k.items() if k.startswith("carry_")))
             par_launches["parallel_headline_keypoint" + tag] = launches_k
@@ -2970,7 +3125,7 @@ def main() -> int:
             seq_gap_t = float(np.abs(df_t.to_numpy().reshape(T_HEAD, K_HEAD, 9)[..., :2] - x_ref_t).max())
             iters_t = tm_t.get("adam_iters", 0)
             counts_ok_t = (iters_t > 0 and launches_t[a_key(2, 2, True)] == 0
-                           and launches_t["nll_table_paired"] == iters_t
+                           and launches_t["nll_table_paired"] == iters_t and launches_t["adam_step"] == iters_t
                            and launches_t["prefix_scan_filter_paired_d2"] == n_dev * iters_t
                            and launches_t["carry_filter_paired_d2"] == (n_dev - 1) * iters_t
                            and launches_t["prefix_scan_filter"] == n_dev and launches_t["prefix_scan_smoother"] == n_dev
@@ -3293,6 +3448,17 @@ def main() -> int:
         "max_rel_err": max(t22["table_rel_err"], t22["dtable_rel_err"]), "ms": t22["ms"],
         "device_ms": t22["device_ms"], "plain_ms": t22["plain_ms"], "bound_ms": t22["bound_ms"],
         "bound_by": t22["bound_by"], "library_ms": None,
+    })
+    # the s-optimizer's Adam step kernel (phase 5d) at the headline's 20
+    # blocks: it replaces no Pallas kernel (the JAX package runs the update
+    # inside its jitted while loop)
+    s20 = stp["shapes"][f"{K_HEAD}_blocks"]
+    kernels.append({
+        "name": "adam_step", "route": "cuda", "source": src + "fused_nll.cu",
+        "replaces": "none (the Adam update of eks_tpu/core.py's jitted optimizer loop)",
+        "blocks": K_HEAD, **counted("adam_step"), "bit_equal_to_plain": s20["bit_equal_to_plain"],
+        "ms": s20["ms"], "device_ms": s20["device_ms"], "plain_ms": s20["plain_ms"], "bound_ms": s20["bound_ms"],
+        "bound_by": s20["bound_by"], "library_ms": None,
     })
     emit({"launches": {p: {k: v for k, v in c.items() if v} for p, c in path_counts.items()}})
     print(gpu_name_power(), flush=True)

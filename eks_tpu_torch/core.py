@@ -15,8 +15,11 @@ Semantics kept from the JAX package:
   * Adam(1.0) on lr-scaled gradients of the NLL w.r.t. log s clipped to
     ±8, early stop when |loss - prev| < tol*|log(max(prev, 1e-12))| + 1e-6,
     hard cap 300 iterations, per-lane state that commits only while the lane
-    is active. The pupil family runs the same loop on its two sigmoid-space
-    parameters per session, as Adam(lr) on the raw gradient.
+    is active. The block sums of the member NLLs, the update, the stop rule
+    and the commits are one step (``ops/adam_step.py``): one kernel launch
+    an iteration on the card. The pupil family runs the same loop on its
+    two sigmoid-space parameters per session, as Adam(lr) on the raw
+    gradient, in plain PyTorch.
 
 The loss runs through the fused NLL (kernel A, paired form) on the card, or
 at more than eight observations through the staged plane NLL and the paired
@@ -48,6 +51,7 @@ import torch
 
 from eks_tpu_torch import tracing
 from eks_tpu_torch.marker_array import MarkerArray
+from eks_tpu_torch.ops.adam_step import B1, B2, EPS, AdamState, AdamStep, MemberNLL, adam_state
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
 from eks_tpu_torch.ops.linalg import jvp
 from eks_tpu_torch.ops.pkalman import (
@@ -256,44 +260,82 @@ def _device_s_guesses(ev_tko: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # the optimizer
 # --------------------------------------------------------------------------- #
+class _RawGradientAdam:
+    """The pupil optimizer's Adam state over a parameter of shape (n_lanes,)
+    or (n_lanes, n_params), and its step in plain PyTorch: optax's
+    ``adam(lr)`` on the raw gradient, b1 = 0.9, b2 = 0.999, eps = 1e-8,
+    eps_root = 0, count incremented before the bias correction; a lane's
+    state commits only while it is active. The interface of
+    ``ops.adam_step.AdamStep``: ``running()``, ``step(loss, grad)``,
+    ``state``."""
+
+    def __init__(self, init: torch.Tensor, lr: float, tol: float, safety_cap: int):
+        self.lr, self.tol, self.safety_cap = lr, tol, safety_cap
+        dev, dt = init.device, init.dtype
+        self.per_lane = (init.shape[0],) + (1,) * (init.ndim - 1)  # lane vectors against the parameter
+        self.state = adam_state(init)
+        self.floor = torch.tensor(1e-12, dtype=dt, device=dev)
+        self.b1_t = torch.tensor(B1, dtype=dt, device=dev)
+        self.b2_t = torch.tensor(B2, dtype=dt, device=dev)
+
+    def running(self) -> bool:
+        self.active = ~self.state.done & (self.state.iters < self.safety_cap)
+        return bool(self.active.any())
+
+    def step(self, loss: torch.Tensor, grad: torch.Tensor) -> None:
+        s_log, mu, nu, count, prev_loss, iters, done = self.state
+        active = self.active
+        mu_new = (1 - B1) * grad + B1 * mu
+        nu_new = (1 - B2) * (grad * grad) + B2 * nu
+        count_new = count + 1
+        cf = count_new.to(s_log.dtype).reshape(self.per_lane)
+        mu_hat = mu_new / (1 - torch.pow(self.b1_t, cf))
+        nu_hat = nu_new / (1 - torch.pow(self.b2_t, cf))
+        s_new = s_log + -self.lr * (mu_hat / (torch.sqrt(nu_hat + 0.0) + EPS))
+        rel_tol = self.tol * torch.abs(torch.log(torch.maximum(prev_loss, self.floor)))
+        stop = torch.isfinite(prev_loss) & (torch.abs(loss - prev_loss) < rel_tol + 1e-6)
+        active_p = active.reshape(self.per_lane)
+        self.state = AdamState(
+            torch.where(active_p, s_new, s_log),
+            torch.where(active_p, mu_new, mu),
+            torch.where(active_p, nu_new, nu),
+            torch.where(active, count_new, count),
+            torch.where(active, loss, prev_loss),
+            torch.where(active, iters + 1, iters),
+            torch.where(active, stop, done),
+        )
+
+
 def _joint_masked_adam(loss_and_grad, init: torch.Tensor, lr: float, tol: float,
                        safety_cap: int, timings: dict | None = None,
                        scale_gradient: bool = True):
-    """Per-lane Adam with masked carries and the reference stop rule, on a
-    parameter ``init`` of shape (n_lanes,) or (n_lanes, n_params).
-    ``loss_and_grad(param) -> (loss (n_lanes,), grad like param)``. The
-    update is optax's Adam: b1 = 0.9, b2 = 0.999, eps = 1e-8, eps_root = 0,
-    count incremented before the bias correction. With ``scale_gradient``
-    it is ``adam(1.0)`` fed ``grad * lr`` (the s-optimizer), without it
-    ``adam(lr)`` on the raw gradient (the pupil optimizer); the two differ
+    """Per-lane Adam with masked carries and the reference stop rule, from
+    ``init`` (n_lanes,) or (n_lanes, n_params). The update is optax's Adam:
+    b1 = 0.9, b2 = 0.999, eps = 1e-8, eps_root = 0, count incremented
+    before the bias correction. With ``scale_gradient`` (the s-optimizer)
+    it is ``adam(1.0)`` fed ``grad * lr``, ``loss_and_grad`` is an
+    ``adam_step.MemberNLL`` whose members' NLLs each block sums, and the
+    step is ``adam_step.AdamStep`` (one kernel launch an iteration on the
+    card); without it (the pupil optimizer) it is ``adam(lr)`` on the raw
+    gradient of ``loss_and_grad(param) -> (loss (n_lanes,), grad like
+    param)``, in plain PyTorch (``_RawGradientAdam``). The two differ
     through eps. A lane stops when |loss - prev| < tol * |log(max(prev,
     1e-12))| + 1e-6 or at ``safety_cap`` iterations; its state commits only
     while it is active, and the loop ends when no lane is (one host sync per
     iteration). With ``timings`` each iteration records its spans
     "adam.stop_test", "adam.loss" and "adam.update" (``tracing``). Returns
     (param, last_loss (n_lanes,), iters (n_lanes,))."""
-    b1, b2, eps = 0.9, 0.999, 1e-8
-    step = 1.0 if scale_gradient else lr
-    dev, dt = init.device, init.dtype
-    n = init.shape[0]
-    per_lane = (n,) + (1,) * (init.ndim - 1)  # lane vectors against the parameter
-    s_log = init
-    mu = torch.zeros_like(init)
-    nu = torch.zeros_like(init)
-    count = torch.zeros(n, dtype=torch.int32, device=dev)
-    prev_loss = torch.full((n,), float("inf"), dtype=dt, device=dev)
-    iters = torch.zeros(n, dtype=torch.int32, device=dev)
-    done = torch.zeros(n, dtype=torch.bool, device=dev)
-    floor = torch.tensor(1e-12, dtype=dt, device=dev)
-    b1_t = torch.tensor(b1, dtype=dt, device=dev)
-    b2_t = torch.tensor(b2, dtype=dt, device=dev)
+    if scale_gradient:
+        evaluate = loss_and_grad.member_lls
+        adam = AdamStep(init, loss_and_grad.mask, loss_and_grad.b_max, lr, tol, safety_cap)
+    else:
+        evaluate, adam = loss_and_grad, _RawGradientAdam(init, lr, tol, safety_cap)
     n_iter = 0
     sp = tracing.adam_spans(timings)
     while True:
         if sp is not None:
             i = sp.begin("adam.stop_test")
-        active = ~done & (iters < safety_cap)
-        running = bool(active.any())
+        running = adam.running()
         if sp is not None:
             sp.end(i)
         if not running:
@@ -301,47 +343,18 @@ def _joint_masked_adam(loss_and_grad, init: torch.Tensor, lr: float, tol: float,
         n_iter += 1
         if sp is not None:
             i = sp.begin("adam.loss")
-        loss, grad = loss_and_grad(s_log)
+        out = evaluate(adam.state.s_log)
         if sp is not None:
             sp.end(i)
             i = sp.begin("adam.update")
-        g = grad * lr if scale_gradient else grad
-        mu_new = (1 - b1) * g + b1 * mu
-        nu_new = (1 - b2) * (g * g) + b2 * nu
-        count_new = count + 1
-        cf = count_new.to(dt).reshape(per_lane)
-        mu_hat = mu_new / (1 - torch.pow(b1_t, cf))
-        nu_hat = nu_new / (1 - torch.pow(b2_t, cf))
-        s_new = s_log + -step * (mu_hat / (torch.sqrt(nu_hat + 0.0) + eps))
-        rel_tol = tol * torch.abs(torch.log(torch.maximum(prev_loss, floor)))
-        stop = torch.isfinite(prev_loss) & (torch.abs(loss - prev_loss) < rel_tol + 1e-6)
-        active_p = active.reshape(per_lane)
-        s_log = torch.where(active_p, s_new, s_log)
-        mu = torch.where(active_p, mu_new, mu)
-        nu = torch.where(active_p, nu_new, nu)
-        count = torch.where(active, count_new, count)
-        prev_loss = torch.where(active, loss, prev_loss)
-        iters = torch.where(active, iters + 1, iters)
-        done = torch.where(active, stop, done)
+        adam.step(*out)
         if sp is not None:
             sp.end(i)
     if sp is not None:
         tracing.first_loss(sp)
     if timings is not None:
         timings["adam_iters"] = n_iter
-    return s_log, prev_loss, iters
-
-
-def _block_nll_sums(lls, dlls, maskF, n_blocks, b_max):
-    """Per-block sums of the masked member NLLs and their derivatives;
-    non-finite member NLLs count as 1e12 with a zero derivative."""
-    finite = torch.isfinite(lls)
-    nll = torch.where(finite, -lls, torch.full_like(lls, 1e12))
-    dnll = torch.where(finite, -dlls, torch.zeros_like(dlls))
-    return (
-        (nll * maskF).reshape(n_blocks, b_max).sum(dim=1),
-        (dnll * maskF).reshape(n_blocks, b_max).sum(dim=1),
-    )
+    return adam.state.s_log, adam.state.prev_loss, adam.state.iters
 
 
 # relinearization sweeps of the EKF loss: from a good linearization
@@ -356,9 +369,10 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
                            lr, s_lo, s_hi, tol, safety_cap, sequential=False,
                            timings=None, h_fn=None, xB=None, time_mesh=None):
     """Tune one log s per block: every iteration evaluates all
-    n_blocks * B_max member filters at once and sums the masked member NLLs
-    per block. On the card that is one launch of the table kernel (the
-    scalar table and its tangent from log s) and one paired kernel A launch
+    n_blocks * B_max member filters at once, and the Adam step
+    (``adam_step.AdamStep``, one launch on the card) sums the masked member
+    NLLs per block. On the card the loss is one launch of the table kernel
+    (the scalar table and its tangent from log s) and one paired kernel A launch
     at kernel A's (D, O) instances, and beyond (five cameras or more) the
     forward-mode table and the staged plane NLL with one paired lane-batched
     scan launch. With a nonlinear
@@ -413,10 +427,8 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
                 return _staged_nll_paired(table, dtable, y_planes, shards)
             return filter_nll_paired_batched(table.contiguous(), dtable.contiguous(), y_planes)
 
-    def loss_and_grad(s_log):
-        return _block_nll_sums(*member_lls(s_log), maskF, n_blocks, b_max)
-
-    return _joint_masked_adam(loss_and_grad, s_log_init, lr, tol, safety_cap, timings)
+    return _joint_masked_adam(MemberNLL(member_lls, maskF.contiguous(), b_max), s_log_init, lr, tol, safety_cap,
+                              timings)
 
 
 def optimize_smooth_param(

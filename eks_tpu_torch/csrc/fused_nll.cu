@@ -69,6 +69,23 @@
 // tangents, and the verbatim blocks. Bound: a few hundred flops a lane, so
 // the bytes, 2 N n_scal floats written (7.4 KB at 20 lanes, (2, 2)): well
 // under a microsecond; one thread a lane, since the point is one launch.
+//
+// The Adam step kernel (adam_step_kernel): what the s-optimizer's loop does
+// between kernel A's output and the next iteration's table launch, for every
+// block lane in one launch. Replaces no Pallas kernel: the JAX package's
+// optimizer (eks_tpu/core.py) runs this tail inside its jitted while loop,
+// which XLA fuses; eagerly it is some 60 host-dispatched operations an
+// iteration. One thread a block lane: the masked sum of its members' NLLs
+// and derivatives in member order (a non-finite member counts 1e12 with a
+// zero derivative), optax's Adam update of core.py (b1 0.9, b2 0.999, eps
+// 1e-8, the count incremented before the bias correction), the stop rule
+// against the previous loss, and the commits of the lane's state while it is
+// active; then the block's count of lanes still active, written to a mapped
+// host word that the host reads after its one sync an iteration. Every
+// operation rounds as torch's separate CUDA kernels do (IEEE divide and sqrt,
+// logf, powf, and __fmul_rn/__fadd_rn where nvcc would contract a product
+// into a sum), so at one member a block the iterates are those of the plain
+// version run on the card, bit for bit. Bound: the bytes, a few dozen a lane.
 #include "filter_algebra.cuh"
 
 // (D, O) instances of kernel A
@@ -532,6 +549,56 @@ __global__ void __launch_bounds__(NT) nll_table_paired_kernel(
   }
 }
 
+// the Adam step: one block, each thread a lane at a time
+constexpr int STEP_NT = 256;
+
+__global__ void __launch_bounds__(STEP_NT) adam_step_kernel(
+    const float* __restrict__ ll, const float* __restrict__ dll, const float* __restrict__ mask,
+    float* __restrict__ s_log, float* __restrict__ mu, float* __restrict__ nu, int* __restrict__ count,
+    float* __restrict__ prev_loss, int* __restrict__ iters, bool* __restrict__ done, int* __restrict__ n_active,
+    int n, int b_max, float lr, float tol, int safety_cap) {
+  // the Python constants as torch rounds them to float32
+  constexpr float B1 = 0.9, B2 = 0.999, C1 = 1.0 - 0.9, C2 = 1.0 - 0.999, EPS = 1e-8;
+  constexpr float FLOOR = 1e-12, PENALTY = 1e12, ABS_TOL = 1e-6;
+  __shared__ int block_active;
+  if (threadIdx.x == 0) block_active = 0;
+  __syncthreads();
+  int still_active = 0;
+  for (int j = threadIdx.x; j < n; j += STEP_NT) {
+    if (!done[j] && iters[j] < safety_cap) {
+      float loss = 0.f, grad = 0.f;
+      for (int m = j * b_max; m < (j + 1) * b_max; ++m) {
+        const bool finite = isfinite(ll[m]);
+        loss = __fadd_rn(loss, __fmul_rn(finite ? -ll[m] : PENALTY, mask[m]));
+        grad = __fadd_rn(grad, __fmul_rn(finite ? -dll[m] : 0.f, mask[m]));
+      }
+      const float g = __fmul_rn(grad, lr);
+      const float mu_new = __fadd_rn(__fmul_rn(C1, g), __fmul_rn(B1, mu[j]));
+      const float nu_new = __fadd_rn(__fmul_rn(C2, __fmul_rn(g, g)), __fmul_rn(B2, nu[j]));
+      const int c = count[j] + 1;
+      const float mu_hat = __fdiv_rn(mu_new, __fsub_rn(1.f, powf(B1, (float)c)));
+      const float nu_hat = __fdiv_rn(nu_new, __fsub_rn(1.f, powf(B2, (float)c)));
+      const float step = __fdiv_rn(mu_hat, __fadd_rn(__fsqrt_rn(__fadd_rn(nu_hat, 0.f)), EPS));
+      // the stop rule: torch.maximum keeps a NaN
+      const float prev = prev_loss[j];
+      const float floored = (isnan(prev) || prev > FLOOR) ? prev : FLOOR;
+      const float threshold = __fadd_rn(__fmul_rn(fabsf(logf(floored)), tol), ABS_TOL);
+      const bool stop = isfinite(prev) && fabsf(__fsub_rn(loss, prev)) < threshold;
+      s_log[j] = __fadd_rn(s_log[j], -step);
+      mu[j] = mu_new;
+      nu[j] = nu_new;
+      count[j] = c;
+      prev_loss[j] = loss;
+      iters[j] += 1;
+      done[j] = stop;
+    }
+    still_active += !done[j] && iters[j] < safety_cap;
+  }
+  if (still_active) atomicAdd(&block_active, still_active);
+  __syncthreads();
+  if (threadIdx.x == 0) *n_active = block_active;
+}
+
 }  // namespace
 
 // The threads per block and the most steps a segment may hold: what the
@@ -596,3 +663,37 @@ extern "C" int nll_table_paired_f32(const float* s_log, const float* y0, const f
 #undef NLL_TABLE_TRY
   return (int)cudaErrorInvalidValue;
 }
+
+// One Adam step of the s-optimizer over n block lanes of b_max members each:
+// ll, dll and mask (n * b_max) the members' log-likelihoods, their derivatives
+// along log s and their weights; s_log, mu, nu, prev_loss (n) float32, count
+// and iters (n) int32 and done (n) bool, the state, updated in place where a
+// lane is active (!done && iters < safety_cap); n_active, a device pointer
+// (adam_step_host_word) to the count of lanes active after the step. Launches
+// on the stream with `device` current, restoring the caller's device.
+// Returns the CUDA error of the launch (0 on success); n or b_max below 1
+// returns cudaErrorInvalidValue without launching.
+extern "C" int adam_step_f32(const float* ll, const float* dll, const float* mask, float* s_log, float* mu,
+                             float* nu, int* count, float* prev_loss, int* iters, bool* done, int* n_active, int n,
+                             int b_max, float lr, float tol, int safety_cap, int device, void* stream) {
+  if (n <= 0 || b_max <= 0) return (int)cudaErrorInvalidValue;
+  int current = device;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  adam_step_kernel<<<1, STEP_NT, 0, (cudaStream_t)stream>>>(ll, dll, mask, s_log, mu, nu, count, prev_loss, iters,
+                                                            done, n_active, n, b_max, lr, tol, safety_cap);
+  err = cudaGetLastError();
+  if (current != device) cudaSetDevice(current);
+  return (int)err;
+}
+
+// The device pointer of a pinned host word (page-locked by cudaHostAlloc or
+// registered), for adam_step_f32's n_active. Returns the CUDA error.
+extern "C" int adam_step_host_word(int* host, int** device_ptr) {
+  return (int)cudaHostGetDevicePointer((void**)device_ptr, host, 0);
+}
+
+// Wait for `stream`: the Adam loop's one sync an iteration, after which the
+// host reads the mapped word. Returns the CUDA error.
+extern "C" int adam_step_wait(void* stream) { return (int)cudaStreamSynchronize((cudaStream_t)stream); }

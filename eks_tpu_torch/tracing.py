@@ -12,8 +12,8 @@ stage's seconds under its key ("read", "prep", "optimizer", "final_pass",
   output tables, and in every iteration of the Adam loop (under
   "optimizer") "adam.stop_test" (the loop-top read of which lanes are
   still active, the iteration's one wait for the device), "adam.loss" (the
-  loss and its gradient) and "adam.update" (Adam's update and the masked
-  carries).
+  loss and its gradient) and "adam.update" (the s-optimizer's block sums,
+  Adam's update, the stop rule and the masked carries).
 * ``timings["counts"]``: this call's kernel launches by instance (the
   registry's keys), those that changed.
 
@@ -23,7 +23,9 @@ Nothing else switches spans on: without a dict a span site costs one
 Launch counters. ``LAUNCHES`` counts every kernel launch of the process,
 always, by kernel and instance: ``("A", D, O, paired)`` (kernel A),
 ``("table", D, O)`` (the s-optimizer's table kernel, one launch an Adam
-iteration at kernel A's shapes), ``("C", paired)`` (kernel C),
+iteration at kernel A's shapes), ``("adam_step", b_max)`` (the
+s-optimizer's Adam step kernel, one launch an Adam iteration on the card),
+``("C", paired)`` (kernel C),
 ``("scan", kind, paired, D)`` (kernels B and D), ``("scan_carried", kind,
 paired, D)`` (a carried downsweep, also counted as a scan), and
 ``("scan_plain_route", kind)`` and

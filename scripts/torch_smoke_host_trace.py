@@ -23,6 +23,7 @@ time. Needs a CUDA card, like chip_smoke.py.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -48,6 +49,7 @@ def main() -> int:
     import chip_smoke
     from eks_tpu_torch import core
     from eks_tpu_torch.models import ibl_pupil
+    from eks_tpu_torch.ops.adam_step import MemberNLL
 
     gc_state = {"s": 0.0, "t0": None, "by_gen": [0, 0, 0]}
 
@@ -82,6 +84,8 @@ def main() -> int:
         prof = {}
         profiled = init.shape[0] in profile_lanes and init.dim() == 1
 
+        evaluate = loss_and_grad.member_lls if isinstance(loss_and_grad, MemberNLL) else loss_and_grad
+
         def timed_loss(x):
             stamps.append(time.perf_counter())
             if profiled and len(stamps) == 2 and not torch.autograd.profiler._is_profiler_enabled:
@@ -93,14 +97,16 @@ def main() -> int:
                     torch.cuda.synchronize()
                 prof["p"].__exit__(None, None, None)
                 prof["top"] = top_ops(prof.pop("p"))
-            return loss_and_grad(x)
+            return evaluate(x)
 
         cuda = torch.cuda.is_available() and init.is_cuda
         mem0 = torch.cuda.memory_stats() if cuda else {}
         gc0, gen0 = gc_state["s"], list(gc_state["by_gen"])
         tracked = len(gc.get_objects())
         t0 = time.perf_counter()
-        res = adam(timed_loss, init, *args, **kwargs)
+        timed = (dataclasses.replace(loss_and_grad, member_lls=timed_loss) if evaluate is not loss_and_grad
+                 else timed_loss)
+        res = adam(timed, init, *args, **kwargs)
         if "p" in prof:
             prof.pop("p").__exit__(None, None, None)
         if cuda:

@@ -231,6 +231,99 @@ def test_non_finite_member_nll_counts_as_penalty(monkeypatch):
     assert int(iters[1]) > 2
 
 
+def _block_sums_then_update(s_log, mu, nu, count, prev_loss, iters, done, lls, dlls, mask, b_max, lr, tol, cap):
+    """One iteration of the s-optimizer as its loop ran it before the Adam
+    step was one function: the stop test's lanes, ``_block_nll_sums``, then
+    the update and the masked commits, each line as it stood."""
+    n_blocks = s_log.shape[0]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    dt, dev = s_log.dtype, s_log.device
+    floor = torch.tensor(1e-12, dtype=dt, device=dev)
+    b1_t = torch.tensor(b1, dtype=dt, device=dev)
+    b2_t = torch.tensor(b2, dtype=dt, device=dev)
+    active = ~done & (iters < cap)
+    finite = torch.isfinite(lls)
+    nll = torch.where(finite, -lls, torch.full_like(lls, 1e12))
+    dnll = torch.where(finite, -dlls, torch.zeros_like(dlls))
+    loss = (nll * mask).reshape(n_blocks, b_max).sum(dim=1)
+    grad = (dnll * mask).reshape(n_blocks, b_max).sum(dim=1)
+    g = grad * lr
+    mu_new = (1 - b1) * g + b1 * mu
+    nu_new = (1 - b2) * (g * g) + b2 * nu
+    count_new = count + 1
+    cf = count_new.to(dt).reshape((n_blocks,))
+    mu_hat = mu_new / (1 - torch.pow(b1_t, cf))
+    nu_hat = nu_new / (1 - torch.pow(b2_t, cf))
+    s_new = s_log + -1.0 * (mu_hat / (torch.sqrt(nu_hat + 0.0) + eps))
+    rel_tol = tol * torch.abs(torch.log(torch.maximum(prev_loss, floor)))
+    stop = torch.isfinite(prev_loss) & (torch.abs(loss - prev_loss) < rel_tol + 1e-6)
+    return (torch.where(active, s_new, s_log), torch.where(active, mu_new, mu), torch.where(active, nu_new, nu),
+            torch.where(active, count_new, count), torch.where(active, loss, prev_loss),
+            torch.where(active, iters + 1, iters), torch.where(active, stop, done))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtypes, shapes and bits (NaN, inf and the sign of zero too)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype)
+    return torch.equal(a.view(bits), b.view(bits)) if bits else torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b_max,dtype", [(1, torch.float32), (3, torch.float32), (3, torch.float64)])
+def test_plain_adam_step_is_the_former_loop_body_bit_for_bit(b_max, dtype):
+    """``adam_step.adam_step_plain`` against the loop body it replaced, on
+    recorded member sequences (a NaN member, padded blocks at b_max = 3, a
+    block that reaches the cap, blocks that stop at other iterations):
+    every state tensor, at every iteration, bit for bit; and
+    ``_joint_masked_adam`` on the same sequence ends where the former loop
+    ends."""
+    from eks_tpu_torch.ops import adam_step
+
+    from tests.adam_sequences import member_sequences, replay
+
+    cap, lr, tol = 30, 0.25, 1e-2
+    lls, dlls, mask, s0 = (torch.as_tensor(a).to(dtype) for a in member_sequences(6, b_max, cap, seed=b_max))
+    former = adam_step.adam_state(s0)
+    step = adam_step.AdamStep(s0, mask, b_max, lr, tol, cap)
+    n_iter = 0
+    while step.running():
+        former = _block_sums_then_update(*former, lls[n_iter], dlls[n_iter], mask, b_max, lr, tol, cap)
+        step.step(lls[n_iter], dlls[n_iter])
+        n_iter += 1
+        for name, a, b in zip(adam_step.AdamState._fields, step.state, former):
+            assert _same_bits(a, b), (n_iter, name)
+    iters = former[5]
+    assert int(iters[1]) == cap and bool(former[6][2]) and float(former[4][2]) > 0.99e12
+    assert len(set(iters.tolist())) >= 3  # blocks stopped at other iterations
+    timings = {}
+    got = core._joint_masked_adam(adam_step.MemberNLL(replay(lls, dlls, "cpu"), mask, b_max), s0, lr, tol, cap,
+                                  timings)
+    assert timings["adam_iters"] == n_iter == int(iters.max())
+    for a, b in zip(got, (former[0], former[4], former[5])):
+        assert _same_bits(a, b)
+
+
+def test_adam_step_takes_the_plain_version_on_the_cpu_and_in_float64(monkeypatch):
+    """CPU tensors, float32 or float64, step through ``adam_step_plain``,
+    once an iteration, and count no kernel launch."""
+    from eks_tpu_torch import tracing
+    from eks_tpu_torch.ops import adam_step
+
+    from tests.adam_sequences import member_sequences, replay
+
+    calls = []
+    plain = adam_step.adam_step_plain
+    monkeypatch.setattr(adam_step, "adam_step_plain", lambda *a: calls.append(a[1].dtype) or plain(*a))
+    before = tracing.snapshot()
+    for dtype in (torch.float32, torch.float64):
+        lls, dlls, mask, s0 = (torch.as_tensor(a).to(dtype) for a in member_sequences(4, 1, 5))
+        timings = {}
+        core._joint_masked_adam(adam_step.MemberNLL(replay(lls, dlls, "cpu"), mask, 1), s0, 0.25, 1e-2, 5, timings)
+        assert calls.count(dtype) == timings["adam_iters"] == 5
+    assert tracing.snapshot() == before
+
+
 def _toy_smoother_problem(rng, K=3, T=80):
     ys = (rng.normal(size=(K, T, 2)).cumsum(axis=1)).astype(np.float32)
     ev = (np.abs(rng.normal(size=(T, K, 2))) * 0.5 + 0.1).astype(np.float32)

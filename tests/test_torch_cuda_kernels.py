@@ -14,7 +14,10 @@ sharded scans against the unsharded kernel scan, one chunk against the
 uncarried scan bit for bit, a loss evaluated by worker threads at once);
 and the s-optimizer's table kernel (every instance against its plain
 version, the optimizer on the card against its CPU route, one launch an
-Adam iteration, and no ``torch._dynamo`` on a tuned fit's path).
+Adam iteration, and no ``torch._dynamo`` on a tuned fit's path); and its
+Adam step kernel (against the plain step on the card over recorded
+sequences, a headline fit against the torch route bit for bit, one launch
+an Adam iteration).
 
 The kernels have no CPU mode, so every test here needs a CUDA card and
 ``nvcc``; on a machine without them each one skips. On the card (where JAX is
@@ -23,6 +26,7 @@ not installed, hence no conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -30,7 +34,7 @@ import pytest
 import torch
 
 from eks_tpu_torch import core, tracing
-from eks_tpu_torch.ops import fused_filter, fused_nll, pkalman
+from eks_tpu_torch.ops import adam_step, fused_filter, fused_nll, pkalman
 
 pytestmark = pytest.mark.cuda
 
@@ -784,13 +788,13 @@ def test_s_optimizer_on_the_card_matches_its_cpu_route(dev, monkeypatch):
     trajectory, losses = [], []
     adam = core._joint_masked_adam
 
-    def recording(loss_and_grad, init, *args, **kwargs):
+    def recording(loss, init, *args, **kwargs):
         def recorded(s_log):
             trajectory.append(s_log.clone())
-            out = loss_and_grad(s_log)
-            losses.append(out[0].clone())
+            out = loss.member_lls(s_log)
+            losses.append(adam_step.block_nll_sums(*out, loss.mask, loss.b_max)[0])
             return out
-        return adam(recorded, init, *args, **kwargs)
+        return adam(dataclasses.replace(loss, member_lls=recorded), init, *args, **kwargs)
 
     monkeypatch.setattr(core, "_joint_masked_adam", recording)
     core._optimize_blocks_joint(*ops, **{**kw, "tol": -1.0, "safety_cap": int(it_card.max()) + 1})
@@ -818,6 +822,131 @@ def test_tuned_fit_launches_the_table_once_an_adam_iteration(dev, tmp_path):
                                         device="cuda", timings=timings)
         assert tracing.launches("table") - before == timings.get("adam_iters", 0)
         assert (timings.get("adam_iters", 0) > 0) == (smooth_param is None)
+
+
+# --------------------------------------------------------------------------- #
+# the s-optimizer's Adam step kernel
+# --------------------------------------------------------------------------- #
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _torch_route(loss, init, lr, tol, cap):
+    """The s-optimizer's loop with the plain step on the card: the state
+    where every block has stopped."""
+    state = adam_step.adam_state(init)
+    while bool((~state.done & (state.iters < cap)).any()):
+        state = adam_step.adam_step_plain(state, *loss.member_lls(state.s_log), loss.mask, loss.b_max, lr, tol, cap)
+    return state
+
+
+@pytest.mark.parametrize("n_blocks,b_max", [(20, 1), (80, 1), (10, 1), (20, 3)])
+def test_adam_step_kernel_matches_the_torch_step(dev, n_blocks, b_max):
+    """The Adam step kernel against the plain step run on the card (torch's
+    own CUDA kernels) over recorded member sequences (tests/
+    adam_sequences.py: a NaN member, a block that reaches the cap, blocks
+    that stop at other iterations, padded blocks at b_max = 3), one launch
+    a step. At one member a block every state tensor is bit-equal after
+    every step and the stop test reads the torch route's answer. At b_max =
+    3 the block sums may round in another order: a block may stop at
+    another iteration only where its stop test is a tie (``STOP_TIE``), and
+    elsewhere log s and the last loss agree to float32 rounding."""
+    from tests.adam_sequences import member_sequences
+
+    cap, lr, tol = 30, 0.25, 1e-2
+    lls, dlls, mask, s0 = (torch.as_tensor(a, device=dev)
+                           for a in member_sequences(n_blocks, b_max, cap, seed=n_blocks + b_max))
+    step = adam_step.AdamStep(s0, mask, b_max, lr, tol, cap)
+    state = adam_step.adam_state(s0)
+    before = tracing.launches("adam_step", b_max)
+    k = 0
+    while step.running():
+        step.step(lls[k], dlls[k])
+        state = adam_step.adam_step_plain(state, lls[k], dlls[k], mask, b_max, lr, tol, cap)
+        k += 1
+        if b_max == 1:
+            for name, a, b in zip(adam_step.AdamState._fields, step.state, state):
+                assert torch.equal(_bits(a), _bits(b)), (k, name)
+            assert step.running() == bool((~state.done & (state.iters < cap)).any())
+    torch.cuda.synchronize()
+    assert tracing.launches("adam_step", b_max) - before == k > 2
+    assert int(state.iters[1]) == cap and bool(state.done[2])
+    if b_max == 1:
+        return
+    while bool((~state.done & (state.iters < cap)).any()):  # the torch route's own end
+        state = adam_step.adam_step_plain(state, lls[k], dlls[k], mask, b_max, lr, tol, cap)
+        k += 1
+    losses = torch.stack([adam_step.block_nll_sums(a, b, mask, b_max)[0] for a, b in zip(lls, dlls)]).double()
+    it_k, it_t = step.state.iters.cpu(), state.iters.cpu()
+    for j in range(n_blocks):
+        if int(it_k[j]) != int(it_t[j]):  # a stop at iteration n compares loss n with loss n - 1
+            n = min(int(it_k[j]), int(it_t[j]))
+            thr = tol * abs(float(torch.log(losses[n - 2, j]))) + 1e-6
+            gap = abs(abs(float(losses[n - 1, j] - losses[n - 2, j])) - thr)
+            assert gap <= STOP_TIE * abs(float(losses[n - 1, j])), j
+        else:
+            assert abs(float(step.state.s_log[j] - state.s_log[j])) <= 1e-5, j
+            assert abs(float(step.state.prev_loss[j] - state.prev_loss[j])) <= 1e-6 * abs(float(state.prev_loss[j])), j
+
+
+def test_adam_step_takes_the_plain_version_in_float64_on_the_card(dev):
+    """A float64 state on the card (the sequential oracle's) steps through
+    the plain version: no launch, the plain step's bits."""
+    from tests.adam_sequences import member_sequences
+
+    lls, dlls, mask, s0 = (torch.as_tensor(a, device=dev, dtype=torch.float64) for a in member_sequences(4, 1, 3))
+    step = adam_step.AdamStep(s0, mask, 1, 0.25, 1e-2, 3)
+    state = adam_step.adam_state(s0)
+    before = tracing.snapshot()
+    for k in range(3):
+        assert step.running()
+        step.step(lls[k], dlls[k])
+        state = adam_step.adam_step_plain(state, lls[k], dlls[k], mask, 1, 0.25, 1e-2, 3)
+    assert not step.running() and tracing.snapshot() == before
+    for a, b in zip(step.state, state):
+        assert torch.equal(a, b)
+
+
+def test_s_optimizer_with_the_step_kernel_is_the_torch_route_bit_for_bit(dev, monkeypatch):
+    """The headline's s-optimizer (20 blocks of one member, 10,000 frames)
+    with the Adam step kernel against its own loss stepped by the plain step
+    on the card: log s, the last loss and every block's iterations bit for
+    bit; one step launch and one table launch an Adam iteration."""
+    ops = [x.to(dev) for x in _headline_blocks(10_000)]
+    kw = dict(lr=0.25, s_lo=-8.0, s_hi=8.0, tol=1e-2, safety_cap=300)
+    captured = []
+    adam = core._joint_masked_adam
+
+    def capture(loss, init, *args, **kwargs):
+        captured.append((loss, init.clone()))
+        return adam(loss, init, *args, **kwargs)
+
+    monkeypatch.setattr(core, "_joint_masked_adam", capture)
+    before = tracing.snapshot()
+    timings = {}
+    s_log, last, iters = core._optimize_blocks_joint(*ops, timings=timings, **kw)
+    moved = tracing.since(before)
+    assert moved[("adam_step", 1)] == moved[("table", 2, 2)] == timings["adam_iters"] == int(iters.max())
+    state = _torch_route(*captured[0], 0.25, 1e-2, 300)
+    for a, b in ((s_log, state.s_log), (last, state.prev_loss), (iters, state.iters)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_tuned_fit_launches_one_adam_step_an_iteration(dev, tmp_path):
+    """A tuned singlecam fit launches the Adam step kernel once an Adam
+    iteration, as it launches the table kernel, and its ``timings["counts"]``
+    hold the step's key; with s given, no step."""
+    import eks_tpu_torch
+
+    for smooth_param in (None, 2.0):
+        timings = {}
+        before = tracing.snapshot()
+        eks_tpu_torch.fit_eks_singlecam(str(REPO / "data" / "singlecam"), str(tmp_path / "out.csv"),
+                                        smooth_param=smooth_param, device="cuda", timings=timings)
+        moved, n = tracing.since(before), timings.get("adam_iters", 0)
+        assert moved.get(("adam_step", 1), 0) == timings["counts"].get(("adam_step", 1), 0) == n
+        assert moved.get(("table", 2, 2), 0) == n
+        assert (n > 0) == (smooth_param is None)
 
 
 def test_tuned_fit_imports_no_torch_dynamo(dev, tmp_path):

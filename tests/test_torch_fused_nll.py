@@ -402,3 +402,29 @@ def test_table_paired_refuses_cuda_without_a_card():
         fused_nll.table_paired(*[_FakeCuda(x) for x in _table_operands(np.random.default_rng(0), 2, 1, 2, 2)],
                                3, -8.0, 8.0)
     assert tracing.snapshot() == before
+
+
+def test_adam_step_refuses_cuda_without_a_card():
+    """A CUDA float32 state for the s-optimizer's Adam step reaches the
+    kernel path and fails there, never stepping through the plain version;
+    a log s in another float type, a mask of the wrong shape, type or
+    device, and blocks of no member are refused first."""
+    from eks_tpu_torch.ops import adam_step
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible; tests/test_torch_cuda_kernels.py runs the kernel")
+    s_log, mask = torch.zeros(3), torch.ones(6)
+    before = tracing.snapshot()
+    with pytest.raises((RuntimeError, AssertionError)):
+        adam_step.AdamStep(_FakeCuda(s_log), _FakeCuda(mask), 2, 0.25, 1e-2, 10)
+    for bad_s, bad_mask, b_max, err in (
+        (s_log.half(), mask, 2, TypeError),
+        (s_log, torch.ones(5), 2, ValueError),
+        (s_log, mask.double(), 2, TypeError),
+        (s_log, torch.ones(3), 0, ValueError),
+    ):
+        with pytest.raises(err):
+            adam_step.AdamStep(_FakeCuda(bad_s), _FakeCuda(bad_mask), b_max, 0.25, 1e-2, 10)
+    with pytest.raises(ValueError):  # the mask on another device
+        adam_step.AdamStep(_FakeCuda(s_log), mask, 2, 0.25, 1e-2, 10)
+    assert tracing.snapshot() == before

@@ -23,6 +23,7 @@ import eks_tpu_torch
 from eks_tpu_torch import core, tracing
 from eks_tpu_torch.marker_array import MarkerArray
 from eks_tpu_torch.models import ibl_pupil
+from eks_tpu_torch.ops.adam_step import MemberNLL
 from eks_tpu_torch.utils import make_dlc_pandas_index
 
 STAGES = ["prep", "optimizer", "final_pass", "package", "table"]
@@ -149,10 +150,12 @@ def test_sessions_and_file_entry_points_record_read_write_and_tables(tmp_path):
 
 
 def _quadratic(target):
-    def loss_and_grad(s):
+    """The s-optimizer's loss as its Adam step takes it, one member a block:
+    log-likelihood -(s - target)^2 and its derivative."""
+    def member_lls(s):
         d = s - target
-        return d * d, 2 * d
-    return loss_and_grad
+        return -(d * d), -2 * d
+    return MemberNLL(member_lls, torch.ones_like(target), 1)
 
 
 def test_untraced_adam_loop_reads_no_clock_syncs_nothing_and_records_nothing(monkeypatch):
@@ -265,5 +268,5 @@ def test_a_call_on_the_card_counts_its_launches_by_instance(dev):
         _singlecam_array(np.random.default_rng(3), T=500), ["a", "b", "c"], device="cuda", timings=timings)
     n = timings["adam_iters"]
     assert n > 0
-    assert timings["counts"] == {("table", 2, 2): n, ("A", 2, 2, True): n, ("scan", "filter", False, 2): 1,
-                                 ("scan", "smoother", False, 2): 1}
+    assert timings["counts"] == {("table", 2, 2): n, ("A", 2, 2, True): n, ("adam_step", 1): n,
+                                 ("scan", "filter", False, 2): 1, ("scan", "smoother", False, 2): 1}
