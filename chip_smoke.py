@@ -152,7 +152,7 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
      ``fit_eks_mirrored_multicam`` with those arguments (1e-6);
  22. multi-device smoothing (``eks_tpu_torch/parallel``), after phase 20:
      prints the card count and the meshes it runs (four shards on cuda:0
-     through ``parallel.mesh`` on any host; on a host with several cards
+     through ``ops.shards`` on any host; on a host with several cards
      also ``devices=min(4, count)``, a card each), and on a one-card host
      holds that ``devices=2`` raises ValueError; holds the carried scan
      (``prefix_scan.cu``'s phase A, then its downsweep from a carry) and its
@@ -1296,7 +1296,7 @@ def main() -> int:
         from eks_tpu_torch.core import run_kalman_smoother
         from eks_tpu_torch.models import ibl_pupil, multicam
         from eks_tpu_torch import tracing
-        from eks_tpu_torch.ops import cuda_build, fused_filter, fused_nll, pkalman
+        from eks_tpu_torch.ops import cuda_build, filters, fused_filter, fused_nll, pkalman
         from eks_tpu_torch.ops.kalman import kalman_smoother
     except ImportError as exc:
         print(f"chip_smoke: run from a checkout of the repository ({exc})", file=sys.stderr)
@@ -1833,7 +1833,7 @@ def main() -> int:
         }
         b3[n]["ok"] = b3[n]["ok"] and b3[n]["deterministic"]
         # and the smoother instance on the same final pass's elements
-        fr_p = pkalman.kalman_filter_parallel(y_p, m0_p, S0_p, A_p, Q_p, C_p.expand(n, 8, 3), r_p,
+        fr_p = filters.kalman_filter_parallel(y_p, m0_p, S0_p, A_p, Q_p, C_p.expand(n, 8, 3), r_p,
                                               compute_ll=False)
         sm_pupil[n] = scan_check(
             "smoother", pkalman._make_smoother_elements(fr_p.filtered_means, fr_p.filtered_covs, A_p, Q_p))
@@ -2216,13 +2216,13 @@ def main() -> int:
         return tab.contiguous(), dtab.contiguous(), ys_c.transpose(1, 2).contiguous(), sl0, pack_c
 
     # smoother at D = 2: the headline final pass's shape (20 lanes)
-    fr2 = pkalman.kalman_filter_parallel(ys_t, m0_t, S0_t, A_t, Q_t, C_t, rtv_t, compute_ll=False)
+    fr2 = filters.kalman_filter_parallel(ys_t, m0_t, S0_t, A_t, Q_t, C_t, rtv_t, compute_ll=False)
     sm2 = scan_check("smoother", pkalman._make_smoother_elements(fr2.filtered_means, fr2.filtered_covs, A_t, Q_t))
     # smoother at D = 3: the two-camera final pass's shape (10 lanes)
     _, ys_m, ev_m, m0_m, S0_m, A_m, Q_m, C_m, _ = mc_prep(CAMS_MC)
     tab_m, dtab_m, y_m_pl, sl0_m, pack_m = mc_optimizer_operands(CAMS_MC)
     sQ_m = torch.exp(sl0_m)[:, None, None] * Q_m
-    fr3 = pkalman.kalman_filter_parallel(ys_m, m0_m, S0_m, A_m, sQ_m, C_m, torch.clamp(ev_m, min=1e-12),
+    fr3 = filters.kalman_filter_parallel(ys_m, m0_m, S0_m, A_m, sQ_m, C_m, torch.clamp(ev_m, min=1e-12),
                                          compute_ll=False)
     sm3 = scan_check("smoother", pkalman._make_smoother_elements(fr3.filtered_means, fr3.filtered_covs, A_m, sQ_m))
     # the float filter scan at D = 3 on the multi-camera final passes' own
@@ -2237,7 +2237,7 @@ def main() -> int:
     sQ_w = torch.exp(sl0_w)[:, None, None] * Q_w
     r_w = torch.clamp(ev_w, min=1e-12)
     ff3_w = scan_check("filter", pkalman._make_filter_elements(ys_w, m0_w, S0_w, A_w, sQ_w, C_w, r_w))
-    fr3_w = pkalman.kalman_filter_parallel(ys_w, m0_w, S0_w, A_w, sQ_w, C_w, r_w, compute_ll=False)
+    fr3_w = filters.kalman_filter_parallel(ys_w, m0_w, S0_w, A_w, sQ_w, C_w, r_w, compute_ll=False)
     sm3_w = scan_check("smoother", pkalman._make_smoother_elements(
         fr3_w.filtered_means, fr3_w.filtered_covs, A_w, sQ_w))
     rows_w, drows_w = torch.func.jvp(lambda tab: pkalman._table_planes(tab, y_w_pl, 3), (tab_w,), (dtab_w,))
@@ -2253,7 +2253,7 @@ def main() -> int:
     sp3 = scan_check("smoother", *along_log_s(lambda sl: pkalman._make_smoother_elements(
         fr3.filtered_means, fr3.filtered_covs, A_m, torch.exp(sl)[:, None, None] * sQ_m), K_MC))
     # and the staged loss around it against the same on the plain scan
-    sll_k, sdll_k = pkalman._staged_nll_paired(tab_w, dtab_w, y_w_pl)
+    sll_k, sdll_k = filters._staged_nll_paired(tab_w, dtab_w, y_w_pl)
     sll_p, sdll_p = fused_nll._fused_nll_paired_plain(tab_w, dtab_w, y_w_pl)
     _, sdll_64 = fused_nll._fused_nll_paired_plain(tab_w.double(), dtab_w.double(), y_w_pl.double())
     torch.cuda.synchronize()
@@ -2262,7 +2262,7 @@ def main() -> int:
         "ll_rel_err": rel_err(sll_k, sll_p)[1], "dll_rel_err": rel_err(sdll_k, sdll_p)[1],
         "dll_rel_err_kernel_vs_f64_plain": rel_err(sdll_k.double(), sdll_64)[1],
         "dll_rel_err_plain_vs_f64_plain": rel_err(sdll_p.double(), sdll_64)[1],
-        "ms": time_cuda(torch, lambda: pkalman._staged_nll_paired(tab_w, dtab_w, y_w_pl), 5),
+        "ms": time_cuda(torch, lambda: filters._staged_nll_paired(tab_w, dtab_w, y_w_pl), 5),
     }
     staged["ok"] = (staged["ll_rel_err"] <= RTOL_NLL_TV
                     and dll_ok(CAMS_MC_WIDE, staged["dll_rel_err_kernel_vs_f64_plain"],
@@ -2405,7 +2405,7 @@ def main() -> int:
     def elems_1(sl):
         return pkalman._make_filter_elements(ys_1, m0_1, S0_1, A_1, torch.exp(sl)[:, None, None] * Q_1, C_1, r_1)
 
-    fr_1 = pkalman.kalman_filter_parallel(ys_1, m0_1, S0_1, A_1, torch.exp(sl0_1)[:, None, None] * Q_1, C_1, r_1,
+    fr_1 = filters.kalman_filter_parallel(ys_1, m0_1, S0_1, A_1, torch.exp(sl0_1)[:, None, None] * Q_1, C_1, r_1,
                                           compute_ll=False)
 
     def smoother_elems_1(sl):
@@ -2871,19 +2871,19 @@ def main() -> int:
     })
 
     # --------------------------------------------------------------- 22 ---
-    # multi-device smoothing (parallel/mesh.py): the carried scan against its
+    # multi-device smoothing (ops/shards.py): the carried scan against its
     # plain version, the sharded scans against the unsharded kernel scan, and
     # the headline (keypoint and time axis), pupil (time axis), two-camera and
     # calibrated (keypoint axis) runs over four shards, each against its
     # one-device run, and the command line with --devices. Four shards sit
-    # on cuda:0 through parallel.mesh on any host (the counterpart of the JAX
+    # on cuda:0 through ops.shards on any host (the counterpart of the JAX
     # tests' virtual devices); a host with several cards runs the public
     # devices=min(4, count) too, each shard on a card of its own
     from unittest import mock
 
     from eks_tpu_torch.cli.main import main as cli_main
     from eks_tpu_torch.models.singlecam import _prep_singlecam
-    from eks_tpu_torch.parallel import mesh as pmesh
+    from eks_tpu_torch.ops import shards
 
     t_phase22 = time.perf_counter()
     n_cards = torch.cuda.device_count()
@@ -2891,12 +2891,12 @@ def main() -> int:
     @contextlib.contextmanager
     def four_shards_on_card0():
         """``devices=n`` through the entry points gives n shards of cuda:0."""
-        real = pmesh.make_mesh
-        pmesh.make_mesh = lambda n_devices=None, device="cuda": (dev,) * int(n_devices)
+        real = shards.make_mesh
+        shards.make_mesh = lambda n_devices=None, device="cuda": (dev,) * int(n_devices)
         try:
             yield
         finally:
-            pmesh.make_mesh = real
+            shards.make_mesh = real
 
     setups = [("4_shards_on_cuda0", 4, four_shards_on_card0)]
     if n_cards >= 2:
@@ -2912,9 +2912,9 @@ def main() -> int:
             one_card_refusal = str(exc)
         if "requested 2 devices but only 1 available" not in one_card_refusal:
             raise AssertionError(f"devices=2 on a one-card host did not raise as it should: {one_card_refusal}")
-    cuda_only = all(d.type == "cuda" for d in pmesh.make_mesh(n_cards, "cuda"))
+    cuda_only = all(d.type == "cuda" for d in shards.make_mesh(n_cards, "cuda"))
     emit({"phase": "parallel_setup", "card_count": n_cards, "setups": [s[0] for s in setups],
-          "meshes": {name: [str(d) for d in (pmesh.make_mesh(n, "cuda") if name.endswith("cards") else (dev,) * n)]
+          "meshes": {name: [str(d) for d in (shards.make_mesh(n, "cuda") if name.endswith("cards") else (dev,) * n)]
                      for name, n, _ in setups},
           "shards_on_distinct_cards": {name: name.endswith("cards") for name, _, _ in setups},
           "one_card_devices_2": one_card_refusal, "mesh_is_cuda_only": cuda_only, "card": card})
@@ -3039,8 +3039,8 @@ def main() -> int:
         planes_w, tangents_w = carry_ops[(kind, 2)][4:]
         chunks = [x.contiguous() for x in torch.tensor_split(planes_w, 4, dim=-1)]
         dchunks = [x.contiguous() for x in torch.tensor_split(tangents_w, 4, dim=-1)]
-        sharded = pmesh.filter_prefix_sharded if kind == "filter" else pmesh.smoother_suffix_sharded
-        sharded_p = pmesh.filter_prefix_paired_sharded if kind == "filter" else pmesh.smoother_suffix_paired_sharded
+        sharded = shards.filter_prefix_sharded if kind == "filter" else shards.smoother_suffix_sharded
+        sharded_p = shards.filter_prefix_paired_sharded if kind == "filter" else shards.smoother_suffix_paired_sharded
         whole = fused_filter.filter_prefix if kind == "filter" else fused_filter.smoother_suffix
         whole_p = fused_filter.filter_prefix_paired if kind == "filter" else fused_filter.smoother_suffix_paired
         got = torch.cat(sharded(chunks), dim=-1)

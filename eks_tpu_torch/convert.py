@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from eks_tpu_torch.ops.pkalman import _scalar_offsets_tv, _table_dims
+
 __all__ = [
     "multicam_params_from_numpy",
     "params_from_numpy",
@@ -73,8 +75,6 @@ def tv_scalar_table_from_numpy(scal, O: int, device: str | torch.device = "cpu")
     layout of ``ops/pkalman.py::_scalar_offsets_tv`` (the same as the JAX
     package's ``_pack_scalars_tv``: 84 floats at D = 3, O = 8), as a
     contiguous float32 tensor."""
-    from eks_tpu_torch.ops.pkalman import _scalar_offsets_tv, _table_dims
-
     scal = np.asarray(scal)
     if scal.ndim != 2:
         raise ValueError(f"expected an (N, n_scal) table, got shape {scal.shape}")

@@ -26,8 +26,9 @@ at more than eight observations through the staged plane NLL and the paired
 lane-batched scan; its derivative is forward-mode, from the scalar table's
 tangent. At kernel A's shapes the table and its tangent are one launch of
 the table kernel on the card; beyond them, forward mode through
-``pkalman._pack_scalars`` (``pkalman.scalar_table_paired`` chooses). With a
-nonlinear emission ``h_fn`` (the calibrated multi-camera family) the loss is
+``pkalman._pack_scalars`` (``filters.linear_member_lls`` chooses, once per
+optimizer call). With a nonlinear emission ``h_fn`` (the calibrated
+multi-camera family) the loss is
 the iterated-EKF plane NLL, relinearized ``_EKF_OPT_SWEEPS_WARM + 1`` times
 per evaluation from a given linearization trajectory ``x_init``
 (``_EKF_OPT_SWEEPS_COLD + 1`` from the broadcast prior), each sweep one
@@ -35,10 +36,11 @@ paired lane-batched scan; the final pass is the iterated parallel EKF
 smoother, started from the broadcast prior.
 
 With ``devices`` > 1 the smoothing step is sharded over a mesh of that many
-devices (``parallel/mesh.py``): the keypoint axis (``partition="keypoint"``,
-each shard the whole single-device pipeline on its own lanes) or the time
+devices (``ops/shards.py``): the keypoint axis (``partition="keypoint"``,
+each shard the whole single-device pipeline on its own lanes:
+``optimize_blocks_sharded`` and ``smooth_all_sharded`` here) or the time
 axis (``partition="time"``, every scan of the loss and the final pass split
-into chunks with carries across them).
+into chunks with carries across them, in ``ops/filters.py``).
 """
 
 from __future__ import annotations
@@ -51,18 +53,17 @@ import torch
 
 from eks_tpu_torch import tracing
 from eks_tpu_torch.marker_array import MarkerArray
+from eks_tpu_torch.ops import shards
 from eks_tpu_torch.ops.adam_step import B1, B2, EPS, AdamState, AdamStep, MemberNLL, adam_state
-from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
-from eks_tpu_torch.ops.linalg import jvp
-from eks_tpu_torch.ops.pkalman import (
+from eks_tpu_torch.ops.filters import (
     ekf_nll_paired_batched,
     eks_parallel,
-    filter_nll_paired_batched,
     kalman_smoother_parallel,
-    paired_scaled_q,
-    scalar_table_paired,
-    _staged_nll_paired,
+    linear_member_lls,
 )
+from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
+from eks_tpu_torch.ops.linalg import jvp
+from eks_tpu_torch.ops.pkalman import paired_scaled_q
 from eks_tpu_torch.utils import crop_frames
 
 logger = logging.getLogger(__name__)
@@ -71,8 +72,10 @@ __all__ = [
     "compute_initial_guesses",
     "constant_R_from_timevarying",
     "ensemble",
+    "optimize_blocks_sharded",
     "optimize_smooth_param",
     "run_kalman_smoother",
+    "smooth_all_sharded",
 ]
 
 # --------------------------------------------------------------------------- #
@@ -377,22 +380,19 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
     forward-mode table and the staged plane NLL with one paired lane-batched
     scan launch. With a nonlinear
     emission ``h_fn`` (``CB`` is not read) it is the iterated-EKF NLL
-    (``pkalman.ekf_nll_paired_batched``: one paired lane-batched scan per
+    (``filters.ekf_nll_paired_batched``: one paired lane-batched scan per
     sweep), relinearized from ``xB`` (n_blocks, B_max, T, D), or from the
     broadcast prior where that is None. ``sequential`` takes the
     float64-oracle sequential filter instead. Non-finite member NLLs count
     as 1e12 with a zero gradient. With ``time_mesh`` the loss's time axis is
     split over its devices (the staged loss over the sharded paired scan in
     the place of kernel A, or the time-sharded EKF loss); the sequential
-    oracle runs unsharded."""
+    oracle runs unsharded. The linear loss's route is
+    ``filters.linear_member_lls``'s."""
     n_blocks, b_max = yB.shape[:2]
     n_flat = n_blocks * b_max
     T, D = yB.shape[2], m0B.shape[-1]
-    shards = None
-    if time_mesh is not None and not sequential:
-        from eks_tpu_torch.parallel.mesh import TimeShards
-
-        shards = TimeShards(time_mesh, T)
+    time_shards = None if time_mesh is None or sequential else shards.TimeShards(time_mesh, T)
 
     def flat(x):
         return x.reshape((n_flat,) + tuple(x.shape[2:]))
@@ -416,19 +416,36 @@ def _optimize_blocks_joint(yB, rB, m0B, S0B, AB, QB, CB, maskB, s_log_init,
         def member_lls(s_log):
             sQ, dsQ = paired_scaled_q(s_log, QF, b_max, s_lo, s_hi)
             return ekf_nll_paired_batched(yF, m0F, S0F, AF, sQ, dsQ, h_fn, rF, xF, n_sweeps=n_sweeps,
-                                          shards=shards)
+                                          shards=time_shards)
     else:
-        y_planes = yF.transpose(1, 2).contiguous()
-        y0F = yF[:, 0].contiguous()
-
-        def member_lls(s_log):
-            table, dtable = scalar_table_paired(s_log, y0F, m0F, S0F, AF, QF, CF, rF, b_max, s_lo, s_hi)
-            if shards is not None:
-                return _staged_nll_paired(table, dtable, y_planes, shards)
-            return filter_nll_paired_batched(table.contiguous(), dtable.contiguous(), y_planes)
+        member_lls = linear_member_lls(yF, rF, m0F, S0F, AF, QF, CF, b_max, s_lo, s_hi, time_shards)
 
     return _joint_masked_adam(MemberNLL(member_lls, maskF.contiguous(), b_max), s_log_init, lr, tol, safety_cap,
                               timings)
+
+
+def optimize_blocks_sharded(mesh: tuple, operands: list, timings: dict | None = None, **opts):
+    """``_optimize_blocks_joint`` with the block axis of ``operands`` (yB,
+    rB, m0B, S0B, AB, QB, CB, maskB, s_log_init, xB (or None)) split over
+    the mesh (``shards.split_leading``): every shard's Adam loop runs on its
+    device and stops when its own blocks converge. Returns (log s, last
+    loss, iterations) per block on the device of ``operands[0]``; with
+    ``timings``, "adam_iters_per_shard" and "adam_iters" (their maximum)."""
+    home = operands[0].device
+    devices, parts = shards.split_leading(mesh, operands)
+    h_fn = opts.pop("h_fn", None)
+    shard_timings = [{} for _ in devices]
+
+    def run(i, ops, tm):
+        *arrays, s_log_init, xB = ops
+        return _optimize_blocks_joint(*arrays, s_log_init, h_fn=shards.emission_on(h_fn, devices[i]), xB=xB,
+                                      timings=tm, **opts)
+
+    results = shards.map_shards(run, devices, parts, shard_timings)
+    if timings is not None:
+        timings["adam_iters_per_shard"] = [tm.get("adam_iters", 0) for tm in shard_timings]
+        timings["adam_iters"] = max(timings["adam_iters_per_shard"])
+    return tuple(torch.cat([r[j].to(home) for r in results]) for j in range(3))
 
 
 def optimize_smooth_param(
@@ -459,7 +476,7 @@ def optimize_smooth_param(
     singleton blocks. With ``h_fn`` (a nonlinear emission) the loss is the
     iterated EKF's, relinearized from ``x_init`` (the calibrated family's
     triangulated trajectories, cropped with ``ys``) when given. With
-    ``mesh`` (``parallel.make_mesh``) the block axis (``partition=
+    ``mesh`` (``ops.shards.make_mesh``) the block axis (``partition=
     "keypoint"``: each shard's Adam loop on its device; no block is split)
     or the loss's time axis (``"time"``) is sharded over it; ``timings``
     then gets the per-shard Adam iterations ("adam_iters_per_shard")."""
@@ -501,8 +518,6 @@ def optimize_smooth_param(
     operands = [y_cropped[idx_t], r_const[idx_t], m0s[idx_t], S0s[idx_t], As[idx_t],
                 Qs[idx_t], Cs[idx_t], mask_t, s_log_init]
     if mesh is not None and partition == "keypoint":
-        from eks_tpu_torch.parallel.mesh import optimize_blocks_sharded
-
         s_log_f, last_loss, iters = optimize_blocks_sharded(
             mesh, operands + [xB], h_fn=h_fn, timings=timings, **opts)
     else:
@@ -536,18 +551,27 @@ def _smooth_all(ys, m0s, S0s, As, Qs, Cs, s_finals, rs, h_fn=None, sequential=Fa
     prior (12 relinearizations, then the last). With ``time_mesh`` the time
     axis is split over its devices (the sequential oracle runs unsharded)."""
     sQ = s_finals[:, None, None] * Qs
-    shards = None
-    if time_mesh is not None:
-        from eks_tpu_torch.parallel.mesh import TimeShards
-
-        shards = TimeShards(time_mesh, ys.shape[1])
+    time_shards = None if time_mesh is None else shards.TimeShards(time_mesh, ys.shape[1])
     if sequential:
         res = kalman_smoother(ys, m0s, S0s, As, sQ, Cs, rs, h_fn=h_fn)
     elif h_fn is not None:
-        res = eks_parallel(ys, m0s, S0s, As, sQ, h_fn, rs, shards=shards)
+        res = eks_parallel(ys, m0s, S0s, As, sQ, h_fn, rs, shards=time_shards)
     else:
-        res = kalman_smoother_parallel(ys, m0s, S0s, As, sQ, Cs, rs, shards)
+        res = kalman_smoother_parallel(ys, m0s, S0s, As, sQ, Cs, rs, time_shards)
     return res.smoothed_means, res.smoothed_covs
+
+
+def smooth_all_sharded(mesh: tuple, operands: list, h_fn=None, sequential: bool = False):
+    """``_smooth_all`` with the lane axis of ``operands`` (ys, m0s, S0s, As,
+    Qs, Cs, s_finals, rs) split over the mesh (``shards.split_leading``),
+    each shard on its device. Returns smoothed means and covariances on the
+    device of ``operands[0]``."""
+    home = operands[0].device
+    devices, parts = shards.split_leading(mesh, operands)
+    results = shards.map_shards(
+        lambda i, ops: _smooth_all(*ops, h_fn=shards.emission_on(h_fn, devices[i]), sequential=sequential),
+        devices, parts)
+    return tuple(torch.cat([r[j].to(home) for r in results]) for j in range(2))
 
 
 @tracing.entry_point
@@ -586,7 +610,7 @@ def run_kalman_smoother(
     (``eks_tpu_torch.tracing``), and this call's kernel launches.
 
     ``devices`` > 1 shards the work over a mesh of that many devices of the
-    type of ``ys``'s (``parallel.make_mesh``: it raises when the host has
+    type of ``ys``'s (``ops.shards.make_mesh``: it raises when the host has
     fewer cards, and never puts work on the CPU when a card was asked for);
     ``partition`` picks the axis: ``"keypoint"`` (data parallelism over the
     independent lanes, the default, right whenever K >= devices) or
@@ -603,9 +627,7 @@ def run_kalman_smoother(
     dev, dt = ys.device, ys.dtype
     mesh = None
     if devices is not None and devices > 1:
-        from eks_tpu_torch.parallel.mesh import make_mesh
-
-        mesh = make_mesh(devices, dev)
+        mesh = shards.make_mesh(devices, dev)
         logger.info(f"{partition}-axis sharding over {devices} devices: {[str(d) for d in mesh]}")
     synced = (dev,) + (mesh or ())
     if ensemble_vars.shape[0] < 2:
@@ -631,8 +653,6 @@ def run_kalman_smoother(
     span = tracing.begin(timings, "final_pass")
     rs = torch.clamp(ensemble_vars.transpose(0, 1), min=1e-12).contiguous()  # (K, T, O)
     if mesh is not None and partition == "keypoint":
-        from eks_tpu_torch.parallel.mesh import smooth_all_sharded
-
         ms, Vs = smooth_all_sharded(mesh, [ys, m0s, S0s, As, Qs, Cs, s_finals, rs], h_fn=h_fn,
                                     sequential=sequential)
     else:

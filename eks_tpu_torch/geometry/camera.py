@@ -28,6 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from eks_tpu_torch.geometry.triangulate import triangulate_dlt
 from eks_tpu_torch.ops.linalg import one_plus
 
 __all__ = [
@@ -288,8 +289,6 @@ class CameraGroup:
         array, computed in ``dtype`` on ``device``. Points with NaN in any
         coordinate are dropped per camera; rows with fewer than 2 valid
         views come back NaN (aniposelib.triangulate semantics)."""
-        from eks_tpu_torch.geometry.triangulate import triangulate_dlt
-
         pts = _as(points, device=device, dtype=dtype)
         if undistort:
             pts = torch.stack([cam.undistort(pts[c]) for c, cam in enumerate(self.cameras)])

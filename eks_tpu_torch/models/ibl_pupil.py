@@ -18,7 +18,7 @@ final pass's forward filter is the prefix-scan kernel at D = 3 (kernel B,
 ``ops/fused_filter.py``). Several sessions of equal length share one Adam
 loop, each stopping by its own rule. With ``devices`` > 1 the frame axis,
 the model's only shardable axis, is split over a mesh of that many devices
-(``parallel/mesh.py``) for both stages: the loss is then the staged
+(``ops/shards.py``) for both stages: the loss is then the staged
 time-varying-R NLL over the sharded paired scan (kernel C, which fuses a
 lane's whole T, cannot span the shards), and the final pass the time-sharded
 smoother.
@@ -47,15 +47,12 @@ import torch
 from eks_tpu_torch import tracing
 from eks_tpu_torch.core import _joint_masked_adam, ensemble
 from eks_tpu_torch.marker_array import MarkerArray, input_dfs_to_markerArray
+from eks_tpu_torch.ops import shards
+from eks_tpu_torch.ops.filters import kalman_smoother_parallel, table_nll_tv_paired_sharded
 from eks_tpu_torch.ops.fused_nll import fused_nll_tv_paired
 from eks_tpu_torch.ops.kalman import kalman_smoother
 from eks_tpu_torch.ops.linalg import jvp
-from eks_tpu_torch.ops.pkalman import (
-    _pack_scalars_tv,
-    _prior_information,
-    kalman_smoother_parallel,
-    table_nll_tv_paired_sharded,
-)
+from eks_tpu_torch.ops.pkalman import _pack_scalars_tv, _prior_information
 from eks_tpu_torch.utils import (
     crop_frames,
     format_data,
@@ -454,18 +451,14 @@ def _pupil_optimize(y_loss, r_loss, m0, S0, C, u0, diameters_var, x_var, y_var,
     its devices. Returns (s (N, 2), last_loss (N,), iters (N,))."""
     N = y_loss.shape[0]
     yr2, tables, tangents = _pupil_lanes(y_loss, r_loss, m0, S0, C, diameters_var, x_var, y_var)
-    shards = None
-    if time_mesh is not None:
-        from eks_tpu_torch.parallel.mesh import TimeShards
-
-        shards = TimeShards(time_mesh, yr2.shape[-1])
+    time_shards = None if time_mesh is None else shards.TimeShards(time_mesh, yr2.shape[-1])
 
     def loss_and_grad(u):  # (N, 2) -> losses (N,), grads (N, 2)
         table, dtable = jvp(tables, (_rep2(u),), (tangents,))
-        if shards is None:
+        if time_shards is None:
             lls, dlls = fused_nll_tv_paired(table.contiguous(), dtable.contiguous(), yr2)
         else:
-            lls, dlls = table_nll_tv_paired_sharded(table, dtable, yr2, shards)
+            lls, dlls = table_nll_tv_paired_sharded(table, dtable, yr2, time_shards)
         finite = torch.isfinite(lls)
         losses = torch.where(finite, -lls, torch.full_like(lls, 1e12))
         dirs = torch.where(finite, -dlls, torch.zeros_like(dlls))
@@ -539,10 +532,8 @@ def _time_mesh(devices: int | None, dev: torch.device) -> tuple | None:
     """The mesh that shards the frame axis for ``devices`` > 1, else None."""
     if devices is None or devices <= 1:
         return None
-    from eks_tpu_torch.parallel.mesh import make_mesh
-
     logger.info(f"pupil: frame axis sharded over {devices} devices")
-    return make_mesh(devices, dev)
+    return shards.make_mesh(devices, dev)
 
 
 def _pupil_smooth(ys, m0, S0, C, r, s_d, s_c, diameters_var, x_var, y_var,
@@ -557,10 +548,8 @@ def _pupil_smooth(ys, m0, S0, C, r, s_d, s_c, diameters_var, x_var, y_var,
     if sequential:
         res = kalman_smoother(ys, m0, S0, A, Q, Cs, r)
     else:
-        from eks_tpu_torch.parallel.mesh import TimeShards
-
-        shards = None if time_mesh is None else TimeShards(time_mesh, ys.shape[1])
-        res = kalman_smoother_parallel(ys, m0, S0, A, Q, Cs, r, shards)
+        time_shards = None if time_mesh is None else shards.TimeShards(time_mesh, ys.shape[1])
+        res = kalman_smoother_parallel(ys, m0, S0, A, Q, Cs, r, time_shards)
     return res.smoothed_means, res.smoothed_covs
 
 

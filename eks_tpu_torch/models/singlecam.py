@@ -85,7 +85,7 @@ def fit_eks_singlecam(
         avg_mode / var_mode: ensemble consensus and variance modes.
         devices / partition: shard the smoothing step over ``devices``
             devices of ``device``'s type, along the keypoint axis (the
-            default) or the time axis (``parallel/mesh.py``).
+            default) or the time axis (``ops/shards.py``).
         device: where the pipeline runs; "cuda" (the default) raises when
             no card is visible.
         timings: if a dict, the seconds of reading the CSVs into the marker

@@ -24,7 +24,7 @@ follows that dispatch by shape and runs the plain version on the card,
 counted as ``("scan_plain_route", kind)`` (the multi-camera family at
 ``n_latent`` 4 and above).
 
-A chunk of a time-sharded scan (``parallel/mesh.py``) runs the same three
+A chunk of a time-sharded scan (``ops/shards.py``) runs the same three
 launches in two phases: ``chunk_total`` (phase A: the reduce over every
 segment and the totals launch, which also writes the chunk's total in scan
 order) and ``chunk_scan`` (phase B: the downsweep from the carry of the
@@ -66,11 +66,7 @@ __all__ = [
     "filter_prefix",
     "filter_prefix_paired",
     "filter_prefix_plain",
-    "scan_carried",
-    "scan_carried_plain",
     "scan_plan",
-    "scan_total",
-    "scan_total_plain",
     "segment_partition",
     "sm_count",
     "smoother_suffix",

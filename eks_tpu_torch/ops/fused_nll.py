@@ -4,8 +4,9 @@ Kernel A: constant diagonal R (the s-optimizer's loss), instantiated at
 every D in {1, 2, 3} with O in {2, 4, 6, 8}, the shapes the JAX package's
 fused route admits: (2, 2) for the singlecam family, (D, 2C) for the linear
 multi-camera family at ``n_latent`` D with two to four cameras. More
-observations or D > 3 take the staged plane NLL of ``ops/pkalman.py``
-(``_staged_nll_paired``).
+observations or D > 3 take the staged plane NLL of ``ops/filters.py``
+(``_staged_nll_paired``); ``kernel_a_takes`` is the test, and
+``filters.linear_member_lls`` the one caller that asks it.
 
 Replaces the Pallas kernel ``eks_tpu/ops/pallas_nll.py`` ``_make_fused_kernel``
 (plain and ``paired=True``), reached in the JAX package through
@@ -30,7 +31,7 @@ instances): the s-optimizer's paired table, (table, d table / d log s), for
 every lane straight from its block's log s, in one launch. Its plain
 version is forward mode twice, ``pkalman.paired_scaled_q`` and then
 ``pkalman._pack_scalars``, what the optimizer ran before the kernel and
-still runs at shapes kernel A does not take (``pkalman.scalar_table_paired``
+still runs at shapes kernel A does not take (``filters.linear_member_lls``
 chooses).
 
 Kernel C: time-varying diagonal R (the pupil optimizer's loss). Replaces
@@ -82,6 +83,7 @@ __all__ = [
     "fused_nll_paired",
     "fused_nll_tv",
     "fused_nll_tv_paired",
+    "kernel_a_takes",
     "nll_plan",
     "table_paired",
     "table_paired_plain",
@@ -93,6 +95,12 @@ __all__ = [
 #: the JAX package's fused route; kernel C at the pupil family's (3, 8)
 _CUDA_SHAPES = tuple((D, O) for D in (1, 2, 3) for O in (2, 4, 6, 8))
 _CUDA_SHAPES_TV = ((3, 8),)
+
+
+def kernel_a_takes(D: int, O: int) -> bool:
+    """Whether kernel A and the table kernel are built for state dimension
+    D and O observations: the route test of the s-optimizer's loss."""
+    return (D, O) in _CUDA_SHAPES
 
 
 # --------------------------------------------------------------------------- #

@@ -13,7 +13,7 @@ Cholesky of five 6 x 6 matrices (one step of chip_smoke.py's float64
 sequential oracle) with torch's default thread count and with one thread,
 and holds chip_smoke.py's central-difference Jacobian against
 ``emission_jacobian`` in float64. Then it times one evaluation of the
-calibrated optimizer's paired loss (``ops.pkalman.ekf_nll_paired_batched``,
+calibrated optimizer's paired loss (``ops.filters.ekf_nll_paired_batched``,
 three sweeps: a warm-started Adam iteration) on chip_smoke.py's calibrated
 rig (5 keypoints x 10,000 frames x 3 cameras, O = 6, D = 3), and counts the
 operations that took the host's slow forward-mode path (a tensor with a
@@ -53,7 +53,7 @@ def calibrated_loss(np, torch, chip_smoke, dev, reps, sync) -> dict:
     import torch._refs as refs
 
     from eks_tpu_torch.geometry import make_projection_from_camgroup
-    from eks_tpu_torch.ops.pkalman import ekf_nll_paired_batched
+    from eks_tpu_torch.ops.filters import ekf_nll_paired_batched
 
     group, arr = chip_smoke.calibrated_rig(np, np.random.default_rng(0))
     T, K = arr.shape[2], arr.shape[3]

@@ -12,7 +12,7 @@ and the two-camera session and the calibrated rig on the keypoint axis
 capped at 3 iterations with the stop rule off. Each run goes through two
 ways of driving the shards, alternated as A B B A:
 
-- ``in_turn``: ``parallel.mesh.map_shards``, every shard in turn on the
+- ``in_turn``: ``ops.shards.map_shards``, every shard in turn on the
   calling thread, the cards overlapping through asynchronous launches;
 - ``thread_per_card``: one host thread per card (defined here), the design
   ``map_shards`` replaced.
@@ -80,7 +80,7 @@ def main() -> int:
     from eks_tpu_torch.geometry import make_projection_from_camgroup, stack_camera_params
     from eks_tpu_torch.marker_array import MarkerArray
     from eks_tpu_torch.models import ibl_pupil, multicam
-    from eks_tpu_torch.parallel import mesh as pmesh
+    from eks_tpu_torch.ops import shards
 
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n_cards < 2:
@@ -138,20 +138,20 @@ def main() -> int:
         return np_of(out), time.perf_counter() - t0
 
     one = {name: timed(fn, None) for name, fn in runs.items()}
-    in_turn = pmesh.map_shards
+    in_turn = shards.map_shards
     threaded, executors = thread_per_card(torch)
     ways = {"in_turn": in_turn, "thread_per_card": threaded}
     walls = {name: {w: [] for w in ways} for name in runs}
     results = {name: {} for name in runs}
     try:
         for way in ("in_turn", "thread_per_card", "thread_per_card", "in_turn"):
-            pmesh.map_shards = ways[way]
+            shards.map_shards = ways[way]
             for name, fn in runs.items():
                 got, wall = timed(fn, n)
                 walls[name][way].append(wall)
                 results[name].setdefault(way, got)
     finally:
-        pmesh.map_shards = in_turn
+        shards.map_shards = in_turn
         for ex in executors.values():
             ex.shutdown()
 

@@ -1,7 +1,7 @@
 """The PyTorch port's calibrated multi-camera family against the JAX package
 and the committed reference goldens, on identical numpy inputs made from a
 seed: the iterated-EKF loss with its hand-paired derivative
-(ops/pkalman.py), the iterated parallel EKF filter and smoother, the device
+(ops/filters.py), the iterated parallel EKF filter and smoother, the device
 prep and packaging (models/multicam.py), and the family end to end on the
 bundled data/multicam session cropped to 200 frames. On the CPU the scans
 run as their plain versions."""
@@ -27,7 +27,7 @@ from eks_tpu_torch.core import run_kalman_smoother
 from eks_tpu_torch.geometry import CameraGroup, make_projection_from_camgroup, stack_camera_params
 from eks_tpu_torch.marker_array import MarkerArray
 from eks_tpu_torch.models import multicam
-from eks_tpu_torch.ops import pkalman
+from eks_tpu_torch.ops import filters
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
 from tests.integration.conftest import DATA, GOLDEN_DIR
 from tests.integration.cropping import make_cropped_session
@@ -85,8 +85,8 @@ def test_ekf_warm_loss_and_paired_derivative_match_jax(rig):
     f = lambda q: jax_pkalman.ekf_nll_parallel_planes_batched(ys, m0, S0, A, q, rig["hj"], r, x)  # noqa: E731
     ll_j, dll_j = jax.jvp(f, (jnp.asarray(Q),), (jnp.asarray(Q),))
     t = [torch.as_tensor(a) for a in (ys, m0, S0, A, Q, r, x)]
-    ll, dll = pkalman.ekf_nll_paired_batched(*t[:5], t[4], rig["h32"], t[5], t[6], n_sweeps=3)
-    ll_plain = pkalman.ekf_nll_parallel_planes_batched(*t[:5], rig["h32"], t[5], t[6], n_sweeps=3)
+    ll, dll = filters.ekf_nll_paired_batched(*t[:5], t[4], rig["h32"], t[5], t[6], n_sweeps=3)
+    ll_plain = filters.ekf_nll_parallel_planes_batched(*t[:5], rig["h32"], t[5], t[6], n_sweeps=3)
     np.testing.assert_array_equal(ll_plain.numpy(), ll.numpy())
     assert _rel(ll.numpy(), np.asarray(ll_j)) <= 2e-6
     assert _rel(dll.numpy(), np.asarray(dll_j)) <= 1e-5
@@ -121,11 +121,11 @@ def test_ekf_cold_loss_filter_and_smoother_match_jax_and_sequential(rig):
     want = [np.asarray(w) for w in want]
     t = [torch.as_tensor(a) for a in (ys, m0, S0, A, Q, r, r_tv)]
     x_prior = t[1][:, None].expand(-1, ys.shape[1], -1)
-    ll, dll = pkalman.ekf_nll_paired_batched(*t[:5], t[4], rig["h32"], t[5], x_prior, n_sweeps=13)
+    ll, dll = filters.ekf_nll_paired_batched(*t[:5], t[4], rig["h32"], t[5], x_prior, n_sweeps=13)
     assert _rel(ll.numpy(), want[0]) <= 2e-6
     assert _rel(dll.numpy(), np.asarray(dll_j)) <= 1e-5
-    fr = pkalman.ekf_parallel(*t[:5], rig["h32"], t[6])
-    sr = pkalman.eks_parallel(*t[:5], rig["h32"], t[6])
+    fr = filters.ekf_parallel(*t[:5], rig["h32"], t[6])
+    sr = filters.eks_parallel(*t[:5], rig["h32"], t[6])
     assert sr.log_likelihood is None
     assert _rel(fr.log_likelihood.numpy(), want[0]) <= 2e-6
     for got, w, atol in ((fr.filtered_means, want[1], 1e-4), (fr.filtered_covs, want[2], 1e-7),
@@ -136,8 +136,8 @@ def test_ekf_cold_loss_filter_and_smoother_match_jax_and_sequential(rig):
     seq = kalman_smoother(*t64[:5], None, t64[6], h_fn=rig["h64"])
     seq_f = kalman_filter(*t64[:5], None, t64[5], h_fn=rig["h64"])
     np.testing.assert_array_equal(seq_f.log_likelihood.numpy(), seq.log_likelihood.numpy())
-    fr64 = pkalman.ekf_parallel(*t64[:5], rig["h64"], t64[6], n_iters=30)
-    sr64 = pkalman.eks_parallel(*t64[:5], rig["h64"], t64[6], n_iters=30)
+    fr64 = filters.ekf_parallel(*t64[:5], rig["h64"], t64[6], n_iters=30)
+    sr64 = filters.eks_parallel(*t64[:5], rig["h64"], t64[6], n_iters=30)
     np.testing.assert_allclose(fr64.log_likelihood.numpy(), seq.log_likelihood.numpy(), rtol=1e-9)
     for got, w in ((fr64.filtered_means, seq.filtered_means), (fr64.filtered_covs, seq.filtered_covs),
                    (sr64.smoothed_means, seq.smoothed_means), (sr64.smoothed_covs, seq.smoothed_covs)):
@@ -152,10 +152,10 @@ def test_ekf_paired_derivative_is_the_whole_loss_float64(rig):
     ys, m0, S0, A, Q, r, x = (torch.as_tensor(a, dtype=torch.float64) for a in _lanes(rig["h64"]))
     h = rig["h64"]
     for x_init, n_sweeps in ((x, 3), (m0[:, None].expand_as(x), 6)):
-        _, dll = pkalman.ekf_nll_paired_batched(ys, m0, S0, A, Q, Q, h, r, x_init, n_sweeps=n_sweeps)
+        _, dll = filters.ekf_nll_paired_batched(ys, m0, S0, A, Q, Q, h, r, x_init, n_sweeps=n_sweeps)
 
         def loss(log_s):
-            return pkalman.ekf_nll_parallel_planes_batched(ys, m0, S0, A, math.exp(log_s) * Q, h, r, x_init,
+            return filters.ekf_nll_parallel_planes_batched(ys, m0, S0, A, math.exp(log_s) * Q, h, r, x_init,
                                                            n_sweeps=n_sweeps)
 
         eps = 1e-5

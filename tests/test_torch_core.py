@@ -191,7 +191,7 @@ def test_joint_masked_adam_matches_jax_optimizer_loop(monkeypatch):
         return torch.func.jvp(ll, (table,), (dtable,))
 
     monkeypatch.setattr(fused_nll, "_pack_scalars", fake_pack)
-    monkeypatch.setattr(core, "filter_nll_paired_batched", fake_paired)
+    monkeypatch.setattr(fused_nll, "fused_nll_paired", fake_paired)
     t = torch.as_tensor
     sp, lp, ip = core._optimize_blocks_joint(
         t(yB), t(rB), t(m0B), t(S0B), t(S0B), t(QB), t(S0B), t(mask), t(s0),
@@ -219,7 +219,7 @@ def test_non_finite_member_nll_counts_as_penalty(monkeypatch):
         return torch.where(bad, float("nan"), ll), dll
 
     monkeypatch.setattr(fused_nll, "_pack_scalars", fake_pack)
-    monkeypatch.setattr(core, "filter_nll_paired_batched", fake_paired)
+    monkeypatch.setattr(fused_nll, "fused_nll_paired", fake_paired)
     t = torch.as_tensor
     s, loss, iters = core._optimize_blocks_joint(
         t(yB), t(rB), t(m0B), t(S0B), t(S0B), t(QB), t(S0B), t(mask), t(s0),

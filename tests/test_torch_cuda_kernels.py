@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from eks_tpu_torch import core, tracing
-from eks_tpu_torch.ops import adam_step, fused_filter, fused_nll, pkalman
+from eks_tpu_torch.ops import adam_step, filters, fused_filter, fused_nll, pkalman, shards
 
 pytestmark = pytest.mark.cuda
 
@@ -210,23 +210,23 @@ def test_staged_nll_at_n_latent_4_takes_the_plain_route(dev):
     staged plane NLL, and its paired scan the plain version on the card,
     counted as the plain route; no kernel launches. The final pass's two
     scans too."""
-    table, dtable, y = _nll_operands(dev, 3, 300, O=4, D=4)
+    ys, m0, S0, A, Q, C, r, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(3, 300, 4, 4))
+    s_log = torch.linspace(-1.0, 1.0, 3, device=dev)
     def counts():
         return tracing.launches("A", None, None, True), tracing.launches("scan"), tracing.launches("scan_plain_route")
 
     before = counts()
-    ll, dll = pkalman.filter_nll_paired_batched(table, dtable, y)
+    ll, dll = filters.linear_member_lls(ys, r, m0, S0, A, Q, C, 1, -8.0, 8.0)(s_log)
     torch.cuda.synchronize()
     assert counts() == (before[0], before[1], before[2] + 1)
     assert ll.device.type == "cuda"
-    want, want_d = pkalman._staged_nll_paired(table.cpu(), dtable.cpu(), y.cpu())
+    want, want_d = filters.linear_member_lls(*(x.cpu() for x in (ys, r, m0, S0, A, Q, C)), 1, -8.0, 8.0)(s_log.cpu())
     _close(ll.cpu(), want)
     _close(dll.cpu(), want_d)
-    ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(3, 300, 4, 4))
-    res = pkalman.kalman_smoother_parallel(ys, m0, S0, 0.95 * A, Q, C, r_tv)
+    res = filters.kalman_smoother_parallel(ys, m0, S0, 0.95 * A, Q, C, r_tv)
     torch.cuda.synchronize()
     assert tracing.launches("scan_plain_route") == before[2] + 3 and tracing.launches("scan") == before[1]
-    want_s = pkalman.kalman_smoother_parallel(*(x.cpu() for x in (ys, m0, S0, 0.95 * A, Q, C, r_tv)))
+    want_s = filters.kalman_smoother_parallel(*(x.cpu() for x in (ys, m0, S0, 0.95 * A, Q, C, r_tv)))
     _close(res.smoothed_means.cpu(), want_s.smoothed_means)
 
 
@@ -235,14 +235,14 @@ def test_staged_nll_at_12_observations_matches_plain(dev):
     plane NLL: one paired lane-batched scan launch, no kernel A launch."""
     table, dtable, y = _nll_operands(dev, 3, 300, O=12, D=3)
     before = (tracing.launches("A", None, None, True), tracing.launches("scan", "filter", True, 3))
-    ll, dll = pkalman._staged_nll_paired(table, dtable, y)
+    ll, dll = filters._staged_nll_paired(table, dtable, y)
     torch.cuda.synchronize()
     assert (tracing.launches("A", None, None, True), tracing.launches("scan", "filter", True, 3)) == (
         before[0], before[1] + 1)
-    want, want_d = pkalman._staged_nll_paired(table.cpu(), dtable.cpu(), y.cpu())
+    want, want_d = filters._staged_nll_paired(table.cpu(), dtable.cpu(), y.cpu())
     _close(ll.cpu(), want)
     _close(dll.cpu(), want_d)
-    _close(pkalman._staged_nll(table, y).cpu(), want)
+    _close(pkalman._staged_nll(table, y, fused_filter.filter_prefix).cpu(), want)
 
 
 def _nll_tv_operands(dev, N, T, walk=True):
@@ -319,7 +319,7 @@ def test_kernel_b_matches_plain(dev, N, T, O, D):
 def _smoother_planes(dev, N, T, O, D, seed):
     """Smoothing elements of a filtered random walk, and a tangent for them."""
     ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, O, D, seed=seed))
-    fr = pkalman.kalman_filter_parallel(ys, m0, S0, 0.95 * A, Q, C, r_tv, compute_ll=False)
+    fr = filters.kalman_filter_parallel(ys, m0, S0, 0.95 * A, Q, C, r_tv, compute_ll=False)
     planes = pkalman._make_smoother_elements(fr.filtered_means, fr.filtered_covs, 0.95 * A, Q)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     tangents = (0.1 * torch.randn(planes.shape, generator=gen)).to(dev)
@@ -554,17 +554,15 @@ def _scan_operands(dev, kind, N, T, D):
     """(planes, tangents) of N lanes of T steps, symmetric tangents for the
     filter, and the instance's whole-sequence and sharded scans, float and
     paired."""
-    from eks_tpu_torch.parallel import mesh
-
     if kind == "smoother":
         planes, tangents = _smoother_planes(dev, N, T, 2 * D if D > 1 else 2, D, seed=D)
         return (planes, tangents, fused_filter.smoother_suffix, fused_filter.smoother_suffix_paired,
-                mesh.smoother_suffix_sharded, mesh.smoother_suffix_paired_sharded)
+                shards.smoother_suffix_sharded, shards.smoother_suffix_paired_sharded)
     ys, m0, S0, A, Q, C, _, r_tv = (torch.as_tensor(x, device=dev) for x in _lanes(N, T, max(2 * D - 2, 2), D))
     planes = pkalman._make_filter_elements(ys, m0, S0, A, Q, C, r_tv)
     tangents = _symmetric_cj(0.1 * torch.ones_like(planes), D)
     return (planes, tangents, fused_filter.filter_prefix, fused_filter.filter_prefix_paired,
-            mesh.filter_prefix_sharded, mesh.filter_prefix_paired_sharded)
+            shards.filter_prefix_sharded, shards.filter_prefix_paired_sharded)
 
 
 @pytest.mark.parametrize("kind", ["filter", "smoother"])
@@ -642,17 +640,15 @@ def test_time_sharded_loss_in_a_worker_thread_gives_the_main_threads_bits(dev):
     in turns, and the launch counts add up under their lock."""
     import threading
 
-    from eks_tpu_torch.parallel import mesh
-
     table, dtable, y = _nll_operands(dev, 3, 2000, O=2, D=2, walk=True)
-    shards = mesh.TimeShards((dev,) * 4, y.shape[-1])
-    main = torch.stack(pkalman._staged_nll_paired(table, dtable, y, shards))
+    time_shards = shards.TimeShards((dev,) * 4, y.shape[-1])
+    main = torch.stack(filters._staged_nll_paired(table, dtable, y, time_shards))
     before = tracing.launches("scan", "filter", True, 2)
     seen = []
 
     def work():
         with torch.cuda.device(dev):
-            seen.append(torch.stack(pkalman._staged_nll_paired(table, dtable, y, shards)))
+            seen.append(torch.stack(filters._staged_nll_paired(table, dtable, y, time_shards)))
 
     threads = [threading.Thread(target=work) for _ in range(2)]
     for t in threads:

@@ -1,5 +1,5 @@
 """Kernel B of the PyTorch port (eks_tpu_torch/ops/fused_filter.py) and the
-parallel filter and smoother around it (ops/pkalman.py): the plain prefix
+parallel filter and smoother around it (ops/filters.py): the plain prefix
 scan against the JAX package's Pallas prefix-scan kernel (interpret mode)
 and against the port's float64 sequential filter; the plain smoother suffix
 scan against the Pallas smoother kernel and the float64 sequential RTS pass;
@@ -18,7 +18,7 @@ from eks_tpu.ops import pkalman as jax_pk
 from eks_tpu.ops.pallas_filter import _scan_fn_batched, filter_prefix_pallas, smoother_suffix_pallas
 from eks_tpu_torch import tracing
 from eks_tpu_torch.convert import params_from_numpy, smoother_planes_from_numpy
-from eks_tpu_torch.ops import fused_filter, pkalman
+from eks_tpu_torch.ops import filters, fused_filter, pkalman
 from eks_tpu_torch.ops.kalman import kalman_filter, kalman_smoother
 from tests.test_torch_fused_nll import _FakeCuda
 
@@ -78,7 +78,7 @@ def test_plain_scan_matches_float64_sequential_filter(O, D):
     ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(1), 3, 173, O=O, D=D)
     params = params_from_numpy(m0, S0, A, Q, C, r)
     y_t = torch.as_tensor(ys)
-    ms, Ps = pkalman._run_filter_prefix(pkalman._make_filter_elements(y_t, *params))
+    ms, Ps = filters._run_filter_prefix(pkalman._make_filter_elements(y_t, *params))
     seq = kalman_filter(y_t.double(), *(p.double() for p in params))
     _close(ms.numpy(), seq.filtered_means.numpy())
     _close(Ps.numpy(), seq.filtered_covs.numpy())
@@ -96,7 +96,7 @@ def test_plain_scan_beyond_d3_matches_jax_associative_scan(D):
     ms_j, Ps_j = vmap(jax_pk._run_filter_prefix)(elems)
     planes = pkalman._aos_planes(*(torch.tensor(np.asarray(leaf)) for leaf in elems))
     assert planes.shape == (2, 3 * D * D + 2 * D, 120)
-    ms, Ps = pkalman._run_filter_prefix(planes)
+    ms, Ps = filters._run_filter_prefix(planes)
     _close_entrywise(ms.numpy(), ms_j)
     _close_entrywise(Ps.numpy(), Ps_j)
 
@@ -126,11 +126,11 @@ def test_parallel_filter_and_smoother_match_jax():
         *(jnp.asarray(x) for x in (ys, m0, S0, A, Q, C, r))
     )
     params = params_from_numpy(m0, S0, A, Q, C, r)
-    res = pkalman.kalman_smoother_parallel(torch.as_tensor(ys), *params)
+    res = filters.kalman_smoother_parallel(torch.as_tensor(ys), *params)
     _close(res.filtered_means.numpy(), jr.filtered_means)
     _close(res.smoothed_means.numpy(), jr.smoothed_means)
     _close(res.smoothed_covs.numpy(), jr.smoothed_covs)
-    fr = pkalman.kalman_filter_parallel(torch.as_tensor(ys), *params)
+    fr = filters.kalman_filter_parallel(torch.as_tensor(ys), *params)
     np.testing.assert_allclose(fr.log_likelihood.numpy(), np.asarray(jr.log_likelihood), rtol=RTOL)
     seq = kalman_smoother(torch.as_tensor(ys).double(), *(p.double() for p in params))
     _close(res.smoothed_means.numpy(), seq.smoothed_means.numpy())
@@ -152,7 +152,7 @@ def _smoother_elements(T, D, seed, N=2):
     ys, m0, S0, A, Q, C, r = _lanes(np.random.default_rng(seed), N, T, O=2 * D, D=D)
     A = (0.95 * A).astype(np.float32)
     params = params_from_numpy(m0, S0, A, Q, C, r)
-    fr = pkalman.kalman_filter_parallel(torch.as_tensor(ys), *params, compute_ll=False)
+    fr = filters.kalman_filter_parallel(torch.as_tensor(ys), *params, compute_ll=False)
     planes = pkalman._make_smoother_elements(fr.filtered_means, fr.filtered_covs, params[2], params[3])
     return planes, (ys, m0, S0, A, Q, C, r), fr
 
@@ -189,8 +189,8 @@ def test_plain_smoother_suffix_matches_pallas_kernel_and_sequential_rts(T, D):
     # elements and filter are float32, the oracle float64 throughout
     _close_entrywise(sm_all, seq.smoothed_means.numpy(), tol=2e-5)
     _close_entrywise(sP_all, seq.smoothed_covs.numpy(), tol=2e-5)
-    # the smoother of ops/pkalman.py goes through the same wrapper
-    sm_p, sP_p = pkalman._rts_from_filtered(
+    # the smoother of ops/filters.py goes through the same wrapper
+    sm_p, sP_p = filters._rts_from_filtered(
         fr.filtered_means, fr.filtered_covs, torch.as_tensor(A), torch.as_tensor(Q))
     np.testing.assert_array_equal(sm_p.numpy(), sm_all)
     np.testing.assert_array_equal(sP_p.numpy(), sP_all)

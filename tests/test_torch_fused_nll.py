@@ -15,7 +15,7 @@ from jax import vmap
 from eks_tpu.ops import pallas_nll as jax_nll
 from eks_tpu_torch import tracing
 from eks_tpu_torch.convert import params_from_numpy, scalar_table_from_numpy
-from eks_tpu_torch.ops import fused_nll, pkalman
+from eks_tpu_torch.ops import filters, fused_filter, fused_nll, pkalman
 
 # float32 filters over a few hundred steps, summed in another association
 # order than the Pallas kernel's 128 chunks: the JAX package's own parity
@@ -207,43 +207,48 @@ def test_staged_nll_at_12_observations_matches_jax_staged_pipeline():
     sl_t = torch.as_tensor(s_log)
     table, dtable = torch.func.jvp(pack, (sl_t,), (torch.ones_like(sl_t),))
     y_planes = torch.as_tensor(np.ascontiguousarray(ys.transpose(0, 2, 1)))
-    ll_p, dll_p = pkalman._staged_nll_paired(table, dtable, y_planes)
+    ll_p, dll_p = filters._staged_nll_paired(table, dtable, y_planes)
     np.testing.assert_allclose(ll_p.numpy(), np.asarray(ll_j), rtol=1e-5)
     np.testing.assert_allclose(dll_p.numpy(), np.asarray(dll_j), rtol=1e-5, atol=1e-5 * np.abs(np.asarray(dll_j)).max())
-    # the optimizer's dispatch takes this path, and its value is the
+    # the optimizer's route takes this path, and its value is the
     # value-only staged pipeline's
-    ll_d, dll_d = pkalman.filter_nll_paired_batched(table, dtable, y_planes)
+    ll_d, dll_d = filters.linear_member_lls(y_t, r_t, m0_t, S0_t, A_t, Q_t, C_t, 1, -8.0, 8.0)(sl_t)
     np.testing.assert_array_equal(ll_d.numpy(), ll_p.numpy())
     np.testing.assert_array_equal(dll_d.numpy(), dll_p.numpy())
-    np.testing.assert_allclose(pkalman._staged_nll(table, y_planes).numpy(), ll_p.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(pkalman._staged_nll(table, y_planes, fused_filter.filter_prefix).numpy(), ll_p.numpy(),
+                               rtol=1e-6)
+
+
+def _route_operands(N, O, D):
+    """The flattened operands of ``filters.linear_member_lls`` for N
+    members of 16 steps: zero observations, unit noise, identity model."""
+    eye = torch.eye(D).expand(N, D, D)
+    return (torch.zeros(N, 16, O), torch.ones(N, O), torch.zeros(N, D), eye, eye, eye,
+            torch.eye(O, D).expand(N, O, D))
 
 
 def test_nll_dispatch_takes_the_fused_kernel_up_to_8_observations(monkeypatch):
-    """``filter_nll_paired_batched`` at two to four cameras (D = 3, O = 4, 6,
-    8) is the fused NLL, as in the JAX package, and at five cameras and more
-    (O = 10, 12) the staged path."""
+    """The s-optimizer's loss route (``filters.linear_member_lls``) at two to
+    four cameras (D = 3, O = 4, 6, 8) is the fused NLL, as in the JAX
+    package, and at five cameras and more (O = 10, 12) the staged path."""
     taken = []
     monkeypatch.setattr(fused_nll, "fused_nll_paired", lambda *a: taken.append("fused"))
-    monkeypatch.setattr(pkalman, "_staged_nll_paired", lambda *a: taken.append("staged"))
+    monkeypatch.setattr(filters, "_staged_nll_paired", lambda *a: taken.append("staged"))
     for O in (4, 6, 8, 10, 12):
-        table = torch.zeros(2, pkalman._scalar_offsets(3, O)[1])
-        pkalman.filter_nll_paired_batched(table, table, torch.zeros(2, O, 16))
+        filters.linear_member_lls(*_route_operands(2, O, 3), 1, -8.0, 8.0)(torch.zeros(2))
     assert taken == ["fused", "fused", "fused", "staged", "staged"]
     # n_latent 1, 2 and 4 at two cameras: the fused NLL up to D = 3, as the
     # JAX package's _use_fused_nll, and the staged path at D = 4
     taken.clear()
     for D in (1, 2, 4):
-        table = torch.zeros(2, pkalman._scalar_offsets(D, 4)[1])
-        pkalman.filter_nll_paired_batched(table, table, torch.zeros(2, 4, 16))
+        filters.linear_member_lls(*_route_operands(2, 4, D), 1, -8.0, 8.0)(torch.zeros(2))
     assert taken == ["fused", "fused", "staged"]
-    # and the fused path's value is the fused NLL's
+    # and the fused path's value (at s = 1) is the fused NLL's
     monkeypatch.undo()
     ys, m0, S0, A, Q, C, r = _problem(np.random.default_rng(2), 2, 60, 4, 3)
-    params = params_from_numpy(m0, S0, A, Q, C, r)
+    m0_t, S0_t, A_t, Q_t, C_t, r_t = params = params_from_numpy(m0, S0, A, Q, C, r)
     y_t = torch.as_tensor(ys)
-    table = pkalman._pack_scalars(y_t[:, 0], *params)
-    y_planes = y_t.transpose(1, 2).contiguous()
-    ll, _ = pkalman.filter_nll_paired_batched(table, torch.zeros_like(table), y_planes)
+    ll, _ = filters.linear_member_lls(y_t, r_t, m0_t, S0_t, A_t, Q_t, C_t, 1, -8.0, 8.0)(torch.zeros(2))
     np.testing.assert_array_equal(ll.numpy(), fused_nll.filter_nll_fused_batched(y_t, *params).numpy())
 
 

@@ -22,7 +22,7 @@ from eks_tpu_torch.convert import (
     tv_planes_from_numpy,
     tv_scalar_table_from_numpy,
 )
-from eks_tpu_torch.ops import fused_nll, pkalman
+from eks_tpu_torch.ops import filters, fused_nll, pkalman
 from eks_tpu_torch.ops.kalman import kalman_filter
 from tests.test_torch_fused_nll import _FakeCuda, _problem
 
@@ -57,7 +57,7 @@ def test_plain_kernel_c_matches_jax_fused_tv_nll(N, T, O, D):
     params = params_from_numpy(*args[1:])
     y_t = torch.as_tensor(args[0])
     ll_port = fused_nll.filter_nll_fused_tv_batched(y_t, *params)
-    ll_staged = pkalman.filter_nll_parallel_planes_tv(y_t, *params)
+    ll_staged = filters.filter_nll_parallel_planes_tv(y_t, *params)
     ll_seq64 = kalman_filter(y_t.double(), *(p.double() for p in params)).log_likelihood
     np.testing.assert_allclose(ll_port.numpy(), np.asarray(ll_jax), rtol=RTOL)
     np.testing.assert_allclose(ll_staged.numpy(), ll_port.numpy(), rtol=RTOL)

@@ -1,4 +1,4 @@
-"""The port's multi-device smoothing (eks_tpu_torch/parallel/mesh.py and the
+"""The port's multi-device smoothing (eks_tpu_torch/ops/shards.py, parallel/ and the
 ``devices`` / ``partition`` paths) against the JAX package, case by case of
 tests/test_parallel.py, on the CPU: the JAX package on its eight virtual CPU
 devices (tests/conftest.py), the port on a mesh of the CPU named up to eight
@@ -26,7 +26,7 @@ from eks_tpu.parallel import make_mesh as jax_make_mesh
 from eks_tpu.parallel import optimize_and_smooth_sharded as jax_optimize_and_smooth_sharded
 from eks_tpu.parallel.mesh import smooth_time_sharded as jax_smooth_time_sharded
 from eks_tpu_torch.core import run_kalman_smoother
-from eks_tpu_torch.ops import fused_filter, pkalman
+from eks_tpu_torch.ops import filters, fused_filter, pkalman
 from eks_tpu_torch.parallel import (
     filter_prefix_paired_sharded,
     filter_prefix_sharded,
@@ -39,7 +39,7 @@ from eks_tpu_torch.parallel import (
     smoother_suffix_paired_sharded,
     smoother_suffix_sharded,
 )
-from eks_tpu_torch.parallel.mesh import TimeShards, map_shards
+from eks_tpu_torch.ops.shards import TimeShards, map_shards
 from tests.test_parallel import _toy
 
 
@@ -412,10 +412,10 @@ def test_sharded_linear_filter_and_smoother_match_one_shard(n_shards, r_form):
     r = r[:, 0] if r_form == "constant" else r
     Q = 0.2 * S0
     shards = TimeShards(make_mesh(n_shards, "cpu"), ys.shape[1])
-    one_f = pkalman.kalman_filter_parallel(ys, m0, S0, A, Q, C, r)
-    one_s = pkalman.kalman_smoother_parallel(ys, m0, S0, A, Q, C, r, compute_ll=True)
-    got_f = pkalman.kalman_filter_parallel(ys, m0, S0, A, Q, C, r, shards=shards)
-    got_s = pkalman.kalman_smoother_parallel(ys, m0, S0, A, Q, C, r, shards=shards, compute_ll=True)
+    one_f = filters.kalman_filter_parallel(ys, m0, S0, A, Q, C, r)
+    one_s = filters.kalman_smoother_parallel(ys, m0, S0, A, Q, C, r, compute_ll=True)
+    got_f = filters.kalman_filter_parallel(ys, m0, S0, A, Q, C, r, shards=shards)
+    got_s = filters.kalman_smoother_parallel(ys, m0, S0, A, Q, C, r, shards=shards, compute_ll=True)
     for a, b in zip((*got_f, *got_s), (*one_f, *one_s)):
         assert float(((a - b).abs() / (1 + b.abs())).max()) < 1e-9
     torch.testing.assert_close(one_s.log_likelihood, one_f.log_likelihood, rtol=1e-12, atol=0)
@@ -438,7 +438,7 @@ def test_sharded_pupil_loss_matches_kernel_c_plain_version(n_shards):
                                (torch.tensor(1.0, dtype=torch.float64),))
     yr = torch.cat([ys.transpose(1, 2), r.transpose(1, 2)], dim=1)
     want = fused_nll_tv_paired(tab, dtab, yr)
-    got = pkalman.table_nll_tv_paired_sharded(tab, dtab, yr, TimeShards(make_mesh(n_shards, "cpu"), ys.shape[1]))
+    got = filters.table_nll_tv_paired_sharded(tab, dtab, yr, TimeShards(make_mesh(n_shards, "cpu"), ys.shape[1]))
     for a, b in zip(got, want):
         assert float(((a - b).abs() / (1 + b.abs())).max()) < 1e-9
 
@@ -475,7 +475,7 @@ def test_a_worker_thread_gives_the_main_threads_bits():
     shards = TimeShards(make_mesh(4, "cpu"), T)
 
     def work():
-        return pkalman._staged_nll_paired(table, dtable, planes, shards)
+        return filters._staged_nll_paired(table, dtable, planes, shards)
 
     main = work()
     seen, errors = [], []
