@@ -55,8 +55,9 @@ from eks_tpu_torch.ops.linalg import jvp
 from eks_tpu_torch.ops.pkalman import _pack_scalars_tv, _prior_information
 from eks_tpu_torch.utils import (
     crop_frames,
+    dlc_frame,
     format_data,
-    make_dlc_pandas_index,
+    pull_outputs,
     resolve_device,
     save_dlc_csv,
 )
@@ -331,7 +332,7 @@ def _pupil_package(
 
 
 def _pupil_table(keypoint_names: list, block: np.ndarray) -> pd.DataFrame:
-    return pd.DataFrame(block, columns=make_dlc_pandas_index(keypoint_names, labels=_PUPIL_LABELS))
+    return dlc_frame(block, keypoint_names, _PUPIL_LABELS)
 
 
 def _pupil_block(
@@ -595,7 +596,7 @@ def run_pupil_kalman_smoother(
                   r_np[None], [s_d], [s_c], [diameters_var], [x_var], [y_var]),
         sequential=sequential, time_mesh=_time_mesh(devices, dev),
     )
-    ms, Vs = ms[0].cpu().numpy(), Vs[0].cpu().numpy()
+    ms, Vs = pull_outputs(ms[0], Vs[0])
     tracing.end(timings, span, stage=True)
     return [float(s_d), float(s_c)], ms, Vs
 
@@ -734,7 +735,7 @@ def ensemble_kalman_smoother_ibl_pupil_sessions(
         *_tensors(dev, ys_np), m0_t, S0_t, C_t,
         *_tensors(dev, r_np, s_opt[:, 0], s_opt[:, 1]), dv, xv, yv,
     )
-    ms, Vs = ms.cpu().numpy(), Vs.cpu().numpy()  # one copy for every session
+    ms, Vs = pull_outputs(ms, Vs)  # one copy for every session
     tracing.end(timings, span, stage=True)
 
     span = tracing.begin(timings, "package")

@@ -72,8 +72,9 @@ from eks_tpu_torch.marker_array import (
 from eks_tpu_torch.stats import PCA, _svd_flip_rows, compute_mahalanobis, compute_pca
 from eks_tpu_torch.utils import (
     center_predictions,
+    dlc_frame,
     format_data,
-    make_dlc_pandas_index,
+    pull_outputs,
     resolve_device,
     save_dlc_csv,
 )
@@ -409,12 +410,8 @@ def ensemble_kalman_smoother_multicam(
         partition=partition,
         timings=timings,
     )
-    # one batched pull of the device-resident results
+    # reprojection + packaging, from one pull of the device-resident results
     span = tracing.begin(timings, "package")
-    ms_dev, Vs_dev = ms, Vs
-    ms, Vs = ms.cpu().numpy(), Vs.cpu().numpy()
-
-    # reprojection + packaging
     likes = emA_likes.array[0, :, :, :, 0]  # (C, T, K)
     unsm = emA_unsm.array[0]  # (C, T, K, 2)
     if camgroup is not None:
@@ -423,13 +420,14 @@ def ensemble_kalman_smoother_multicam(
         # ones
         var_cols = emA_vars.array[0]
         sm4 = _package_multicam_nonlinear(
-            ms_dev, Vs_dev, upload(ensemble_vars), *(upload(a) for a in stack_camera_params(camgroup)),
-        ).cpu().numpy()  # (C, T, K, 4)
+            ms, Vs, upload(ensemble_vars), *(upload(a) for a in stack_camera_params(camgroup)),
+        )  # (C, T, K, 4)
+        ms, Vs, sm4 = pull_outputs(ms, Vs, sm4)
         xy_cols, post_cols = sm4[..., :2], sm4[..., 2:]
     else:
         var_cols = infl
         means = emA_means.array[0, :, 0, :, :]  # (C, K, 2)
-        Cs_np = Cs.cpu().numpy()  # (K, 2C, L)
+        ms, Vs, Cs_np = pull_outputs(ms, Vs, Cs)  # Cs (K, 2C, L)
         y_m = np.einsum("koj,ktj->kto", Cs_np, ms)  # (K, T, 2C)
         y_v_diag = np.einsum("koj,ktjl,kol->kto", Cs_np, Vs, Cs_np)  # (K, T, 2C)
         # posterior var + ensemble var (deliberate quirk)
@@ -695,10 +693,9 @@ def _smoother_multicam_linear_fused(
         arr_3d = _package_3d(ms, Vs)
     else:
         arr_3d = torch.zeros((T, K * 6), dtype=sm4.dtype, device=dev)
-    sm4_np, stats_np, arr_3d_np = (x.cpu().numpy() for x in (sm4, stats, arr_3d))
-    blocks = _camera_blocks(sm4_np, stats_np)
+    *blocks, arr_3d = pull_outputs(*_camera_blocks(sm4, stats), arr_3d)
     tracing.end(timings, span, stage=True)
-    camera_dfs, df_3d = _tables(blocks, arr_3d_np, keypoint_names, timings)
+    camera_dfs, df_3d = _tables(blocks, arr_3d, keypoint_names, timings)
     return camera_dfs, s_finals, df_3d
 
 
@@ -795,39 +792,38 @@ def _smoother_multicam_nonlinear_fused(
 
     span = tracing.begin(timings, "package")
     sm4 = _package_multicam_nonlinear(ms, Vs, evars, Ks, dists, extr)
-    sm4_np, stats_np, arr_3d_np = (x.cpu().numpy() for x in (sm4, stats, _package_3d(ms, Vs)))
-    blocks = _camera_blocks(sm4_np, stats_np)
+    *blocks, arr_3d = pull_outputs(*_camera_blocks(sm4, stats), _package_3d(ms, Vs))
     tracing.end(timings, span, stage=True)
-    camera_dfs, df_3d = _tables(blocks, arr_3d_np, keypoint_names, timings)
+    camera_dfs, df_3d = _tables(blocks, arr_3d, keypoint_names, timings)
     return camera_dfs, s_finals, df_3d
 
 
-def _camera_blocks(sm4_np, stats_np) -> list:
-    """Interleave the smoother-dependent block (C, T, K, 4) with the ensemble
-    stats (C, T, K, 5) into one (T, K, 9) block per camera."""
-    return [
-        np.concatenate(
-            [
-                sm4_np[c][..., :2],  # x, y
-                stats_np[c][..., 4:5],  # likelihood
-                stats_np[c][..., 0:2],  # x_ens_median, y_ens_median
-                stats_np[c][..., 2:4],  # x_ens_var, y_ens_var
-                sm4_np[c][..., 2:4],  # x/y posterior var
-            ],
-            axis=-1,
-        )
-        for c in range(sm4_np.shape[0])
-    ]
+def _camera_blocks(sm4: torch.Tensor, stats: torch.Tensor) -> tuple:
+    """The camera tables' blocks on the device, one (T, K * 9) block per
+    camera (views of one (C, T, K * 9) tensor): the smoother-dependent block
+    (C, T, K, 4) interleaved with the ensemble stats (C, T, K, 5) in
+    OUTPUT_LABELS order."""
+    C, T, K, _ = sm4.shape
+    return torch.cat(
+        [
+            sm4[..., :2],  # x, y
+            stats[..., 4:5],  # likelihood
+            stats[..., 0:2],  # x_ens_median, y_ens_median
+            stats[..., 2:4],  # x_ens_var, y_ens_var
+            sm4[..., 2:4],  # x/y posterior var
+        ],
+        dim=-1,
+    ).reshape(C, T, K * 9).unbind(0)
 
 
 def _tables(blocks, arr_3d, keypoint_names, timings) -> tuple:
-    """The pandas tables of the outputs, in the span "table": one
-    9-column-per-keypoint DataFrame per camera from its (T, K, 9) block, and
-    the 3-D latents' from ``arr_3d`` (T, 6K)."""
+    """The pandas tables of the outputs, in the span "table", each wrapped
+    around its host block without a copy: one 9-column-per-keypoint
+    DataFrame per camera from its (T, K, 9) or (T, K * 9) block, and the 3-D
+    latents' from ``arr_3d`` (T, 6K)."""
     span = tracing.begin(timings, "table")
-    cols = make_dlc_pandas_index(keypoint_names, OUTPUT_LABELS)
-    camera_dfs = [pd.DataFrame(b.reshape(b.shape[0], -1), columns=cols) for b in blocks]
-    df_3d = pd.DataFrame(arr_3d, columns=make_dlc_pandas_index(keypoint_names, _LABELS_3D))
+    camera_dfs = [dlc_frame(b.reshape(b.shape[0], -1), keypoint_names, OUTPUT_LABELS) for b in blocks]
+    df_3d = dlc_frame(arr_3d, keypoint_names, _LABELS_3D)
     tracing.end(timings, span)
     return camera_dfs, df_3d
 

@@ -24,13 +24,12 @@ import os
 from typing import Literal
 
 import numpy as np
-import pandas as pd
 import torch
 
 from eks_tpu_torch import tracing
 from eks_tpu_torch.core import _ensemble_kernel, _nanvar, run_kalman_smoother
 from eks_tpu_torch.marker_array import MarkerArray, input_dfs_to_markerArray
-from eks_tpu_torch.utils import format_data, make_dlc_pandas_index, resolve_device, save_dlc_csv
+from eks_tpu_torch.utils import dlc_frame, format_data, pull_outputs, resolve_device, save_dlc_csv
 
 logger = logging.getLogger(__name__)
 
@@ -310,10 +309,7 @@ def ensemble_kalman_smoother_singlecam_sessions(
     results = []
     for i, names in enumerate(keypoint_names):
         lo, hi = int(offsets[i]), int(offsets[i + 1])
-        sub = pd.DataFrame(
-            final_np[:, lo:hi, :].reshape(n_frames, (hi - lo) * n_labels),
-            columns=make_dlc_pandas_index(names, labels=OUTPUT_LABELS),
-        )
+        sub = dlc_frame(final_np[:, lo:hi, :].reshape(n_frames, (hi - lo) * n_labels), names, OUTPUT_LABELS)
         results.append((sub, s_all[lo:hi]))
     tracing.end(timings, span)
     return results
@@ -354,9 +350,8 @@ def ensemble_kalman_smoother_singlecam(
     )
     span = tracing.begin(timings, "table")
     n_frames, n_keypoints = final_np.shape[:2]
-    markers_df = pd.DataFrame(
-        final_np.reshape(n_frames, n_keypoints * len(OUTPUT_LABELS)),
-        columns=make_dlc_pandas_index(keypoint_names, labels=OUTPUT_LABELS),
+    markers_df = dlc_frame(
+        final_np.reshape(n_frames, n_keypoints * len(OUTPUT_LABELS)), keypoint_names, OUTPUT_LABELS
     )
     tracing.end(timings, span)
     return markers_df, s_finals
@@ -398,7 +393,7 @@ def _singlecam_smooth_table(
     )
 
     span = tracing.begin(timings, "package")
-    final_np = _package_singlecam_full(stats, means, ms, Vs, eye).cpu().numpy()
+    (final_np,) = pull_outputs(_package_singlecam_full(stats, means, ms, Vs, eye))
     tracing.end(timings, span, stage=True)
     return final_np, s_finals
 

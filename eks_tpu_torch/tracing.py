@@ -30,8 +30,12 @@ s-optimizer's Adam step kernel, one launch an Adam iteration on the card),
 paired, D)`` (a carried downsweep, also counted as a scan), and
 ``("scan_plain_route", kind)`` and
 ``("scan_carried_plain_route", kind)`` (scans and carry combines of CUDA
-tensors beyond D = 3, which the plain version runs). ``launches`` sums it
-over a pattern.
+tensors beyond D = 3, which the plain version runs). Beside the kernels, the
+output path (``utils/io.py``): ``("output_pull",)`` (one device-to-host copy
+of an entry point's results), ``("frame", "wrapped")`` (one output table
+wrapped around that copy) and ``("frame", "index_built")`` (one build of a
+table's column index, which is cached). ``launches`` sums it over a
+pattern.
 
 The process record. Filled once per process, traced or not: the package's
 import, each kernel library's first load (with its ``nvcc`` build as a

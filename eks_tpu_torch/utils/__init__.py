@@ -8,9 +8,11 @@ from eks_tpu_torch.utils.frames import build_R_from_vars, center_predictions, cr
 from eks_tpu_torch.utils.io import (
     convert_lp_dlc,
     convert_slp_dlc,
+    dlc_frame,
     format_data,
     get_keypoint_names,
     make_dlc_pandas_index,
+    pull_outputs,
     read_slp_predictions,
     save_dlc_csv,
 )
@@ -22,9 +24,11 @@ __all__ = [
     "convert_slp_dlc",
     "crop_frames",
     "crop_R",
+    "dlc_frame",
     "format_data",
     "get_keypoint_names",
     "make_dlc_pandas_index",
+    "pull_outputs",
     "read_slp_predictions",
     "resolve_device",
     "save_dlc_csv",

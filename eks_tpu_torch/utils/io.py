@@ -18,23 +18,32 @@ for every CSV when ``EKS_TPU_TORCH_NATIVE_CSV=0``; ``native.READS`` and
 package, each one also leaves a flat ``{file}.csv`` copy in the working
 directory. Files of other extensions are skipped as the JAX package skips
 them.
+
+Output tables cross from the card once: ``pull_outputs`` brings an entry
+point's results to the host in one copy, and ``dlc_frame`` wraps a table
+around (a view of) that copy, without copying it again, over a cached DLC
+column index.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
 
 import numpy as np
 import pandas as pd
+import torch
 
-from eks_tpu_torch import native
+from eks_tpu_torch import native, tracing
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "dlc_frame",
     "make_dlc_pandas_index",
+    "pull_outputs",
     "convert_lp_dlc",
     "convert_slp_dlc",
     "read_slp_predictions",
@@ -55,6 +64,42 @@ def make_dlc_pandas_index(
         [["ensemble-kalman_tracker"], keypoint_names, labels],
         names=["scorer", "bodyparts", "coords"],
     )
+
+
+@functools.lru_cache(maxsize=64)
+def _dlc_columns(keypoint_names: tuple, labels: tuple) -> pd.MultiIndex:
+    tracing.count(("frame", "index_built"))
+    return make_dlc_pandas_index(list(keypoint_names), list(labels))
+
+
+def dlc_frame(array2d: np.ndarray, keypoint_names, labels) -> pd.DataFrame:
+    """An output table over ``array2d`` (frames, keypoints × labels), which
+    must be the call's own: a fresh host copy of its results or a view of
+    one. The frame wraps the array without copying it (pandas copies a 2-D
+    array by default), so writing into the frame writes into the array. Its
+    columns are its own shallow copy of a cached DLC index, so renaming one
+    frame's levels leaves every other frame's as they were. Counted in
+    ``tracing.LAUNCHES`` as ``("frame", "wrapped")``, and as ``("frame",
+    "index_built")`` where the index was not cached."""
+    columns = _dlc_columns(tuple(keypoint_names), tuple(labels)).copy()
+    tracing.count(("frame", "wrapped"))
+    return pd.DataFrame(array2d, columns=columns, copy=False)
+
+
+def pull_outputs(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """An entry point's results on the host in one device-to-host copy: the
+    tensors (one dtype, one device; a single one must be the call's own)
+    are laid end to end in one buffer, which comes back as numpy views with
+    the tensors' shapes. The tables built over them alias that buffer, so it
+    is a fresh one each call. Counted as ``("output_pull",)``."""
+    flat = [t.reshape(-1) for t in tensors]
+    host = (torch.cat(flat) if len(flat) > 1 else flat[0]).cpu().numpy()
+    tracing.count(("output_pull",))
+    out, at = [], 0
+    for t in tensors:
+        out.append(host[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
 
 
 def _native_csv() -> bool:

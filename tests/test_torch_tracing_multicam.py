@@ -82,6 +82,9 @@ def test_a_tuned_two_camera_call_counts_its_launches_by_instance(dev):
     _call("cuda", timings, smooth_param=None, T=500)
     n = timings["adam_iters"]
     assert n > 0
-    assert timings["counts"] == {("table", 3, 4): n, ("A", 3, 4, True): n, ("adam_step", 1): n,
-                                 ("scan", "filter", False, 3): 1, ("scan", "smoother", False, 3): 1}
+    counts = dict(timings["counts"])
+    counts.pop(("frame", "index_built"), None)  # none where the names' index is cached
+    assert counts == {("table", 3, 4): n, ("A", 3, 4, True): n, ("adam_step", 1): n,
+                      ("scan", "filter", False, 3): 1, ("scan", "smoother", False, 3): 1,
+                      ("output_pull",): 1, ("frame", "wrapped"): 3}
     assert [s[0] for s in timings["spans"]].count("prep.pca") == 1
